@@ -1,0 +1,281 @@
+"""ConvNeXt audio-tagging trunk of the PyTorch port (eval only).
+
+The modules hold the parameters under the reference's state-dict names
+(pytorch/convnext.py:145-261), so a reference checkpoint loads with
+``load_state_dict(strict=True)``:
+
+    bn0.{weight,bias,running_mean,running_var}
+    downsample_layers.0.{0: stem conv, 1: LN}
+    downsample_layers.{1,2,3}.{0: LN, 1: 2x2 conv}
+    stages.i.j.{dwconv,norm,pwconv1,pwconv2,gamma}
+    norm, head_audioset
+
+The forward functions mirror the JAX package's ``models/convnext.py``
+function for function and keep its rounding points. Activations are NHWC
+(B, H, W, C) throughout. With ``block_impl="xla_approx"`` at eval, every
+block of stages 3 and 4 runs the fused block kernel (``ops/fused_block.py``);
+the other blocks run ``_block_apply`` in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from audioset_convnext_inf_torch.config import ConvNeXtConfig
+from audioset_convnext_inf_torch.models import layers as L
+from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
+from audioset_convnext_inf_torch.ops.fused_block import fused_block
+
+# Stage indices whose blocks run the fused kernel in the bf16 serving
+# config: the JAX package's set (its _FUSED_STAGE_TILES keys). The fused and
+# unfused blocks round bf16 at different points, so this set is part of what
+# bf16 parity with the JAX package means.
+FUSED_STAGES = (2, 3)
+
+
+class BatchNorm0(nn.Module):
+    """bn0 over the mel axis, eval mode: exactly the four reference entries
+    (no ``num_batches_tracked``, which the carried weights lack)."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+        self.register_buffer("running_mean", torch.zeros(n))
+        self.register_buffer("running_var", torch.ones(n))
+
+    def fold(self, eps: float):
+        """(a, b) in f32 with bn0(x) = a*x + b."""
+        a = self.weight.float() * torch.rsqrt(self.running_var.float() + eps)
+        return a, self.bias.float() - a * self.running_mean.float()
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return L.layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Block(nn.Module):
+    """ConvNeXt block parameters (reference convnext.py:58-87)."""
+
+    def __init__(self, dim: int, eps: float, layer_scale: float):
+        super().__init__()
+        self.dwconv = nn.utils.skip_init(nn.Conv2d, dim, dim, 7, padding=3, groups=dim)
+        self.norm = LayerNorm(dim, eps)
+        self.pwconv1 = nn.utils.skip_init(nn.Linear, dim, 4 * dim)
+        self.pwconv2 = nn.utils.skip_init(nn.Linear, 4 * dim, dim)
+        if layer_scale > 0:
+            self.gamma = nn.Parameter(layer_scale * torch.ones(dim))
+        else:
+            self.register_parameter("gamma", None)
+
+
+class ConvNeXtModule(nn.Module):
+    """Parameters of the audio ConvNeXt, randomly initialized from ``seed``
+    on the CPU (so a seed gives the same weights on every device), then
+    moved to ``device``."""
+
+    def __init__(self, cfg: ConvNeXtConfig, device="cpu", seed: int = 0):
+        super().__init__()
+        dims = cfg.dims
+        (kh, kw), stride, pad = cfg.stem_geometry()
+        self.bn0 = BatchNorm0(cfg.frontend.n_mels)
+        self.downsample_layers = nn.ModuleList([nn.Sequential(
+            nn.utils.skip_init(nn.Conv2d, cfg.in_chans, dims[0], (kh, kw), stride, pad),
+            LayerNorm(dims[0], cfg.ln_eps),
+        )])
+        for i in range(3):
+            self.downsample_layers.append(nn.Sequential(
+                LayerNorm(dims[i], cfg.ln_eps),
+                nn.utils.skip_init(nn.Conv2d, dims[i], dims[i + 1], 2, 2),
+            ))
+        self.stages = nn.ModuleList(
+            nn.Sequential(*[Block(dims[i], cfg.ln_eps, cfg.layer_scale_init_value)
+                            for _ in range(depth)])
+            for i, depth in enumerate(cfg.depths)
+        )
+        self.norm = LayerNorm(dims[-1], cfg.ln_eps)
+        self.head_audioset = nn.utils.skip_init(nn.Linear, dims[-1], cfg.num_classes)
+        init_params_(self, cfg, torch.Generator().manual_seed(seed))
+        self.to(device)
+        self.eval()
+
+
+@torch.no_grad()
+def init_params_(model: ConvNeXtModule, cfg: ConvNeXtConfig, gen: torch.Generator) -> None:
+    """The reference recipe (trunc_normal std=0.02 for conv/linear weights,
+    zero biases); draws in the JAX package's key order. The numbers differ
+    from the JAX package's: tests carry weights across instead."""
+
+    def fill(mod: nn.Module) -> None:
+        mod.weight.copy_(L.trunc_normal(mod.weight.shape, gen))
+        mod.bias.zero_()
+
+    fill(model.downsample_layers[0][0])
+    for i in range(1, 4):
+        fill(model.downsample_layers[i][1])
+    fill(model.head_audioset)
+    for stage in model.stages:
+        for blk in stage:
+            fill(blk.dwconv)
+            fill(blk.pwconv1)
+            fill(blk.pwconv2)
+    if cfg.head_init_scale != 1.0:
+        model.head_audioset.weight.mul_(cfg.head_init_scale)
+        model.head_audioset.bias.mul_(cfg.head_init_scale)
+
+
+def count_parameters(model: nn.Module) -> int:
+    """Trainable parameter count; bn0's running stats are buffers and do not
+    count (the reference's ``count_parameters``)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _block_apply(x: torch.Tensor, blk: Block, block_impl: str = "xla") -> torch.Tensor:
+    """ConvNeXt block in plain PyTorch: erf GELU under "xla", tanh under
+    "xla_approx"."""
+    shortcut = x
+    c = x.shape[-1]
+    x = L.conv2d(x, blk.dwconv.weight, blk.dwconv.bias, padding=(3, 3), groups=c)
+    x = blk.norm(x)
+    x = L.linear(x, blk.pwconv1.weight, blk.pwconv1.bias)
+    x = torch.nn.functional.gelu(x, approximate="tanh" if block_impl == "xla_approx" else "none")
+    x = L.linear(x, blk.pwconv2.weight, blk.pwconv2.bias)
+    if blk.gamma is not None:
+        x = x * blk.gamma.to(x.dtype)
+    return shortcut + x
+
+
+def _fused_block(x: torch.Tensor, blk: Block) -> torch.Tensor:
+    return fused_block(
+        x.contiguous(), blk.dwconv.weight, blk.dwconv.bias,
+        blk.norm.weight, blk.norm.bias,
+        blk.pwconv1.weight, blk.pwconv1.bias,
+        blk.pwconv2.weight, blk.pwconv2.bias,
+        blk.gamma, blk.norm.eps,
+    )
+
+
+def _stem_conv(x: torch.Tensor, conv: nn.Conv2d, cfg: ConvNeXtConfig) -> torch.Tensor:
+    """Audio patchify stem; F.conv2d drops the remainder rows/cols exactly
+    as the JAX package's patch reshape does. Where kernel == stride and the
+    pad is a multiple of the kernel, the JAX package computes the stem as one
+    patch GEMM (one bf16 rounding), and so does this under ``acc_f32``."""
+    (kh, kw), stride, pad = cfg.stem_geometry()
+    patch_gemm = (kh, kw) == stride and pad[0] % kh == 0 and pad[1] % kw == 0
+    return L.conv2d(x, conv.weight, conv.bias, stride=stride, padding=pad,
+                    acc_f32=patch_gemm)
+
+
+def forward_features(
+    model: ConvNeXtModule,
+    x: torch.Tensor,
+    cfg: ConvNeXtConfig,
+    return_frame_embeddings: bool = False,
+) -> torch.Tensor:
+    """Spectrogram image (B, T, M, 1) -> pooled (B, C) or frames (B, H, W, C).
+
+    4x (downsample, stage), then freq-mean + time-(max+mean) pooling and the
+    final LayerNorm; frame embeddings are the pre-norm stage-4 output.
+    """
+    fused = cfg.block_impl == "xla_approx" and not model.training
+    prev_fused = False
+    for i in range(4):
+        ds = model.downsample_layers[i]
+        if i == 0:
+            x = ds[1](_stem_conv(x, ds[0], cfg))
+        else:
+            # after a fused stage the JAX package downsamples by patch GEMM
+            # (one bf16 rounding); otherwise by conv (its conv2d rounding)
+            x = L.conv2d(ds[0](x), ds[1].weight, ds[1].bias, stride=(2, 2),
+                         acc_f32=prev_fused)
+        stage_fused = fused and i in FUSED_STAGES
+        for blk in model.stages[i]:
+            x = _fused_block(x, blk) if stage_fused else _block_apply(x, blk, cfg.block_impl)
+        prev_fused = stage_fused
+
+    if return_frame_embeddings:
+        return x  # (B, H, W, C) pre-norm, reference convnext.py:276-277
+    x = x.mean(dim=2)  # freq
+    x = x.amax(dim=1) + x.mean(dim=1)  # time
+    return model.norm(x)
+
+
+def _frontend_and_bn0(
+    model: ConvNeXtModule,
+    waveform_or_spec: torch.Tensor,
+    cfg: ConvNeXtConfig,
+    frontend: LogMelFrontend,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Waveform (B, N) -> normalized spectrogram image (B, T, M, 1), eval
+    mode: bn0 folds into the frontend as a per-mel-bin f32 affine."""
+    x = waveform_or_spec
+    if x.ndim == 1:
+        x = x[None, :]
+    if x.ndim == 2:
+        if cfg.frontend.top_db is None:
+            spec = frontend(x, affine=model.bn0.fold(cfg.bn_eps))
+            return spec.permute(0, 2, 3, 1).to(compute_dtype)
+        x = frontend(x).permute(0, 2, 3, 1)
+    x = x.to(compute_dtype)
+    bn = model.bn0
+    xm = L.batch_norm_apply(x[..., 0], bn.weight, bn.bias, bn.running_mean,
+                            bn.running_var, eps=cfg.bn_eps, axis=2)
+    return xm[..., None]
+
+
+def forward(
+    model: ConvNeXtModule,
+    waveform: torch.Tensor,
+    cfg: ConvNeXtConfig,
+    frontend: LogMelFrontend,
+    compute_dtype=torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """Eval forward (reference convnext.py:287-331): sigmoid probabilities
+    and logits, both f32."""
+    x = _frontend_and_bn0(model, waveform, cfg, frontend, compute_dtype)
+    emb = forward_features(model, x, cfg)
+    head = model.head_audioset
+    logits = L.linear(emb, head.weight, head.bias).float()
+    return {"clipwise_output": torch.sigmoid(logits), "clipwise_logits": logits}
+
+
+def forward_scene_embeddings(
+    model: ConvNeXtModule,
+    waveform: torch.Tensor,
+    cfg: ConvNeXtConfig,
+    frontend: LogMelFrontend,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """(B, N) -> (B, embed_dim) post-norm pooled embedding (convnext.py:333-366)."""
+    x = _frontend_and_bn0(model, waveform, cfg, frontend, compute_dtype)
+    return forward_features(model, x, cfg)
+
+
+def forward_frame_embeddings(
+    model: ConvNeXtModule,
+    waveform: torch.Tensor,
+    cfg: ConvNeXtConfig,
+    frontend: LogMelFrontend,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """(B, N) -> (B, C, H, W) pre-norm frame embeddings (convnext.py:369-402),
+    in the reference's NCHW layout: (B, 768, 31, 7) for 10-s clips."""
+    x = _frontend_and_bn0(model, waveform, cfg, frontend, compute_dtype)
+    feats = forward_features(model, x, cfg, return_frame_embeddings=True)
+    return feats.permute(0, 3, 1, 2).contiguous()

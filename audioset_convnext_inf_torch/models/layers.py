@@ -1,0 +1,109 @@
+"""Functional building blocks of the PyTorch port.
+
+Activations are NHWC tensors (B, H, W, C), as in the JAX package, and every
+function keeps the JAX package's rounding points (its ``models/layers.py``):
+statistics and accumulations run in float32 and the result is cast back to
+the activation dtype once. Weights stay float32 in the modules and are cast
+to the activation dtype where they enter a product. On the card, f32 ops run
+with TF32 off (``ops.precision``), so the f32 path is true f32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from audioset_convnext_inf_torch.ops.precision import fp32_precision, mm_f32acc
+
+
+def trunc_normal(
+    shape: Sequence[int],
+    generator: torch.Generator,
+    std: float = 0.02,
+    mean: float = 0.0,
+    a: float = -2.0,
+    b: float = 2.0,
+) -> torch.Tensor:
+    """Truncated normal by the inverse CDF of a truncated uniform (timm's
+    ``trunc_normal_`` method; the [a, b] bounds apply to the final values).
+    Drawn in f32 on the CPU from ``generator``, so a seed gives the same
+    weights whatever device the model lives on."""
+    lo = (1.0 + math.erf(((a - mean) / std) / math.sqrt(2.0))) / 2.0
+    hi = (1.0 + math.erf(((b - mean) / std) / math.sqrt(2.0))) / 2.0
+    u = torch.empty(tuple(shape), dtype=torch.float32)
+    u.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+    return torch.clamp(torch.erfinv(u) * (std * math.sqrt(2.0)) + mean, a, b)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the trailing axis with single-pass f32 statistics
+    (E[x^2] - E[x]^2, clamped at 0); the result is cast back to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    mean_sq = (xf * xf).mean(dim=-1, keepdim=True)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(x.dtype)
+
+
+def batch_norm_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor,
+                     eps: float = 1e-5, axis: int = -1) -> torch.Tensor:
+    """Inference-mode BatchNorm over ``axis`` from running statistics,
+    folded to one f32 scale/shift."""
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    inv = torch.rsqrt(running_var.reshape(shape) + eps) * weight.reshape(shape)
+    shift = bias.reshape(shape) - running_mean.reshape(shape) * inv
+    return (x.float() * inv + shift).to(x.dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ weight.T (+ bias), weight in (out, in) layout. Accumulates in f32,
+    adds the f32 bias, then casts to x's dtype once."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        with fp32_precision("highest"):
+            y = F.linear(x2, weight, bias)
+    else:
+        y = mm_f32acc(x2, weight.to(x.dtype).t())
+        if bias is not None:
+            y = y + bias
+    return y.to(x.dtype).reshape(*lead, weight.shape[0])
+
+
+def conv2d(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: Tuple[int, int] = (1, 1),
+    padding: Union[Tuple[int, int], int] = 0,
+    groups: int = 1,
+    acc_f32: bool = False,
+) -> torch.Tensor:
+    """NHWC conv with OIHW weights.
+
+    f32 activations convolve in true f32. bf16 activations convolve in bf16
+    (f32 accumulation inside cuDNN), round to bf16, then add the f32 bias
+    and round again: the JAX package's ``conv2d`` rounding points. With
+    ``acc_f32`` the bf16 operands are widened and the sum stays f32 until
+    after the bias, one rounding, as the JAX package's patch-GEMM stem and
+    fused-layout downsample do.
+    """
+    dt = x.dtype
+    xc = x.permute(0, 3, 1, 2)
+    if dt == torch.float32 or acc_f32:
+        with fp32_precision("highest"):
+            y = F.conv2d(xc.float(), weight.to(dt).float(), None, stride, padding, 1, groups)
+    else:
+        y = F.conv2d(xc, weight.to(dt), None, stride, padding, 1, groups)
+    y = y.permute(0, 2, 3, 1)
+    if bias is not None:
+        y = y + bias
+    return y.to(dt)

@@ -1,0 +1,150 @@
+"""Fused ConvNeXt block forward: the CUDA kernel and its plain version.
+
+``fused_block`` computes one whole ConvNeXt block (reference
+pytorch/convnext.py:58-87) in the NHWC layout:
+
+    y = x + gamma * (gelu_tanh(LN(dwconv7x7(x) + b_dw) . W1^T + b1) . W2^T + b2)
+
+with the rounding points of the TPU kernel it replaces,
+the JAX package's ``ops/pallas_fused_block.py::_kernel``: the
+dwconv sum (f32, plus bias), the LN output and the GELU output each round to
+the activation dtype, and the block output rounds once at the end.
+
+On a CUDA tensor it launches ``csrc/fused_block.cu`` (built at first use by
+``ops/_build.py``) or raises; on a CPU tensor it runs
+``fused_block_reference``, the same function in plain PyTorch. The kernel
+source says what bounds it on the card and what its design does about it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from audioset_convnext_inf_torch.ops import _build
+from audioset_convnext_inf_torch.ops.precision import fp32_precision
+
+K = 7
+MAX_C = 1024
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_block_reference(
+    x: torch.Tensor,
+    dw_w: torch.Tensor,
+    dw_b: torch.Tensor,
+    ln_w: torch.Tensor,
+    ln_b: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: Optional[torch.Tensor],
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, same arguments and rounding
+    points. x: (B, H, W, C); dw_w: (C, 1, 7, 7); w1: (4C, C); w2: (C, 4C)."""
+    dt = x.dtype
+    c = x.shape[-1]
+    xf = x.float()
+    with fp32_precision("highest"):
+        d = F.conv2d(xf.permute(0, 3, 1, 2), dw_w.float(), dw_b.float(),
+                     padding=K // 2, groups=c).permute(0, 2, 3, 1)
+        d = d.to(dt).float()
+        mean = d.sum(-1, keepdim=True) * (1.0 / c)
+        mean_sq = (d * d).sum(-1, keepdim=True) * (1.0 / c)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        xn = ((d - mean) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()).to(dt)
+        # operands rounded to dt, products and sums in f32
+        h = F.linear(xn.float(), w1.to(dt).float(), b1.float())
+        h = F.gelu(h, approximate="tanh").to(dt)
+        y = F.linear(h.float(), w2.to(dt).float(), b2.float())
+    if gamma is not None:
+        y = y * gamma.float()
+    return (xf + y).to(dt)
+
+
+def _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_block takes float32 or bfloat16 activations, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(
+            f"fused_block wants a contiguous NHWC (B, H, W, C) tensor, got {tuple(x.shape)}")
+    c = x.shape[-1]
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"fused_block supports 1 <= C <= {MAX_C}, got C={c}")
+    shapes = {
+        "dw_w": (dw_w, (c, 1, K, K)), "dw_b": (dw_b, (c,)), "ln_w": (ln_w, (c,)),
+        "ln_b": (ln_b, (c,)), "w1": (w1, (4 * c, c)), "b1": (b1, (4 * c,)),
+        "w2": (w2, (c, 4 * c)), "b2": (b2, (c,)),
+    }
+    if gamma is not None:
+        shapes["gamma"] = (gamma, (c,))
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"fused_block: {name} has shape {tuple(t.shape)}, want {want}")
+        if t.device != x.device:
+            raise ValueError(f"fused_block: {name} is on {t.device}, x on {x.device}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_block")
+    fn = lib.fused_block_forward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_block(
+    x: torch.Tensor,
+    dw_w: torch.Tensor,
+    dw_b: torch.Tensor,
+    ln_w: torch.Tensor,
+    ln_b: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: Optional[torch.Tensor],
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """One ConvNeXt block on NHWC ``x``; weights in the reference layouts.
+    CUDA tensors launch the kernel (``fused_block.launches`` counts each
+    launch); CPU tensors run the plain version."""
+    _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    if x.device.type == "cpu":
+        return fused_block_reference(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block runs on cuda or cpu tensors, got {x.device}")
+    lib = _lib()
+    b, h, w, c = x.shape
+    dt = x.dtype
+
+    def f32(t):
+        return t.detach().to(torch.float32).contiguous()
+
+    dww = f32(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
+    args = (f32(dw_b), f32(ln_w), f32(ln_b))
+    w1c, b1c = w1.detach().to(dt).contiguous(), f32(b1)
+    w2c, b2c = w2.detach().to(dt).contiguous(), f32(b2)
+    g = f32(gamma) if gamma is not None else None
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_block_forward(
+            x.data_ptr(), out.data_ptr(), dww.data_ptr(), *(t.data_ptr() for t in args),
+            w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(),
+            g.data_ptr() if g is not None else None,
+            b, h, w, c, float(eps), _DTYPE_CODE[dt], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_block kernel launch failed: cudaError {err}")
+    fused_block.launches += 1
+    return out
+
+
+fused_block.launches = 0

@@ -1,0 +1,152 @@
+"""The port's fused ConvNeXt block (K1) against the JAX package.
+
+On the CPU the wrapper runs the kernel's plain version, which is held here
+against the JAX package's Pallas kernel run in interpret mode (as its own
+tests run it) on the HWBC-padded transpose of the same input, and against
+the unfused JAX block. The CUDA kernel itself is compared with the plain
+version on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from audioset_convnext_inf_tpu.models.convnext import _block_apply
+from audioset_convnext_inf_tpu.ops.pallas_fused_block import fused_block_hwbc
+
+from audioset_convnext_inf_torch.ops import fused_block as FB
+
+K = 7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers side by
+    side, and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def rng():
+    """A fresh seeded stream per test, whatever ran before in the worker."""
+    return np.random.RandomState(1234)
+
+
+def _params(rng, c, with_gamma=True):
+    """Block weights in the JAX package's layouts, with non-trivial gamma."""
+    p = {
+        "dwconv": {"w": rng.randn(K, K, 1, c) * 0.05, "b": rng.randn(c) * 0.05},
+        "norm": {"scale": 1 + rng.randn(c) * 0.05, "bias": rng.randn(c) * 0.05},
+        "pwconv1": {"w": rng.randn(c, 4 * c) * 0.03, "b": rng.randn(4 * c) * 0.03},
+        "pwconv2": {"w": rng.randn(4 * c, c) * 0.03, "b": rng.randn(c) * 0.03},
+    }
+    if with_gamma:
+        p["gamma"] = rng.randn(c) * 0.2 + 0.5
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), p)
+
+
+def _torch_args(p):
+    """The same weights in the reference layouts the port takes."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return (
+        t(p["dwconv"]["w"].transpose(3, 2, 0, 1)), t(p["dwconv"]["b"]),
+        t(p["norm"]["scale"]), t(p["norm"]["bias"]),
+        t(p["pwconv1"]["w"].T), t(p["pwconv1"]["b"]),
+        t(p["pwconv2"]["w"].T), t(p["pwconv2"]["b"]),
+        t(p["gamma"]) if "gamma" in p else None,
+    )
+
+
+def _jax_kernel(x_nhwc, p, dtype, ht, mrows):
+    """JAX fused kernel (interpret mode on the CPU) on the HWBC-padded
+    transpose of x; returns NHWC f32."""
+    b, h, w, c = x_nhwc.shape
+    cp = -(-c // 128) * 128
+    xh = jnp.pad(jnp.asarray(x_nhwc.transpose(1, 2, 0, 3)), ((0, 0),) * 3 + ((0, cp - c),))
+    y = fused_block_hwbc(
+        xh.astype(dtype), p["dwconv"]["w"].reshape(K, K, c), p["dwconv"]["b"],
+        p["norm"]["scale"], p["norm"]["bias"], p["pwconv1"]["w"], p["pwconv1"]["b"],
+        p["pwconv2"]["w"], p["pwconv2"]["b"], p.get("gamma"), eps=1e-6, ht=ht, mrows=mrows)
+    return np.asarray(y[..., :c].astype(jnp.float32)).transpose(2, 0, 1, 3)
+
+
+@pytest.mark.parametrize(
+    "shape,with_gamma,ht,mrows",
+    [
+        ((16, 13, 14, 96), True, 2, 2),   # C-padded on the TPU side, ragged H
+        ((16, 31, 7, 128), False, 4, 1),  # stage-4 geometry of a 10-s clip, no gamma
+    ],
+)
+def test_plain_version_matches_jax_kernel_f32(rng, shape, with_gamma, ht, mrows):
+    b, h, w, c = shape
+    p = _params(rng, c, with_gamma)
+    x = (rng.randn(*shape) * 0.5).astype(np.float32)
+    ref = _jax_kernel(x, p, jnp.float32, ht, mrows)
+    got = FB.fused_block(torch.from_numpy(x), *_torch_args(p))
+    assert got.dtype == torch.float32 and got.shape == shape
+    # atol of the JAX package's own kernel-vs-composed-math test
+    np.testing.assert_allclose(got.numpy(), ref, atol=3e-5)
+
+
+def test_plain_version_matches_unfused_jax_block(rng):
+    """f32: same function as the JAX package's _block_apply with tanh GELU."""
+    shape = (2, 13, 14, 96)
+    p = _params(rng, shape[-1])
+    x = (rng.randn(*shape) * 0.5).astype(np.float32)
+    ref = np.asarray(_block_apply(jnp.asarray(x), p, 1e-6, 0.0, None, "xla_approx"))
+    got = FB.fused_block(torch.from_numpy(x), *_torch_args(p)).numpy()
+    np.testing.assert_allclose(got, ref, atol=3e-5)
+
+
+def test_plain_version_matches_jax_kernel_bf16(rng):
+    """bf16 activations: both round d, LN output and GELU output to bf16 and
+    the block output once. Products summed in another order can land a
+    value on the other side of a bf16 rounding boundary, so: at least 99.9%
+    of the outputs bit-equal (measured 99.98%), and the rest within 2^-6
+    absolute, four bf16 ulps at the output's scale |y| ~ 1 (measured one).
+    The same block in f32 without the bf16 rounding points is bit-equal on
+    only ~93% and off by up to 0.0073."""
+    shape = (16, 13, 14, 96)
+    p = _params(rng, shape[-1])
+    x = (rng.randn(*shape) * 0.5).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    ref = _jax_kernel(xb.float().numpy(), p, jnp.bfloat16, 2, 2)
+    got = FB.fused_block(xb, *_torch_args(p))
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - ref)
+    assert err.max() <= 2.0**-6, err.max()
+    assert np.mean(err == 0) >= 0.999, np.mean(err == 0)
+
+
+def test_cpu_wrapper_is_the_plain_version(rng):
+    shape = (2, 5, 7, 24)
+    p = _params(rng, shape[-1])
+    x = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32))
+    before = FB.fused_block.launches
+    got = FB.fused_block(x, *_torch_args(p), 1e-6)
+    assert torch.equal(got, FB.fused_block_reference(x, *_torch_args(p), 1e-6))
+    assert FB.fused_block.launches == before  # no kernel launched on the CPU
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
+    p = _params(rng, 8)
+    args = _torch_args(p)
+    x = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(TypeError):
+        FB.fused_block(x.double(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        FB.fused_block(x.permute(0, 2, 1, 3), *args)
+    with pytest.raises(ValueError, match="w1"):
+        FB.fused_block(x, *args[:4], args[4][:, :4], *args[5:])
+    with pytest.raises(ValueError, match="C <="):
+        big = _torch_args(_params(rng, FB.MAX_C + 1, with_gamma=False))
+        FB.fused_block(torch.zeros(1, 1, 1, FB.MAX_C + 1), *big)
+    # neither CPU nor CUDA: no silent fallback to the plain version
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        FB.fused_block(x.to("meta"), *(a.to("meta") if a is not None else None for a in args))

@@ -1,0 +1,221 @@
+"""The port's ConvNeXt against the JAX package's, on carried weights.
+
+The JAX package makes the parameters; they are given seeded non-trivial
+values (init sets gamma = 1e-6, which would make every block nearly the
+identity and let a wrong block pass), carried into the port with
+``state_dict_from_jax_params`` and loaded with ``strict=True``. The same
+waveforms, made with numpy, go into both.
+"""
+
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from scipy.io import wavfile
+
+from audioset_convnext_inf_tpu.checkpoint.convert import jax_params_to_torch_state_dict
+from audioset_convnext_inf_tpu.config import ConvNeXtConfig as JaxConfig
+from audioset_convnext_inf_tpu.config import config_to_json as jax_config_to_json
+from audioset_convnext_inf_tpu.models import api as jax_api
+from audioset_convnext_inf_tpu.models import convnext as JF
+
+from audioset_convnext_inf_torch.checkpoint import state_dict_from_jax_params, to_tensors
+from audioset_convnext_inf_torch.config import ConvNeXtConfig, convnext_config_from_json
+from audioset_convnext_inf_torch.models import MODEL_REGISTRY, ConvNeXt, convnext_tiny
+from audioset_convnext_inf_torch.ops import fused_block as FB
+
+SMALL = dict(depths=(1, 1, 2, 1), dims=(32, 64, 128, 256), drop_path_rate=0.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers side by
+    side, and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def rng():
+    """A fresh seeded stream per test, whatever ran before in the worker."""
+    return np.random.RandomState(1234)
+
+
+def _randomize(params, rng):
+    """Seeded values of order 0.1-1 for gamma, bn0 stats, norms and biases."""
+    out = jax.tree_util.tree_map(np.asarray, params)
+    n = out["bn0"]["mean"].shape[0]
+    out["bn0"] = {
+        "scale": rng.uniform(0.5, 2.0, n), "bias": rng.randn(n) * 0.5,
+        "mean": rng.randn(n) * 5.0 - 40.0, "var": rng.uniform(50.0, 200.0, n),
+    }
+
+    def visit(node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "gamma":
+                    node[k] = rng.uniform(0.1, 1.0, v.shape)
+                elif k == "b":
+                    node[k] = rng.randn(*v.shape) * 0.05
+                elif k == "scale":
+                    node[k] = 1.0 + rng.randn(*v.shape) * 0.1
+                elif k == "bias":
+                    node[k] = rng.randn(*v.shape) * 0.05
+                else:
+                    visit(v)
+        elif isinstance(node, list):
+            for v in node:
+                visit(v)
+
+    for key in ("stem", "downsample", "stages", "final_norm", "head"):
+        visit(out[key])
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), out)
+
+
+def _waveforms(sample_wav_path, rng, batch, seconds=1):
+    """``batch`` clips of the fixture recording (offsets, gains) plus noise."""
+    _, data = wavfile.read(sample_wav_path)
+    base = data.astype(np.float32) / 32767.0
+    n = 32000 * seconds
+    clips = []
+    for i in range(batch):
+        off = (i * 7919) % (base.shape[0] - n)
+        clips.append(base[off:off + n] * rng.uniform(0.3, 1.0) + rng.randn(n) * 1e-3)
+    return np.clip(np.stack(clips), -1.0, 1.0).astype(np.float32)
+
+
+def _port_model(params, cfg, **kw):
+    model = ConvNeXt(cfg, device="cpu", **kw)
+    model.load_state_dict(to_tensors(state_dict_from_jax_params(params, cfg)), strict=True)
+    return model
+
+
+@pytest.fixture(scope="module")
+def carried():
+    rng = np.random.RandomState(7)
+    jcfg = JaxConfig(**SMALL)
+    params = _randomize(JF.init_params(jax.random.PRNGKey(0), jcfg), rng)
+    return jcfg, params
+
+
+def test_weight_carry_matches_jax_converter(carried):
+    jcfg, params = carried
+    ours = state_dict_from_jax_params(params, jcfg)
+    theirs = jax_params_to_torch_state_dict(params, jcfg)
+    assert list(ours) == list(theirs)
+    for k in theirs:
+        assert ours[k].dtype == theirs[k].dtype and ours[k].shape == theirs[k].shape, k
+        np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
+    model = _port_model(params, ConvNeXtConfig(**SMALL))
+    assert set(model.state_dict()) == set(theirs)  # exactly the reference keys
+    assert torch.equal(model.stages[2][1].gamma, torch.from_numpy(params["stages"][2][1]["gamma"]))
+
+
+def test_f32_parity_config_matches_jax(carried, sample_wav_path, rng):
+    """f32 parity config (erf GELU, frontend "highest") on 1-s clips, f32 and
+    int16 input. Tolerances of the JAX package's torch-oracle parity test
+    (tests/test_parity_torch.py): 2e-4 on logits and embeddings, 1e-5 on
+    probabilities."""
+    jcfg, params = carried
+    cfg = convnext_config_from_json(jax_config_to_json(jcfg))
+    jm = jax_api.ConvNeXt(jcfg, jax.tree_util.tree_map(jnp.asarray, params))
+    pm = _port_model(params, cfg)
+    wav = _waveforms(sample_wav_path, rng, 2)
+    pcm = (wav * 32767.0).astype(np.int16)
+    for x in (wav, pcm):
+        ref, got = jm.forward(x), pm.forward(x)
+        np.testing.assert_allclose(got["clipwise_logits"].numpy(),
+                                   np.asarray(ref["clipwise_logits"]), atol=2e-4)
+        np.testing.assert_allclose(got["clipwise_output"].numpy(),
+                                   np.asarray(ref["clipwise_output"]), atol=1e-5)
+    scene = pm.forward_scene_embeddings(wav)
+    np.testing.assert_allclose(scene.numpy(), np.asarray(jm.forward_scene_embeddings(wav)),
+                               atol=2e-4)
+    frames = pm.forward_frame_embeddings(pcm)
+    assert frames.shape == (2, 256, 3, 7)
+    np.testing.assert_allclose(frames.numpy(), np.asarray(jm.forward_frame_embeddings(pcm)),
+                               atol=2e-4)
+    # the logits really depend on the trunk: not a near-identity network
+    assert float(np.std(np.asarray(ref["clipwise_logits"]))) > 0.05
+
+
+def test_bf16_serving_trunk_matches_jax_fused_path(carried, sample_wav_path, rng, monkeypatch):
+    """bf16 trunk with tanh GELU, frontend "highest" (so the bf16 DFT is not
+    in the comparison), B=16: the JAX side runs its fused Pallas kernel in
+    interpret mode, the port its fused block's plain version (the CPU leg of
+    the kernel wrapper) for every stage-3/4 block. Both round bf16 at the
+    same points, but sums in another order flip single bf16 roundings, and
+    the logits themselves are bf16 values (ulp 2^-7 near 1): logits within
+    0.02 absolute and probabilities within 0.005 (measured 0.0078 = one
+    ulp, and 0.0018)."""
+    jcfg, params = carried
+    jcfg = JaxConfig(**SMALL, block_impl="xla_approx")
+    cfg = ConvNeXtConfig(**SMALL, block_impl="xla_approx")
+    monkeypatch.setattr(JF, "_FUSED_ON_CPU", True)
+    jm = jax_api.ConvNeXt(jcfg, jax.tree_util.tree_map(jnp.asarray, params),
+                          compute_dtype=jnp.bfloat16, auto_fast_serving=False)
+    pm = _port_model(params, cfg, compute_dtype=torch.bfloat16, auto_fast_serving=False)
+
+    calls = []
+    plain = FB.fused_block_reference
+
+    def counting(x, *a, **kw):
+        calls.append(tuple(x.shape))
+        return plain(x, *a, **kw)
+
+    monkeypatch.setattr(FB, "fused_block_reference", counting)
+    wav = _waveforms(sample_wav_path, rng, 16)
+    got = pm.forward(wav)
+    # one fused block per stage-3/4 block, at the stage-3 (6x14) and
+    # stage-4 (3x7) grids of a 1-s clip
+    assert calls == [(16, 6, 14, 128)] * 2 + [(16, 3, 7, 256)]
+    ref = jm.forward(wav)
+    np.testing.assert_allclose(got["clipwise_logits"].numpy(),
+                               np.asarray(ref["clipwise_logits"]), atol=0.02)
+    np.testing.assert_allclose(got["clipwise_output"].numpy(),
+                               np.asarray(ref["clipwise_output"]), atol=0.005)
+
+
+def test_bf16_auto_switch_warns_like_jax(carried):
+    jcfg, params = carried
+    cfg = ConvNeXtConfig(**SMALL)
+    with pytest.warns(UserWarning) as jrec:
+        jax_api.ConvNeXt(jcfg, jax.tree_util.tree_map(jnp.asarray, params),
+                         compute_dtype=jnp.bfloat16)
+    with pytest.warns(UserWarning, match="'xla' -> 'xla_approx'") as rec:
+        m = ConvNeXt(cfg, compute_dtype=torch.bfloat16, device="cpu")
+    assert [str(w.message) for w in rec] == [str(w.message) for w in jrec]
+    assert m.cfg.block_impl == "xla_approx" and m.cfg.frontend.precision == "default"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        m2 = ConvNeXt(cfg, compute_dtype=torch.bfloat16, auto_fast_serving=False, device="cpu")
+        m3 = ConvNeXt(cfg, device="cpu")
+    assert not [w for w in caught if "auto-switched" in str(w.message)]
+    assert m2.cfg.block_impl == "xla" and m2.cfg.frontend.precision == "highest"
+    assert m3.cfg.block_impl == "xla" and m3.cfg.frontend.precision == "highest"
+
+
+def test_tiny_parameter_count():
+    assert convnext_tiny(device="cpu").count_parameters() == 28_222_767
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_REGISTRY))
+def test_factories_shapes_and_counts(name):
+    """Every factory builds on the CPU with the JAX package's parameter count
+    and gives the reference output shapes (checked on a 1-s clip)."""
+    model = MODEL_REGISTRY[name](device="cpu")
+    jcfg = JaxConfig(depths=model.cfg.depths, dims=model.cfg.dims)
+    shapes = jax.eval_shape(lambda k: JF.init_params(k, jcfg), jax.random.PRNGKey(0))
+    assert model.count_parameters() == JF.count_parameters(shapes)
+    wav = np.zeros((1, 32000), np.float32)
+    c = model.cfg.dims[-1]
+    out = model.forward(wav)
+    assert out["clipwise_output"].shape == (1, 527)
+    assert model.forward_scene_embeddings(wav).shape == (1, c)
+    assert model.forward_frame_embeddings(wav).shape == (1, c, 3, 7)
