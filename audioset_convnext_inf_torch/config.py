@@ -72,8 +72,8 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class SpecAugmentConfig:
-    """Time/freq stripe dropout (reference: convnext.py:203-210). Training
-    only; kept so that configs round-trip through JSON."""
+    """Time/freq stripe dropout (reference: convnext.py:203-210), applied
+    by the training forward (ops/specaugment.py)."""
 
     time_drop_width: int = 64
     time_stripes_num: int = 2
@@ -83,8 +83,8 @@ class SpecAugmentConfig:
 
 @dataclass(frozen=True)
 class AugmentConfig:
-    """Waveform/spectrogram augmentation switches (reference:
-    convnext.py:145-217). Training only; kept for the JSON round trip."""
+    """Waveform/spectrogram augmentation switches of the training forward
+    (reference: convnext.py:145-217; ops/augment.py, ops/specaugment.py)."""
 
     use_speed_perturb: bool = False
     speed_perturb_rates: Tuple[float, float] = (0.5, 1.5)
@@ -118,8 +118,12 @@ class ConvNeXtConfig:
     # "xla": exact erf GELU (f32 parity); "xla_approx": tanh GELU, and at
     # eval stages 3-4 run the fused block kernel (ops/fused_block.py).
     block_impl: str = "xla"
-    # Training-only fields of the JAX package, kept for the JSON round trip.
+    # Training: recompute the plain blocks in the backward
+    # (torch.utils.checkpoint) instead of keeping their activations.
     remat_blocks: bool = False
+    # Training: stages 3-4 run the fused block kernels, forward and backward
+    # (ops/fused_block_train.py); needs block_impl="xla_approx", layer scale
+    # and no remat_blocks.
     fused_train_blocks: bool = False
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
     augment: AugmentConfig = field(default_factory=AugmentConfig)

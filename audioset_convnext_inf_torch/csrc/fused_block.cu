@@ -1,15 +1,18 @@
 // Fused ConvNeXt block forward for Hopper (sm_90a), NHWC layout.
 //
-// Replaces the TPU kernel of the JAX package, ops/pallas_fused_block.py::_kernel
-// (its forward mode). One launch computes a whole block:
+// Replaces the TPU kernel of the JAX package, ops/pallas_fused_block.py::_kernel,
+// in both its modes. One launch computes a whole block:
 //
 //   d   = round(dwconv7x7(x) + b_dw)                 f32 sum, pad 3
 //   xn  = round(LN(d) * ln_w + ln_b)                 f32 stats E[x^2]-E[x]^2
 //   h   = round(gelu_tanh(xn . W1^T + b1))           f32 accumulation
-//   out = round(x + gamma * (h . W2^T + b2))         f32, one final rounding
+//   out = round(x + ((h . W2^T + b2) * gamma) * s[b]) f32, one final rounding
 //
 // where round() casts to the activation type T (float or bf16); these are
-// the TPU kernel's rounding points, not those of the unfused block.
+// the TPU kernel's rounding points, not those of the unfused block. The
+// training ("save") mode passes the per-sample drop-path scale s (B,) and
+// a d_out buffer, which receives d exactly as rounded before the LN; the
+// serving mode passes neither (s = 1, d not stored).
 // Weights arrive in the reference layouts: dww (49, C) f32 tap-major (the
 // wrapper transposes the (C,1,7,7) conv weight), W1 (4C, C) and W2 (C, 4C)
 // in T; biases, LN affine and gamma in f32. Any C in [1, 1024].
@@ -65,14 +68,16 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.0f + tanhf(k0 * (x + k1 * (x * x * x)))));
 }
 
-template <typename T>
+// TRAIN = the save mode (dps and d_out given); a template argument, so the
+// serving instantiation is the same code as without the mode.
+template <typename T, bool TRAIN>
 __global__ void __launch_bounds__(NT) fused_block_kernel(
     const T* __restrict__ x, T* __restrict__ out,
     const float* __restrict__ dww, const float* __restrict__ dwb,
     const float* __restrict__ lnw, const float* __restrict__ lnb,
     const T* __restrict__ w1, const float* __restrict__ b1,
     const T* __restrict__ w2, const float* __restrict__ b2,
-    const float* __restrict__ gamma,
+    const float* __restrict__ gamma, const float* __restrict__ dps, T* __restrict__ d_out,
     int B, int H, int W, int C, float eps) {
   extern __shared__ __align__(16) float smem[];
   const int CS = (C + 3) & ~3;        // row stride: float4-aligned, zero tail
@@ -108,6 +113,7 @@ __global__ void __launch_bounds__(NT) fused_block_kernel(
           }
         }
         v = round_t<T>(a);
+        if constexpr (TRAIN) d_out[p * C + c] = from_f<T>(a);
       }
       xs[m * CS + c] = v;
       acc[m * CS + c] = 0.f;
@@ -211,48 +217,52 @@ __global__ void __launch_bounds__(NT) fused_block_kernel(
     if (p >= npix) continue;
     float y = acc[m * CS + c] + b2[c];
     if (gamma != nullptr) y *= gamma[c];
+    if constexpr (TRAIN) y *= dps[p / HW];
     const long long off = p * C + c;
     out[off] = from_f<T>(to_f<T>(x[off]) + y);
   }
 }
 
-template <typename T>
+template <typename T, bool TRAIN>
 int launch(const void* x, void* out, const float* dww, const float* dwb,
            const float* lnw, const float* lnb, const void* w1, const float* b1,
-           const void* w2, const float* b2, const float* gamma,
+           const void* w2, const float* b2, const float* gamma, const float* s, void* d_out,
            int B, int H, int W, int C, float eps, cudaStream_t stream) {
   const long long npix = (long long)B * H * W;
   if (npix == 0) return 0;
   const int cs = (C + 3) & ~3;
   const size_t smem = sizeof(float) * (2 * (size_t)M * cs + (size_t)M * NH + 64 * WT_LD);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_block_kernel<T, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((npix + M - 1) / M);
-  fused_block_kernel<T><<<grid, NT, smem, stream>>>(
+  fused_block_kernel<T, TRAIN><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), dww, dwb, lnw, lnb,
-      static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2, gamma,
-      B, H, W, C, eps);
+      static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2, gamma, s,
+      static_cast<T*>(d_out), B, H, W, C, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16.
+// gamma may be null; s and d_out are both given (save mode) or both null.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int fused_block_forward(
     const void* x, void* out, const void* dww, const void* dwb,
     const void* lnw, const void* lnb, const void* w1, const void* b1,
-    const void* w2, const void* b2, const void* gamma,
+    const void* w2, const void* b2, const void* gamma, const void* s, void* d_out,
     int B, int H, int W, int C, float eps, int dtype, void* stream) {
   if (C < 1 || C > 1024 || B < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, out, f(dww), f(dwb), f(lnw), f(lnb), w1, f(b1), w2, f(b2),
-                         f(gamma), B, H, W, C, eps, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, out, f(dww), f(dwb), f(lnw), f(lnb), w1, f(b1), w2,
-                                 f(b2), f(gamma), B, H, W, C, eps, s);
+  if ((s == nullptr) != (d_out == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool train = s != nullptr;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FB_LAUNCH(T, TR)                                                              \
+  launch<T, TR>(x, out, f(dww), f(dwb), f(lnw), f(lnb), w1, f(b1), w2, f(b2), f(gamma), \
+                f(s), d_out, B, H, W, C, eps, st)
+  if (dtype == 0) return train ? FB_LAUNCH(float, true) : FB_LAUNCH(float, false);
+  if (dtype == 1) return train ? FB_LAUNCH(__nv_bfloat16, true) : FB_LAUNCH(__nv_bfloat16, false);
+#undef FB_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,339 @@
+"""Training engine of the PyTorch port, on one device.
+
+The JAX package's ``engine/trainer.py`` (the reference DDP loop,
+main.py:117-923), one device at a time:
+
+ - AdamW with the reference's weight-decay grouping (no decay for rank-1
+   tensors: biases, norm scales, gamma; pytorch_utils.custom_weight_decay),
+   OneCycle LR over 75k steps (main.py:659-660), or Adam; the optional
+   weight-decay schedule (main.py:664-712). The arithmetic is optax's
+   (``optax.adamw``, ``optax.cosine_onecycle_schedule``), written out, so a
+   step given the same gradients gives the same parameters;
+ - gradient accumulation with ``optax.MultiSteps`` semantics: the running
+   mean of the micro-step gradients, one update every k micro-steps;
+ - mixup (paired 2B batch), SpecAugment and drop path from one
+   ``torch.Generator`` per step, seeded from (seed, step); bn0's running
+   statistics update in place during the forward.
+
+The multi-device trainer waits for the data-parallel slice of the port.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from audioset_convnext_inf_torch.engine.losses import clip_bce
+from audioset_convnext_inf_torch.models import convnext as F
+from audioset_convnext_inf_torch.ops.mixup import do_mixup, get_mixup_lambda
+from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
+from audioset_convnext_inf_torch.ops.precision import fp32_precision
+
+Params = Dict[str, torch.Tensor]
+Schedule = Callable[[int], float]
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"  # "adam" | "adamw" (main.py:645-658)
+    max_lr: float = 4e-4
+    total_steps: int = 75000  # OneCycleLR span (main.py:659-660)
+    pct_start: float = 0.3
+    div_factor: float = 25.0
+    final_div_factor: float = 1e4
+    weight_decay: float = 0.01
+    # Optional WD schedule (reference main.py:664-712): cooldown phase
+    # (constant or cosine from wd to wd/5) for the first 30% of steps, then
+    # linear warmup to 2*wd.
+    use_wd_schedule: bool = False
+    wd_constant_cooldown: bool = True
+    wd_cooldown_frac: float = 0.3
+    accumulation_steps: int = 1
+    mixup_alpha: float = 0.0  # 0 disables; the reference uses 1.0 when on
+    seed: int = 1234
+    bf16_compute: bool = False
+
+
+def _wd_mask(params: Params) -> Dict[str, bool]:
+    """True = apply weight decay: every tensor of rank > 1."""
+    return {name: p.ndim > 1 for name, p in params.items()}
+
+
+def onecycle_lr(cfg: TrainConfig) -> Schedule:
+    """Cosine one-cycle, ``optax.cosine_onecycle_schedule``: from
+    max_lr/div_factor up to max_lr over the first pct_start of the steps,
+    then down to that start value / final_div_factor, cosine both ways."""
+    v0 = cfg.max_lr / cfg.div_factor
+    v1 = v0 * cfg.div_factor
+    v2 = v1 * (1.0 / (cfg.div_factor * cfg.final_div_factor))
+    b1, b2 = int(cfg.pct_start * cfg.total_steps), int(cfg.total_steps)
+
+    def cosine(start: float, end: float, pct: float) -> float:
+        return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+
+    def sched(step: int) -> float:
+        if step < b1:
+            return cosine(v0, v1, step / b1)
+        if step < b2:
+            return cosine(v1, v2, (step - b1) / (b2 - b1))
+        return v2
+
+    return sched
+
+
+def wd_schedule(cfg: TrainConfig) -> Schedule:
+    """Cooldown (constant, or cosine wd -> wd/5) then linear warmup to 2*wd
+    over total_steps (reference wd_scheduler, main.py:667-708)."""
+    base, final, minv = cfg.weight_decay, 2 * cfg.weight_decay, cfg.weight_decay / 5
+    cooldown = int(cfg.wd_cooldown_frac * cfg.total_steps)
+
+    def sched(step: int) -> float:
+        if step < cooldown:
+            if cfg.wd_constant_cooldown:
+                return base
+            return minv + 0.5 * (base - minv) * (1 + math.cos(math.pi * step / max(cooldown, 1)))
+        start = base if cfg.wd_constant_cooldown else minv
+        frac = (step - cooldown) / max(cfg.total_steps - cooldown - 1, 1)
+        return start + (final - start) * min(max(frac, 0.0), 1.0)
+
+    return sched
+
+
+class Optimizer:
+    """Adam or AdamW (b1 0.9, b2 0.999, eps 1e-8) over named parameters,
+    updated in place, with optax's arithmetic: moments (1 - b) * g + b * m,
+    bias-corrected, u = m_hat / (sqrt(v_hat) + eps), plus wd * p where the
+    mask says so, times -lr. The schedules read the number of updates made
+    so far. With ``accumulation_steps`` k > 1 it is ``optax.MultiSteps``:
+    each call folds the gradients into a running mean, and every k-th call
+    applies one update with that mean."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params: Params, cfg: TrainConfig):
+        if cfg.optimizer not in ("adam", "adamw"):
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        self.params = dict(params)
+        self.cfg = cfg
+        self.lr = onecycle_lr(cfg)
+        self.wd = wd_schedule(cfg) if cfg.use_wd_schedule else (lambda step: cfg.weight_decay)
+        self.decay = _wd_mask(self.params) if cfg.optimizer == "adamw" else {}
+        self.count = 0  # updates applied
+        self.mini_step = 0
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in self.params.items()}  # noqa: E731
+        self.mu, self.nu = zeros(), zeros()
+        self.acc = zeros() if cfg.accumulation_steps > 1 else None
+
+    @torch.no_grad()
+    def step(self, grads: Params) -> bool:
+        """Take one micro-step's gradients; returns whether the parameters
+        were updated."""
+        k = self.cfg.accumulation_steps
+        if k > 1:
+            for n, g in grads.items():
+                self.acc[n].add_((g - self.acc[n]) / (self.mini_step + 1))
+            if self.mini_step < k - 1:
+                self.mini_step += 1
+                return False
+            self.mini_step = 0
+            grads = self.acc
+        lr, wd = self.lr(self.count), self.wd(self.count)
+        n_upd = self.count + 1
+        bc1, bc2 = 1 - self.B1 ** n_upd, 1 - self.B2 ** n_upd
+        for n, p in self.params.items():
+            g = grads[n]
+            mu = self.mu[n].copy_((1 - self.B1) * g + self.B1 * self.mu[n])
+            nu = self.nu[n].copy_((1 - self.B2) * (g * g) + self.B2 * self.nu[n])
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS)
+            if self.decay.get(n):
+                u = u + wd * p
+            p.add_(u * -lr)
+        self.count = n_upd
+        if self.acc is not None:
+            for a in self.acc.values():
+                a.zero_()
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"count": self.count, "mini_step": self.mini_step, "mu": self.mu, "nu": self.nu,
+                "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        for name in ("mu", "nu", "acc"):
+            mine = getattr(self, name)
+            if mine is not None:
+                for n, t in mine.items():
+                    t.copy_(state[name][n])
+
+
+def make_optimizer(params: Params, cfg: TrainConfig) -> Optimizer:
+    return Optimizer(params, cfg)
+
+
+def _step_generator(seed: int, step: int) -> torch.Generator:
+    """The step's own random stream: a function of (seed, step) only, so a
+    resumed run draws what the uninterrupted one drew."""
+    return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
+def make_train_step(model, train_cfg: TrainConfig, optimizer: Optimizer,
+                    loss_fn: Callable = clip_bce):
+    """One-device train step for a ``models.ConvNeXt``:
+
+        step(waveform, target, step_idx) -> loss (a device scalar, no sync)
+
+    ``waveform`` is int16 PCM (decoded on the device) or f32, on the
+    model's device. With mixup the incoming batch is 2B and the trunk's B.
+    The backward runs with TF32 off, so f32 gradients are true f32; the
+    parameters' ``.grad`` hold the step's gradients afterwards."""
+    compute_dtype = torch.bfloat16 if train_cfg.bf16_compute else torch.float32
+    params = optimizer.params
+
+    def train_step(waveform: torch.Tensor, target: torch.Tensor, step_idx: int) -> torch.Tensor:
+        gen = _step_generator(train_cfg.seed, step_idx)
+        waveform = decode_pcm_if_int16(waveform)
+        mixup_lambda = None
+        if train_cfg.mixup_alpha > 0:
+            mixup_lambda = get_mixup_lambda(gen, waveform.shape[0], train_cfg.mixup_alpha)
+            mixup_lambda = mixup_lambda.to(waveform.device)
+            target = do_mixup(target, mixup_lambda)
+        for p in params.values():
+            p.grad = None
+        was_training = model.training
+        model.train()
+        try:
+            out = F.forward_train(model, waveform, model.cfg, model.frontend, gen,
+                                  mixup_lambda, compute_dtype)
+            loss = loss_fn(out, {"target": target})
+            with fp32_precision("highest"):
+                loss.backward()
+        finally:
+            model.train(was_training)
+        optimizer.step({n: p.grad if p.grad is not None else torch.zeros_like(p)
+                        for n, p in params.items()})
+        return loss.detach()
+
+    return train_step
+
+
+class Trainer:
+    """The loop: steps, periodic eval and checkpoint callbacks, resume."""
+
+    def __init__(self, model, train_cfg: TrainConfig, loss_fn: Callable = clip_bce):
+        self.model = model
+        self.train_cfg = train_cfg
+        self.device = next(model.parameters()).device
+        self.optimizer = make_optimizer(dict(model.named_parameters()), train_cfg)
+        self.step_index = 0
+        self._step_fn = make_train_step(model, train_cfg, self.optimizer, loss_fn)
+        # sampler snapshot of the last consumed batch (what a checkpoint
+        # saves for an exact resume; the loader runs ahead of the trainer)
+        self.last_sampler_state = None
+
+    def restore(self, state_dict: Params, opt_state: Dict[str, Any], step: int) -> None:
+        """Adopt a checkpoint: model weights (reference keys, strict), the
+        optimizer's state and the step counter."""
+        self.model.load_state_dict(state_dict, strict=True)
+        self.optimizer.load_state_dict(opt_state)
+        self.step_index = int(step)
+
+    def step_async(self, waveform, target) -> torch.Tensor:
+        """Run one step; return the loss as a device scalar (no sync).
+        int16 PCM crosses to the device as int16 and decodes there."""
+        wav = torch.as_tensor(np.asarray(waveform))
+        if wav.dtype != torch.int16:
+            wav = wav.to(torch.float32)
+        wav = wav.to(self.device, non_blocking=True)
+        tgt = torch.as_tensor(np.asarray(target, np.float32)).to(self.device, non_blocking=True)
+        loss = self._step_fn(wav, tgt, self.step_index)
+        self.step_index += 1
+        return loss
+
+    def step(self, waveform, target) -> float:
+        return float(self.step_async(waveform, target))
+
+    def train(
+        self,
+        train_loader: Iterable,
+        eval_fn: Optional[Callable[[Any, int], None]] = None,
+        eval_interval: int = 5000,
+        checkpoint_fn: Optional[Callable[["Trainer", int], None]] = None,
+        checkpoint_interval: int = 5000,
+        early_stop: Optional[int] = None,
+        log_interval: int = 100,
+        on_step: Optional[Callable[[int, float], None]] = None,
+        max_step_retries: int = 2,
+    ) -> None:
+        """Run the loop over batches ({"waveform", "target"[, "sampler_state"]}).
+
+        - An error while a step is issued (bad shapes, out of memory) retries
+          the same batch up to ``max_step_retries`` times, then tries an
+          emergency checkpoint of the state before the step and re-raises.
+        - A device-side error surfaces at the next sync point (every
+          ``log_interval`` steps, or ``on_step``'s host float); by then later
+          steps ran on top of it, so the loop logs that recovery is from the
+          last interval checkpoint and re-raises.
+        - A non-finite loss is logged and training goes on, as in the
+          reference.
+        ``on_step`` receives a host float, which syncs the device every step.
+        """
+        t0 = time.time()
+        loss = None
+
+        def sync_loss(loss, it: int) -> float:
+            try:
+                return float(loss)
+            except Exception:
+                logging.exception(
+                    "deferred device error surfaced at iter %d; live state is "
+                    "unrecoverable - resume from the last interval checkpoint", it)
+                raise
+
+        for batch in train_loader:
+            it = self.step_index
+            if eval_interval and it % eval_interval == 0 and eval_fn is not None and it > 0:
+                eval_fn(self.model, it)
+            if checkpoint_interval and it % checkpoint_interval == 0 \
+                    and checkpoint_fn is not None and it > 0:
+                checkpoint_fn(self, it)
+            for attempt in range(max_step_retries + 1):
+                try:
+                    loss = self.step_async(batch["waveform"], batch["target"])
+                    break
+                except Exception:
+                    if attempt >= max_step_retries:
+                        logging.exception("train step failed to dispatch at iter %d; "
+                                          "writing emergency checkpoint", it)
+                        if checkpoint_fn is not None:
+                            try:
+                                checkpoint_fn(self, it)
+                            except Exception:
+                                logging.exception(
+                                    "emergency checkpoint failed at iter %d; resume from "
+                                    "the last interval checkpoint", it)
+                        raise
+                    logging.exception("train step error at iter %d, retrying", it)
+            self.last_sampler_state = batch.get("sampler_state")
+            if on_step is not None:
+                on_step(it, sync_loss(loss, it))
+            if it % log_interval == 0:
+                lossf = sync_loss(loss, it)
+                if not np.isfinite(lossf):
+                    logging.warning("non-finite loss %.4f at iter %d", lossf, it)
+                logging.info("iteration %d loss %.4f (%.2f s)", it, lossf, time.time() - t0)
+                t0 = time.time()
+            if early_stop is not None and self.step_index >= early_stop:
+                break
+        if loss is not None:
+            lossf = sync_loss(loss, self.step_index - 1)
+            if not np.isfinite(lossf):
+                logging.warning("non-finite loss %.4f at final iter %d", lossf,
+                                self.step_index - 1)

@@ -1,4 +1,4 @@
-"""ConvNeXt audio-tagging trunk of the PyTorch port (eval only).
+"""ConvNeXt audio-tagging trunk of the PyTorch port: eval and training.
 
 The modules hold the parameters under the reference's state-dict names
 (pytorch/convnext.py:145-261), so a reference checkpoint loads with
@@ -14,20 +14,29 @@ The forward functions mirror the JAX package's ``models/convnext.py``
 function for function and keep its rounding points. Activations are NHWC
 (B, H, W, C) throughout. With ``block_impl="xla_approx"`` at eval, every
 block of stages 3 and 4 runs the fused block kernel (``ops/fused_block.py``);
-the other blocks run ``_block_apply`` in plain PyTorch.
+the other blocks run ``_block_apply`` in plain PyTorch. In training mode
+(``model.training``) with ``fused_train_blocks``, those blocks run
+``FusedBlockTrain``: the fused kernel's save mode forward and the fused
+backward kernel (``ops/fused_block_bwd.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from audioset_convnext_inf_torch.config import ConvNeXtConfig
 from audioset_convnext_inf_torch.models import layers as L
+from audioset_convnext_inf_torch.ops import augment as A
 from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
 from audioset_convnext_inf_torch.ops.fused_block import fused_block
+from audioset_convnext_inf_torch.ops.fused_block_train import FusedBlockTrain
+from audioset_convnext_inf_torch.ops.mixup import do_mixup
+from audioset_convnext_inf_torch.ops.specaugment import spec_augment
 
 # Stage indices whose blocks run the fused kernel in the bf16 serving
 # config: the JAX package's set (its _FUSED_STAGE_TILES keys). The fused and
@@ -37,8 +46,9 @@ FUSED_STAGES = (2, 3)
 
 
 class BatchNorm0(nn.Module):
-    """bn0 over the mel axis, eval mode: exactly the four reference entries
-    (no ``num_batches_tracked``, which the carried weights lack)."""
+    """bn0 over the mel axis: exactly the four reference entries (no
+    ``num_batches_tracked``, which the carried weights lack). Training
+    updates the running statistics in place (``layers.batch_norm_train``)."""
 
     def __init__(self, n: int):
         super().__init__()
@@ -145,9 +155,10 @@ def count_parameters(model: nn.Module) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(x: torch.Tensor, blk: Block, block_impl: str = "xla") -> torch.Tensor:
+def _block_apply(x: torch.Tensor, blk: Block, block_impl: str = "xla",
+                 drop_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ConvNeXt block in plain PyTorch: erf GELU under "xla", tanh under
-    "xla_approx"."""
+    "xla_approx"; ``drop_scale`` (B,) is the block's drop-path draw."""
     shortcut = x
     c = x.shape[-1]
     x = L.conv2d(x, blk.dwconv.weight, blk.dwconv.bias, padding=(3, 3), groups=c)
@@ -157,7 +168,7 @@ def _block_apply(x: torch.Tensor, blk: Block, block_impl: str = "xla") -> torch.
     x = L.linear(x, blk.pwconv2.weight, blk.pwconv2.bias)
     if blk.gamma is not None:
         x = x * blk.gamma.to(x.dtype)
-    return shortcut + x
+    return shortcut + L.drop_path(x, drop_scale)
 
 
 def _fused_block(x: torch.Tensor, blk: Block) -> torch.Tensor:
@@ -168,6 +179,30 @@ def _fused_block(x: torch.Tensor, blk: Block) -> torch.Tensor:
         blk.pwconv2.weight, blk.pwconv2.bias,
         blk.gamma, blk.norm.eps,
     )
+
+
+def _fused_block_train(x: torch.Tensor, blk: Block, s: Optional[torch.Tensor]) -> torch.Tensor:
+    if s is not None:
+        s = s.to(device=x.device, dtype=torch.float32)
+    return FusedBlockTrain.apply(
+        x.contiguous(), blk.dwconv.weight, blk.dwconv.bias, blk.norm.weight, blk.norm.bias,
+        blk.pwconv1.weight, blk.pwconv1.bias, blk.pwconv2.weight, blk.pwconv2.bias,
+        blk.gamma, s, blk.norm.eps)
+
+
+def draw_drop_path_scales(generator: Optional[torch.Generator], batch: int,
+                          cfg: ConvNeXtConfig) -> List[Optional[torch.Tensor]]:
+    """One drop-path draw per block (``layers.draw_drop_path``), at the rates
+    linspace(0, drop_path_rate, sum(depths)); None for a rate of 0."""
+    rates = np.linspace(0.0, cfg.drop_path_rate, sum(cfg.depths))
+    return [L.draw_drop_path(generator, batch, float(r)) for r in rates]
+
+
+def fused_train_route(model: nn.Module, cfg: ConvNeXtConfig) -> bool:
+    """Whether training runs stages 3-4 through the fused training block:
+    the JAX package's gate without its TPU tiling conditions."""
+    return (model.training and cfg.fused_train_blocks and cfg.block_impl == "xla_approx"
+            and cfg.layer_scale_init_value > 0 and not cfg.remat_blocks)
 
 
 def _stem_conv(x: torch.Tensor, conv: nn.Conv2d, cfg: ConvNeXtConfig) -> torch.Tensor:
@@ -186,13 +221,23 @@ def forward_features(
     x: torch.Tensor,
     cfg: ConvNeXtConfig,
     return_frame_embeddings: bool = False,
+    drop_path_scales: Optional[List[Optional[torch.Tensor]]] = None,
 ) -> torch.Tensor:
     """Spectrogram image (B, T, M, 1) -> pooled (B, C) or frames (B, H, W, C).
 
     4x (downsample, stage), then freq-mean + time-(max+mean) pooling and the
     final LayerNorm; frame embeddings are the pre-norm stage-4 output.
+    In training mode, ``drop_path_scales`` holds one draw per block
+    (``draw_drop_path_scales``; None = no drop path), and ``remat_blocks``
+    recomputes the unfused blocks in the backward.
     """
-    fused = cfg.block_impl == "xla_approx" and not model.training
+    train = model.training
+    fused = cfg.block_impl == "xla_approx" and not train
+    fused_train = fused_train_route(model, cfg)
+    remat = train and cfg.remat_blocks
+    scales = drop_path_scales if train and drop_path_scales is not None \
+        else [None] * sum(cfg.depths)
+    cur = 0
     prev_fused = False
     for i in range(4):
         ds = model.downsample_layers[i]
@@ -203,9 +248,17 @@ def forward_features(
             # (one bf16 rounding); otherwise by conv (its conv2d rounding)
             x = L.conv2d(ds[0](x), ds[1].weight, ds[1].bias, stride=(2, 2),
                          acc_f32=prev_fused)
-        stage_fused = fused and i in FUSED_STAGES
-        for blk in model.stages[i]:
-            x = _fused_block(x, blk) if stage_fused else _block_apply(x, blk, cfg.block_impl)
+        stage_fused = (fused or fused_train) and i in FUSED_STAGES
+        for j, blk in enumerate(model.stages[i]):
+            s = scales[cur + j]
+            if stage_fused:
+                x = _fused_block_train(x, blk, s) if train else _fused_block(x, blk)
+            elif remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _block_apply, x, blk, cfg.block_impl, s, use_reentrant=False)
+            else:
+                x = _block_apply(x, blk, cfg.block_impl, s)
+        cur += len(model.stages[i])
         prev_fused = stage_fused
 
     if return_frame_embeddings:
@@ -221,22 +274,48 @@ def _frontend_and_bn0(
     cfg: ConvNeXtConfig,
     frontend: LogMelFrontend,
     compute_dtype=torch.float32,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+    mixup_lambda: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Waveform (B, N) -> normalized spectrogram image (B, T, M, 1), eval
-    mode: bn0 folds into the frontend as a per-mel-bin f32 affine."""
+    """Waveform (B, N) -> normalized spectrogram image (B, T, M, 1).
+
+    Eval: bn0 folds into the frontend as a per-mel-bin f32 affine. Train
+    (reference convnext.py:287-316): the waveform augmentations that
+    ``cfg.augment`` switches on (gain, roll, speed perturbation, in the
+    reference's order), the log-mel frontend, bn0 with batch statistics
+    (its running statistics update in place), SpecAugment, then mixup of
+    the 2B clips into B. Draws come from ``generator``; without one, no
+    augmentation runs.
+    """
     x = waveform_or_spec
     if x.ndim == 1:
         x = x[None, :]
     if x.ndim == 2:
-        if cfg.frontend.top_db is None:
+        if not train and cfg.frontend.top_db is None:
             spec = frontend(x, affine=model.bn0.fold(cfg.bn_eps))
             return spec.permute(0, 2, 3, 1).to(compute_dtype)
+        a = cfg.augment
+        if train and generator is not None:
+            if a.use_pydub_augment:
+                x = A.gain_augment(x, A.draw_gain(generator, a.gain_augment_db))
+            if a.use_roll_augment:
+                x = A.roll_augment(x, A.draw_roll(generator, a.roll_shift_range))
+            if a.use_speed_perturb:
+                x = A.speed_perturb(x, A.draw_speed(generator, x.shape[-1],
+                                                    a.speed_perturb_rates, a.speed_perturb_p))
         x = frontend(x).permute(0, 2, 3, 1)
     x = x.to(compute_dtype)
     bn = model.bn0
-    xm = L.batch_norm_apply(x[..., 0], bn.weight, bn.bias, bn.running_mean,
-                            bn.running_var, eps=cfg.bn_eps, axis=2)
-    return xm[..., None]
+    norm = L.batch_norm_train if train else L.batch_norm_apply
+    x = norm(x[..., 0], bn.weight, bn.bias, bn.running_mean, bn.running_var,
+             eps=cfg.bn_eps, axis=2)[..., None]
+    if train and cfg.augment.use_spec_augment and generator is not None:
+        x = spec_augment(x, time_axis=1, freq_axis=2, cfg=cfg.augment.spec_augment,
+                         generator=generator)
+    if train and mixup_lambda is not None:
+        x = do_mixup(x, mixup_lambda)
+    return x
 
 
 def forward(
@@ -250,6 +329,30 @@ def forward(
     and logits, both f32."""
     x = _frontend_and_bn0(model, waveform, cfg, frontend, compute_dtype)
     emb = forward_features(model, x, cfg)
+    head = model.head_audioset
+    logits = L.linear(emb, head.weight, head.bias).float()
+    return {"clipwise_output": torch.sigmoid(logits), "clipwise_logits": logits}
+
+
+def forward_train(
+    model: ConvNeXtModule,
+    waveform: torch.Tensor,
+    cfg: ConvNeXtConfig,
+    frontend: LogMelFrontend,
+    generator: Optional[torch.Generator] = None,
+    mixup_lambda: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """Training forward (``model`` in training mode): the train prologue of
+    ``_frontend_and_bn0``, then the trunk with one drop-path draw per block
+    and the head. Returns the outputs; bn0's running statistics are updated
+    in place (the JAX package returns them instead). Draws come from
+    ``generator`` in the order: waveform augmentations, SpecAugment, drop
+    path; without one, nothing random runs."""
+    x = _frontend_and_bn0(model, waveform, cfg, frontend, compute_dtype, train=True,
+                          generator=generator, mixup_lambda=mixup_lambda)
+    scales = draw_drop_path_scales(generator, x.shape[0], cfg)
+    emb = forward_features(model, x, cfg, drop_path_scales=scales)
     head = model.head_audioset
     logits = L.linear(emb, head.weight, head.bias).float()
     return {"clipwise_output": torch.sigmoid(logits), "clipwise_logits": logits}

@@ -62,6 +62,59 @@ def batch_norm_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (x.float() * inv + shift).to(x.dtype)
 
 
+@torch.no_grad()
+def _update_running(running: torch.Tensor, batch_stat: torch.Tensor, momentum: float) -> None:
+    running.copy_((1 - momentum) * running + momentum * batch_stat.detach())
+
+
+def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor,
+                     eps: float = 1e-5, momentum: float = 0.1, axis: int = -1) -> torch.Tensor:
+    """Training-mode BatchNorm over ``axis`` with f32 batch statistics taken
+    over every other axis; the result is cast back to x's dtype.
+
+    Updates ``running_mean`` and ``running_var`` IN PLACE (torch's
+    convention, where the JAX package returns them): running = (1 -
+    momentum) * running + momentum * batch_stat, with the *unbiased* batch
+    variance entering the running average.
+    """
+    xf = x.float()
+    axis = axis % x.ndim
+    dims = tuple(i for i in range(x.ndim) if i != axis)
+    n = 1
+    for i in dims:
+        n *= x.shape[i]
+    mean_k = xf.mean(dim=dims, keepdim=True)
+    var_k = torch.square(xf - mean_k).mean(dim=dims, keepdim=True)
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    inv = torch.rsqrt(var_k + eps) * weight.reshape(shape)
+    y = xf * inv + (bias.reshape(shape) - mean_k * inv)
+    _update_running(running_mean, mean_k.reshape(-1), momentum)
+    _update_running(running_var, var_k.reshape(-1) * (n / max(n - 1, 1)), momentum)
+    return y.to(x.dtype)
+
+
+def draw_drop_path(generator: Optional[torch.Generator], batch: int,
+                   drop_prob: float) -> Optional[torch.Tensor]:
+    """Per-sample stochastic-depth scales (B,) in f32: keep/keep_prob, where
+    keep ~ Bernoulli(1 - drop_prob); None where the block drops nothing."""
+    if drop_prob == 0.0 or generator is None:
+        return None
+    keep_prob = 1.0 - drop_prob
+    keep = torch.rand(batch, generator=generator) < keep_prob
+    return keep.float() / keep_prob
+
+
+def drop_path(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-sample residual drop (reference convnext.py:90-127): the branch
+    times its sample's scale from ``draw_drop_path``, taken in x's dtype as
+    the JAX package takes its mask. ``scale=None`` is the identity."""
+    if scale is None:
+        return x
+    return x * scale.to(device=x.device, dtype=x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ weight.T (+ bias), weight in (out, in) layout. Accumulates in f32,

@@ -10,6 +10,11 @@ the JAX package's ``ops/pallas_fused_block.py::_kernel``: the
 dwconv sum (f32, plus bias), the LN output and the GELU output each round to
 the activation dtype, and the block output rounds once at the end.
 
+The training ("save") mode of the same kernel takes a per-sample drop-path
+scale ``s`` (B,), which multiplies the branch after gamma and before the
+residual, and also returns ``d``, the dwconv output as rounded before the
+LN, for the fused backward (``ops/fused_block_bwd.py``).
+
 On a CUDA tensor it launches ``csrc/fused_block.cu`` (built at first use by
 ``ops/_build.py``) or raises; on a CPU tensor it runs
 ``fused_block_reference``, the same function in plain PyTorch. The kernel
@@ -44,9 +49,12 @@ def fused_block_reference(
     b2: torch.Tensor,
     gamma: Optional[torch.Tensor],
     eps: float = 1e-6,
-) -> torch.Tensor:
+    s: Optional[torch.Tensor] = None,
+    save_dwconv: bool = False,
+):
     """Plain PyTorch version of the kernel, same arguments and rounding
-    points. x: (B, H, W, C); dw_w: (C, 1, 7, 7); w1: (4C, C); w2: (C, 4C)."""
+    points. x: (B, H, W, C); dw_w: (C, 1, 7, 7); w1: (4C, C); w2: (C, 4C);
+    s: (B,) f32. Returns y, or (y, d) with ``save_dwconv``."""
     dt = x.dtype
     c = x.shape[-1]
     xf = x.float()
@@ -64,10 +72,13 @@ def fused_block_reference(
         y = F.linear(h.float(), w2.to(dt).float(), b2.float())
     if gamma is not None:
         y = y * gamma.float()
-    return (xf + y).to(dt)
+    if s is not None:
+        y = y * s.float().reshape(-1, 1, 1, 1)
+    out = (xf + y).to(dt)
+    return (out, d.to(dt)) if save_dwconv else out
 
 
-def _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
+def _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s=None) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_block takes float32 or bfloat16 activations, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
@@ -83,7 +94,11 @@ def _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma) -> None:
     }
     if gamma is not None:
         shapes["gamma"] = (gamma, (c,))
+    if s is not None:
+        shapes["s"] = (s, (x.shape[0],))
     for name, (t, want) in shapes.items():
+        if t is None and name == "dw_b":  # the backward takes no dwconv bias
+            continue
         if tuple(t.shape) != want:
             raise ValueError(f"fused_block: {name} has shape {tuple(t.shape)}, want {want}")
         if t.device != x.device:
@@ -94,7 +109,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_block")
     fn = lib.fused_block_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -112,13 +127,18 @@ def fused_block(
     b2: torch.Tensor,
     gamma: Optional[torch.Tensor],
     eps: float = 1e-6,
-) -> torch.Tensor:
+    s: Optional[torch.Tensor] = None,
+    save_dwconv: bool = False,
+):
     """One ConvNeXt block on NHWC ``x``; weights in the reference layouts.
-    CUDA tensors launch the kernel (``fused_block.launches`` counts each
-    launch); CPU tensors run the plain version."""
-    _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    With ``s`` (B,) the branch is scaled per sample; with ``save_dwconv``
+    the call returns (y, d). CUDA tensors launch the kernel
+    (``fused_block.launches`` counts each launch); CPU tensors run the plain
+    version."""
+    _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s)
     if x.device.type == "cpu":
-        return fused_block_reference(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+        return fused_block_reference(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+                                     s, save_dwconv)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block runs on cuda or cpu tensors, got {x.device}")
     lib = _lib()
@@ -134,17 +154,24 @@ def fused_block(
     w2c, b2c = w2.detach().to(dt).contiguous(), f32(b2)
     g = f32(gamma) if gamma is not None else None
     out = torch.empty_like(x)
+    train = s is not None or save_dwconv
+    # the kernel's save mode takes both: a scale of ones, or a d it drops
+    sc = (f32(s) if s is not None else torch.ones(b, device=x.device)) if train else None
+    d = torch.empty_like(x) if train else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_block_forward(
             x.data_ptr(), out.data_ptr(), dww.data_ptr(), *(t.data_ptr() for t in args),
             w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(),
             g.data_ptr() if g is not None else None,
+            sc.data_ptr() if train else None, d.data_ptr() if train else None,
             b, h, w, c, float(eps), _DTYPE_CODE[dt], stream)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: cudaError {err}")
     fused_block.launches += 1
-    return out
+    fused_block.save_launches += int(train)
+    return (out, d) if save_dwconv else out
 
 
-fused_block.launches = 0
+fused_block.launches = 0  # every launch
+fused_block.save_launches = 0  # the launches in save mode (of those counted above)

@@ -1,0 +1,50 @@
+"""Trainable fused ConvNeXt block: the forward kernel's save mode and the
+fused backward kernel as one ``torch.autograd.Function``.
+
+The counterpart of the JAX package's ``fused_block_train`` custom VJP:
+
+    y = x + s * gamma * pwconv2(gelu_tanh(pwconv1(LN(dwconv(x)))))
+
+with a per-sample drop-path scale ``s`` (B,). The forward saves the block
+input x and the dwconv output d only; the backward recomputes the LN
+statistics and the 4C-wide GELU hidden from d, so no (B, H, W, 4C) tensor
+is kept between the passes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from audioset_convnext_inf_torch.ops.fused_block import fused_block
+from audioset_convnext_inf_torch.ops.fused_block_bwd import fused_block_bwd
+
+_PARAMS = ("dwconv.weight", "dwconv.bias", "norm.weight", "norm.bias", "pwconv1.weight",
+           "pwconv1.bias", "pwconv2.weight", "pwconv2.bias", "gamma")
+
+
+class FusedBlockTrain(torch.autograd.Function):
+    """apply(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps) -> y.
+
+    Weights in the reference layouts; gamma is required (the fused route
+    needs layer scale). Gradients come back in the parameters' layouts and
+    dtypes; ``s`` and ``eps`` get none."""
+
+    @staticmethod
+    def forward(ctx, x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
+        if gamma is None:
+            raise ValueError("FusedBlockTrain needs gamma (layer scale)")
+        if s is None:  # no drop path on this block
+            s = torch.ones(x.shape[0], device=x.device)
+        y, d =fused_block(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+                           s=s, save_dwconv=True)
+        ctx.save_for_backward(x, d, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, d, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s = ctx.saved_tensors
+        dx, g = fused_block_bwd(x, d, dy.to(x.dtype).contiguous(), dw_w, ln_w, ln_b,
+                                w1, b1, w2, b2, gamma, s, ctx.eps)
+        params = (dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma)
+        return (dx, *(g[k].to(p.dtype) for k, p in zip(_PARAMS, params)), None, None)

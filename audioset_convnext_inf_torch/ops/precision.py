@@ -31,14 +31,40 @@ def fp32_precision(precision: str) -> Iterator[None]:
         matmul.allow_tf32, cudnn.allow_tf32 = prev
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    with fp32_precision("highest"):
+        return torch.mm(a.float(), b.float())
+
+
+class _MmF32Acc(torch.autograd.Function):
+    """Gradient of ``mm_f32acc``: the f32 cotangent rounds to the operand
+    dtype, and each operand gradient is the same f32-accumulated product,
+    rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = _mm(g, b.t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = _mm(a.t(), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def mm_f32acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """2-D ``a @ b`` with f32 products and accumulation, returned in f32.
 
     For bf16 operands this is one bf16 tensor-core product on the card
     (cuBLAS with an f32 output); the CPU has no such op, and there the
     operands are widened first, which computes the same exact products.
+    Differentiable: the backward runs the same kind of product.
     """
-    if a.dtype == torch.bfloat16 and a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    with fp32_precision("highest"):
-        return torch.mm(a.float(), b.float())
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MmF32Acc.apply(a, b)
+    return _mm(a, b)

@@ -8,22 +8,33 @@ nvidia-smi. It needs no network and no JAX. Phases, each of which fails the
 run (non-zero exit) on any error or mismatch:
 
  1. device: the card's name and power limit;
- 2. build: every CUDA kernel of the main path, from the sources in the
-    checkout, with nvcc for sm_90a;
+ 2. build: every CUDA kernel of the two paths below, from the sources in
+    the checkout, with nvcc for sm_90a, one nvcc per source, in parallel;
  3. kernels: each kernel against its plain PyTorch version on the card,
-    in f32 and bf16, at the main path's shapes and at the widths the
-    factories use, with the tolerances stated in KERNEL_TOL;
- 4. main path: convnext_tiny at full width on B=16 ten-second clips (the
+    in f32 and bf16, at the paths' shapes and at the widths the factories
+    use, with the tolerances stated in KERNEL_TOL: the fused block (K1) in
+    its serving mode and its training ("save") mode, and the fused block
+    backward (K2), which must also give bit-equal results twice;
+ 4. serving path: convnext_tiny at full width on B=16 ten-second clips (the
     fixture recording as int16 plus seeded variants), random weights from
     a seed with seeded gamma/bn0 values. The bf16 serving config runs
     forward, forward_scene_embeddings and forward_frame_embeddings, and each
     call must launch the fused block kernel exactly once per stage-3/4 block;
     the f32 parity config launches it never and matches the port's own f32
     forward on the CPU; bf16 serving probabilities stay near f32 parity;
- 5. times (CUDA events after warm-up): each kernel and its plain version at
+ 5. training path: convnext_tiny at full width in the JAX package's fused
+    training recipe (tanh GELU, fused_train_blocks, drop path 0.1, bf16
+    compute, mixup 1.0, SpecAugment, AdamW with OneCycle), TRAIN_STEPS
+    Trainer.step calls on 32 fixture-derived clips (mixup pairs them into
+    B=16). Each step must launch K1 in save mode and K2 exactly once per
+    stage-3/4 block, with a finite loss; the trained model's eval forward
+    launches K1 12 times in serving mode; one step's gradients with the
+    fused blocks against the unfused ones (drop path off), bf16 and f32;
+ 6. times (CUDA events after warm-up): each kernel and its plain version at
     the checked shapes beside the least time the card could take;
-    end-to-end clips/s of the bf16 serving forward at B=16 and B=64; one
-    torch.profiler trace of that forward (device time by kernel, idle share).
+    end-to-end clips/s of the bf16 serving forward at B=16 and B=64 and of
+    the training step; one torch.profiler trace of the serving forward and
+    one of a training step (device time by kernel, idle share).
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -48,6 +59,9 @@ FIXTURE = ROOT / "tests" / "fixtures" / "f62-S-v2swA_200000_210000.wav"
 SEED = 0
 BATCH = 16
 
+TRAIN_CLIPS = 32  # clips per training step; mixup pairs them into B=16
+TRAIN_STEPS = 4
+
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -59,6 +73,18 @@ PEAK_BYTES = 3.35e12
 # itself); allowed is 2^-6 of the output scale, four ulps at the largest
 # |y|.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+# Training gradients, fused vs unfused blocks on the card, relative to each
+# gradient's scale max(1, max|g|): the JAX package's own fused-vs-XLA
+# training tolerances (tests/test_fused_train_integration.py), bf16 5e-2 and
+# f32 3e-4. In f32 the two routes are compared directly. In bf16 at full
+# depth one tensor, the stem conv's bias (a sum over ~14k positions of bf16
+# cotangents), is about 0.09 of scale away from its f32 gradient on EITHER
+# route, so the routes can differ by more than 5e-2 there without either
+# being wrong. The bf16 rule is therefore: on every tensor, the fused
+# route's distance from the f32 gradients exceeds the unfused route's by at
+# most 5e-2 of scale: the fused blocks may add no more than the JAX
+# tolerance to what bf16 training already costs.
+FUSED_GRAD_TOL = {torch.bfloat16: 5e-2, torch.float32: 3e-4}
 # f32 parity config, card vs CPU: logits, the JAX package's parity tolerance.
 F32_LOGIT_TOL = 2e-4
 # bf16 serving (tanh GELU, bf16 trunk and bf16 DFT) vs f32 parity (erf GELU,
@@ -76,6 +102,14 @@ K1_CASES = [
     ("no gamma", BATCH, 31, 7, 768, False),
 ]
 K1_MAIN_PATH = {"tiny stage 3": 9, "tiny stage 4": 3}  # launches per forward
+# The training path's block shapes (K1 save mode and K2), then atto stage 3
+# and an odd width (K2 only).
+K2_CASES = [
+    ("tiny stage 3", BATCH, 63, 14, 384),
+    ("tiny stage 4", BATCH, 31, 7, 768),
+    ("atto stage 3", BATCH, 63, 14, 160),
+    ("odd width", 4, 13, 14, 100),
+]
 
 
 def log(*args):
@@ -202,6 +236,161 @@ def time_k1(device):
     return per_shape
 
 
+def k1_save_work(b, h, w, c, dtype):
+    """(flops, bytes) of one save-mode launch: K1's, plus d written and s read."""
+    flops, nbytes = k1_work(b, h, w, c, dtype)
+    return flops, nbytes + b * h * w * c * (torch.finfo(dtype).bits // 8) + 4 * b
+
+
+def drop_scales(b, device, seed):
+    """Per-sample drop-path scales as training draws them at rate 0.3, with
+    sample 0 dropped: zeros and 1/keep."""
+    g = torch.Generator().manual_seed(seed)
+    s = (torch.rand(b, generator=g) < 0.7).float() / 0.7
+    s[0] = 0.0
+    return s.to(device)
+
+
+def check_k1_save(device):
+    """K1's save mode at the training path's shapes: y (scaled branch) and d."""
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block, fused_block_reference
+
+    results = []
+    for name, b, h, w, c, _ in K1_CASES:
+        if name not in K1_MAIN_PATH:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            x, args = k1_inputs(b, h, w, c, True, dtype, device, SEED)
+            s = drop_scales(b, device, SEED)
+            y, d = fused_block(x, *args, 1e-6, s=s, save_dwconv=True)
+            torch.cuda.synchronize()
+            y_ref, d_ref = fused_block_reference(x, *args, 1e-6, s, True)
+            errs = {}
+            for key, got, ref in (("y", y, y_ref), ("d", d, d_ref)):
+                scale = max(1.0, ref.float().abs().max().item())
+                err = (got.float() - ref.float()).abs().max().item()
+                if not (bool(torch.isfinite(got.float()).all()) and err <= KERNEL_TOL[dtype] * scale):
+                    raise AssertionError(f"fused_block save mode disagrees ({key}): {name} {dtype}")
+                errs[key] = err
+            log(f"  K1 save {name:13s} {str(dtype):15s} B={b} H={h} W={w} C={c}: max_abs_err "
+                f"y={errs['y']:.3e} d={errs['d']:.3e} (tol {KERNEL_TOL[dtype]} of scale) ok")
+            results.append({"case": name, "dtype": str(dtype), "max_abs_err": max(errs.values())})
+    return results
+
+
+def k2_inputs(b, h, w, c, dtype, device, seed):
+    """x, d (from the plain save-mode forward), dy, the backward's weights, s."""
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block_reference
+
+    x, args = k1_inputs(b, h, w, c, True, dtype, device, seed)
+    s = drop_scales(b, device, seed)
+    _, d = fused_block_reference(x, *args, 1e-6, s, True)
+    g = torch.Generator().manual_seed(seed + 1)
+    dy = torch.randn(b, h, w, c, generator=g).to(device=device, dtype=dtype)
+    return x, d, dy, (args[0], *args[2:]), s
+
+
+def k2_work(b, h, w, c, dtype):
+    """(flops, bytes) one backward call must do: five products of 2*N*C*4C
+    and two 49-tap stencils of 2*N*C*49; x, d, dy read and dx written once,
+    W1/W2 read once, the f32 gradients written once."""
+    npix = b * h * w
+    flops = 2 * npix * (2 * c * 49 + 5 * c * 4 * c)
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = 4 * npix * c * esize + 8 * c * c * esize + (8 * c * c + 58 * c) * 4 + 4 * b
+    return flops, nbytes
+
+
+def check_k2(device):
+    """K2 against its plain version: dx and the nine gradients, each within
+    KERNEL_TOL of its own scale; a second call must be bit-equal."""
+    from audioset_convnext_inf_torch.ops.fused_block_bwd import (
+        fused_block_bwd, fused_block_bwd_reference)
+
+    results = []
+    for name, b, h, w, c in K2_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, d, dy, wts, s = k2_inputs(b, h, w, c, dtype, device, SEED)
+            dx, g = fused_block_bwd(x, d, dy, *wts, s)
+            dx2, g2 = fused_block_bwd(x, d, dy, *wts, s)
+            torch.cuda.synchronize()
+            dx_ref, g_ref = fused_block_bwd_reference(x, d, dy, *wts, s)
+            worst, worst_rel, worst_name = 0.0, 0.0, ""
+            for key, got, ref in [("dx", dx, dx_ref)] + [(k, g[k], g_ref[k]) for k in g_ref]:
+                scale = max(1.0, ref.float().abs().max().item())
+                err = (got.float() - ref.float()).abs().max().item()
+                if not (bool(torch.isfinite(got.float()).all()) and err <= KERNEL_TOL[dtype] * scale):
+                    raise AssertionError(f"fused_block_bwd disagrees ({key}, err {err:.3e}, scale "
+                                         f"{scale:.3e}): {name} {dtype}")
+                worst = max(worst, err)
+                if err / scale > worst_rel:
+                    worst_rel, worst_name = err / scale, key
+            same = torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
+            log(f"  K2 {name:13s} {str(dtype):15s} B={b} H={h} W={w} C={c}: max_abs_err={worst:.3e}, "
+                f"worst of scale {worst_rel:.3e} ({worst_name}; tol {KERNEL_TOL[dtype]}), "
+                f"two runs bit-equal: {same}")
+            if not same:
+                raise AssertionError(f"fused_block_bwd is not deterministic: {name} {dtype}")
+            results.append({"case": name, "dtype": str(dtype), "max_abs_err": worst})
+    return results
+
+
+def time_kernel(label, fn, plain, counter, flops, nbytes, dtype):
+    """Kernel and plain version by CUDA events; launches made here are put
+    back off the count."""
+    before = counter.launches
+    ms = cuda_ms(fn, iters=20)
+    plain_ms = cuda_ms(plain, iters=10)
+    counter.launches = before
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return row
+
+
+def time_k1_save(device):
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block, fused_block_reference
+
+    per_shape = {}
+    for name, b, h, w, c, _ in K1_CASES:
+        if name not in K1_MAIN_PATH:
+            continue
+        dtype = torch.bfloat16
+        x, args = k1_inputs(b, h, w, c, True, dtype, device, SEED)
+        s = drop_scales(b, device, SEED)
+        saves = fused_block.save_launches
+        per_shape[name] = time_kernel(
+            f"K1 save {name:13s} bf16 B={b} H={h} W={w} C={c}",
+            lambda: fused_block(x, *args, 1e-6, s=s, save_dwconv=True),
+            lambda: fused_block_reference(x, *args, 1e-6, s, True),
+            fused_block, *k1_save_work(b, h, w, c, dtype), dtype)
+        fused_block.save_launches = saves
+    return per_shape
+
+
+def time_k2(device):
+    from audioset_convnext_inf_torch.ops.fused_block_bwd import (
+        CUDA_LAUNCHES, fused_block_bwd, fused_block_bwd_reference)
+
+    per_shape = {}
+    for name, b, h, w, c in K2_CASES:
+        dtype = torch.bfloat16
+        x, d, dy, wts, s = k2_inputs(b, h, w, c, dtype, device, SEED)
+        per_shape[name] = time_kernel(
+            f"K2 {name:13s} bf16 B={b} H={h} W={w} C={c} ({CUDA_LAUNCHES} CUDA launches per call)",
+            lambda: fused_block_bwd(x, d, dy, *wts, s),
+            lambda: fused_block_bwd_reference(x, d, dy, *wts, s),
+            fused_block_bwd, *k2_work(b, h, w, c, dtype), dtype)
+        if name in K1_MAIN_PATH:  # where one call's time goes, launch by launch
+            before = fused_block_bwd.launches
+            profile_run(lambda: fused_block_bwd(x, d, dy, *wts, s), f"K2 {name}", top=CUDA_LAUNCHES)
+            fused_block_bwd.launches = before
+    return per_shape
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -314,23 +503,23 @@ def time_end_to_end(model, label: str):
             f"{batch / dt:.1f} clips/s")
 
 
-def profile_forward(model, batch: int, top: int = 10):
-    """One traced forward: device time by kernel name, and the device's idle
-    share of the traced wall time (union of kernel and copy intervals)."""
+def profile_run(fn, label: str, top: int = 10):
+    """One traced call of fn (after one untraced): device time by kernel
+    name, and the device's idle share of the traced wall time (union of
+    kernel and copy intervals)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pcm = fixture_batch(batch, SEED + batch)
-    model.forward(pcm)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.forward(pcm)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        log("  profile: the profiler saw no device events; kernel breakdown not measured")
+        log(f"  profile {label}: the profiler saw no device events; kernel breakdown not measured")
         return
     by_name = {}
     for e in dev:
@@ -345,10 +534,178 @@ def profile_forward(model, batch: int, top: int = 10):
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     total = sum(t for t, _ in by_name.values())
-    log(f"  profile bf16 forward B={batch}: wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"  profile {label}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, kernel time {total / 1e3:.2f} ms")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"    {t / 1e3:9.3f} ms {100 * t / total:5.1f}% x{n:<4d} {name[:90]}")
+
+
+def profile_forward(model, batch: int, top: int = 10):
+    pcm = fixture_batch(batch, SEED + batch)
+    profile_run(lambda: model.forward(pcm), f"bf16 forward B={batch}", top)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the training path
+# ---------------------------------------------------------------------------
+
+def train_batch(clips: int, seed: int):
+    """(clips, 320000) int16 fixture-derived PCM and seeded multi-hot targets."""
+    pcm = fixture_batch(clips, seed)
+    rng = np.random.RandomState(seed + 7)
+    target = (rng.rand(clips, 527) < 0.01).astype(np.float32)
+    target[np.arange(clips), rng.randint(0, 527, clips)] = 1.0
+    return pcm, target
+
+
+def build_train_model(device, fused: bool = True, drop_path_rate: float = 0.1):
+    """convnext_tiny in the JAX package's fused training recipe
+    (cli/train.py with --bf16 --block-impl xla_approx --fused-train-blocks):
+    tanh GELU, layer scale 1e-6 then seeded gamma, frontend precision "high"."""
+    from audioset_convnext_inf_torch.config import FrontendConfig
+    from audioset_convnext_inf_torch.models import convnext_tiny
+
+    model = convnext_tiny(drop_path_rate=drop_path_rate, block_impl="xla_approx",
+                          fused_train_blocks=fused, frontend=FrontendConfig(precision="high"),
+                          seed=SEED, device=device)
+    if model.count_parameters() != 28_222_767:
+        raise AssertionError(f"convnext_tiny has {model.count_parameters()} parameters")
+    return seed_state(model, SEED + 1)
+
+
+def train_config(bf16: bool = True):
+    from audioset_convnext_inf_torch.engine.trainer import TrainConfig
+
+    return TrainConfig(bf16_compute=bf16, mixup_alpha=1.0)
+
+
+def _counts():
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
+    from audioset_convnext_inf_torch.ops.fused_block_bwd import fused_block_bwd
+
+    return fused_block.launches, fused_block.save_launches, fused_block_bwd.launches
+
+
+def _zero_counts():
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
+    from audioset_convnext_inf_torch.ops.fused_block_bwd import fused_block_bwd
+
+    fused_block.launches = fused_block.save_launches = fused_block_bwd.launches = 0
+
+
+def run_training_path(device):
+    """TRAIN_STEPS Trainer.step calls; each must launch K1 (save mode) and K2
+    once per stage-3/4 block. Returns (trainer, batch, launches over the run)."""
+    from audioset_convnext_inf_torch.engine.trainer import Trainer
+
+    model = build_train_model(device)
+    trainer = Trainer(model, train_config())
+    pcm, target = train_batch(TRAIN_CLIPS, SEED)
+    per_step = sum(K1_MAIN_PATH.values())
+    _zero_counts()
+    for i in range(TRAIN_STEPS):
+        before = _counts()
+        loss = trainer.step(pcm, target)
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(_counts(), before))
+        log(f"  train step {i}: loss {loss:.6f}; launches K1 {delta[0]} (save mode {delta[1]}), "
+            f"K2 {delta[2]} (expect {per_step} each)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"training step {i}: loss is not finite")
+        if delta != (per_step, per_step, per_step):
+            raise AssertionError(f"training step {i} launched {delta}, expected {per_step} each")
+    launches = _counts()
+    _zero_counts()
+    out = model.forward(pcm[:BATCH])
+    torch.cuda.synchronize()
+    log(f"  trained model, eval forward B={BATCH}: launches (K1, K1 save, K2) {_counts()} "
+        f"(expect ({per_step}, 0, 0))")
+    if _counts() != (per_step, 0, 0):
+        raise AssertionError(f"eval forward after training launched {_counts()}")
+    if not bool(torch.isfinite(out["clipwise_output"]).all()):
+        raise AssertionError("eval forward after training is not finite")
+    return trainer, (pcm, target), launches
+
+
+def _grad_err(got, ref):
+    """{tensor: max |got - ref| over its scale max(1, max|ref|)}, the JAX
+    package's fused-vs-XLA metric."""
+    return {n: (got[n] - ref[n]).abs().max().item() / max(1.0, ref[n].abs().max().item())
+            for n in ref}
+
+
+def check_fused_vs_unfused(device):
+    """One training step's gradients, fused stages 3-4 against the plain
+    blocks, drop path off, same weights and draws, in bf16 and in f32
+    (FUSED_GRAD_TOL says what each is held to)."""
+    from audioset_convnext_inf_torch.engine.trainer import Trainer
+
+    pcm, target = train_batch(TRAIN_CLIPS, SEED + 3)
+    grads = {}
+    for bf16 in (True, False):
+        for fused in (True, False):
+            model = build_train_model(device, fused=fused, drop_path_rate=0.0)
+            trainer = Trainer(model, train_config(bf16))
+            loss = trainer.step(pcm, target)
+            grads[bf16, fused] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+            log(f"  training step, {'bf16' if bf16 else 'f32'}, {'fused' if fused else 'unfused'} "
+                f"blocks: loss {loss:.6f}")
+            del model, trainer
+            torch.cuda.empty_cache()
+    ref = grads[False, False]
+    errs = {}
+    for label, a, b in (("bf16 fused vs bf16 unfused", grads[True, True], grads[True, False]),
+                        ("f32 fused vs f32 unfused", grads[False, True], ref),
+                        ("bf16 fused vs f32 unfused", grads[True, True], ref),
+                        ("bf16 unfused vs f32 unfused", grads[True, False], ref)):
+        errs[label] = _grad_err(a, b)
+        top = sorted((v, n) for n, v in errs[label].items())[-3:]
+        log(f"  gradients {label}, worst of scale over {len(b)} tensors: "
+            + ", ".join(f"{n} {e:.3e}" for e, n in reversed(top)))
+    f32_err = max(errs["f32 fused vs f32 unfused"].values())
+    added = {n: errs["bf16 fused vs f32 unfused"][n] - errs["bf16 unfused vs f32 unfused"][n]
+             for n in ref}
+    worst_added = max(added.values())
+    log(f"  f32: fused vs unfused {f32_err:.3e} of scale (tol {FUSED_GRAD_TOL[torch.float32]}); "
+        f"bf16: error the fused blocks add to the unfused route's, worst {worst_added:.3e} of scale "
+        f"({max(added, key=added.get)}; tol {FUSED_GRAD_TOL[torch.bfloat16]})")
+    if not f32_err <= FUSED_GRAD_TOL[torch.float32]:
+        raise AssertionError("fused and unfused training gradients disagree in f32")
+    if not worst_added <= FUSED_GRAD_TOL[torch.bfloat16]:
+        raise AssertionError("bf16 fused training gradients are farther from f32 than the unfused")
+
+
+def time_training(trainer, batch, steps: int = 5):
+    """ms per training step (host batch in, synchronised) and clips/s."""
+    pcm, target = batch
+    trainer.step(pcm, target)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.step_async(pcm, target)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    log(f"  train step bf16, {TRAIN_CLIPS} clips in, B={TRAIN_CLIPS // 2} trunk: {dt * 1e3:.2f} ms/step, "
+        f"{TRAIN_CLIPS // 2 / dt:.1f} trunk clips/s ({TRAIN_CLIPS / dt:.1f} input clips/s); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_run(lambda: trainer.step(pcm, target), f"bf16 train step ({TRAIN_CLIPS} clips)", top=14)
+
+
+def _entry(name, source, replaces, launches, results, per_shape, mode, per_call):
+    """One kernel's line: the main path's shapes, summed over the launches
+    one call of the path makes (``per_call`` per shape)."""
+    totals = {key: sum(per_call[s] * per_shape[s][key] for s in per_call)
+              for key in ("ms", "plain_ms", "bound_ms")}
+    err = max(r["max_abs_err"] for r in results
+              if r["case"] in per_call and r["dtype"] == str(torch.bfloat16))
+    log(f"  {name} ({mode}) per call of its path ({per_call}): kernel {totals['ms']:.3f} ms, "
+        f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms")
+    return {"name": name, "mode": mode, "route": "cuda",
+            "source": f"audioset_convnext_inf_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+            "bound_by": per_shape["tiny stage 3"]["bound_by"], "library_ms": None,
+            "cases": len(results), "ok": True}
 
 
 def main() -> int:
@@ -358,38 +715,44 @@ def main() -> int:
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    log(f"[1/5] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    log(f"[1/6] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    log("[2/5] build")
-    build_kernels(["fused_block"])
+    log("[2/6] build")
+    build_kernels(["fused_block", "fused_block_bwd"])
 
-    log("[3/5] kernels against their plain versions")
+    log("[3/6] kernels against their plain versions")
     k1_results = check_k1(device)
+    k1s_results = check_k1_save(device)
+    k2_results = check_k2(device)
 
-    log("[4/5] main path: convnext_tiny, B=16 x 10-s clips")
+    log("[4/6] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
 
-    log(f"[5/5] times on {card}")
+    log(f"[5/6] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+        f"{TRAIN_STEPS} steps")
+    trainer, batch, train_launches = run_training_path(device)
+    check_fused_vs_unfused(device)
+
+    log(f"[6/6] times on {card}")
     per_shape = time_k1(device)
+    save_shape = time_k1_save(device)
+    k2_shape = time_k2(device)
     time_end_to_end(serve, "bf16 serving")
     profile_forward(serve, BATCH)
+    time_training(trainer, batch)
 
-    totals = {key: sum(K1_MAIN_PATH[s] * per_shape[s][key] for s in K1_MAIN_PATH)
-              for key in ("ms", "plain_ms", "bound_ms")}
-    main_err = max(r["max_abs_err"] for r in k1_results
-                   if r["case"] in K1_MAIN_PATH and r["dtype"] == str(torch.bfloat16))
-    log(f"  K1 per bf16 B=16 forward (9 stage-3 + 3 stage-4 launches): kernel {totals['ms']:.3f} ms, "
-        f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms")
-    kernels = [{
-        "name": "fused_block", "route": "cuda",
-        "source": "audioset_convnext_inf_torch/csrc/fused_block.cu",
-        "replaces": "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
-        "launches": launches, "max_abs_err": main_err,
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
-        "bound_by": per_shape["tiny stage 3"]["bound_by"], "library_ms": None,
-        "cases": len(k1_results), "ok": True,
-    }]
+    kernels = [
+        _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
+               launches, k1_results, per_shape, "serving forward", K1_MAIN_PATH),
+        _entry("fused_block_save", "fused_block.cu",
+               "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",
+               train_launches[1], k1s_results, save_shape, "training forward (save mode)",
+               K1_MAIN_PATH),
+        _entry("fused_block_bwd", "fused_block_bwd.cu",
+               "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66",
+               train_launches[2], k2_results, k2_shape, "training backward", K1_MAIN_PATH),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from audioset_convnext_inf_torch.ops import fused_block as FB
+from audioset_convnext_inf_torch.ops import fused_block_bwd as FBB
 
 
 def _need_card():
@@ -50,6 +51,69 @@ def test_fused_block_kernel_matches_plain_version(dtype, shape, with_gamma):
     tol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * max(1.0, ref.float().abs().max().item())
     assert got.dtype == dtype and got.shape == x.shape
     assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def _tol(dtype, ref):
+    return (1e-4 if dtype == torch.float32 else 2.0 ** -6) * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (4, 13, 14, 96)),
+    (torch.bfloat16, (16, 31, 7, 768)),   # tiny stage-4 shape
+    (torch.bfloat16, (4, 13, 14, 100)),   # odd width
+])
+def test_fused_block_save_mode_matches_plain_version(dtype, shape):
+    """Save mode: y with per-sample scales (zeros among them) and d, within
+    the kernel tolerance of the plain version."""
+    _need_card()
+    rng = np.random.RandomState(1)
+    args = _block_args(rng, shape[-1])
+    x = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32)).cuda().to(dtype)
+    s = torch.from_numpy(((rng.rand(shape[0]) > 0.3) / 0.7).astype(np.float32)).cuda()
+    s[0] = 0.0
+    before = (FB.fused_block.launches, FB.fused_block.save_launches)
+    y, d = FB.fused_block(x, *args, 1e-6, s=s, save_dwconv=True)
+    torch.cuda.synchronize()
+    assert (FB.fused_block.launches, FB.fused_block.save_launches) == (before[0] + 1, before[1] + 1)
+    y_ref, d_ref = FB.fused_block_reference(x, *args, 1e-6, s, True)
+    for got, ref in ((y, y_ref), (d, d_ref)):
+        assert got.dtype == dtype and (got.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+def _bwd_case(rng, shape, dtype):
+    c = shape[-1]
+    fwd = _block_args(rng, c)
+    x = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32)).cuda().to(dtype)
+    s = torch.from_numpy(((rng.rand(shape[0]) > 0.3) / 0.7).astype(np.float32)).cuda()
+    _, d = FB.fused_block_reference(x, *fwd, 1e-6, s, True)
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda().to(dtype)
+    return x, d, dy, (fwd[0], *fwd[2:]), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (4, 13, 14, 96)),
+    (torch.bfloat16, (16, 31, 7, 768)),   # tiny stage-4 shape
+    (torch.bfloat16, (4, 13, 14, 100)),   # odd width
+    (torch.float32, (2, 7, 7, 1024)),     # widest: the most shared memory
+])
+def test_fused_block_bwd_matches_plain_version_and_is_deterministic(dtype, shape):
+    """dx and the nine gradients within the kernel tolerance of the plain
+    version's; a second run gives bit-equal results (no float atomics)."""
+    _need_card()
+    x, d, dy, w, s = _bwd_case(np.random.RandomState(2), shape, dtype)
+    before = FBB.fused_block_bwd.launches
+    dx, g = FBB.fused_block_bwd(x, d, dy, *w, s)
+    dx2, g2 = FBB.fused_block_bwd(x, d, dy, *w, s)
+    torch.cuda.synchronize()
+    assert FBB.fused_block_bwd.launches == before + 2
+    dx_ref, g_ref = FBB.fused_block_bwd_reference(x, d, dy, *w, s)
+    assert dx.dtype == dtype and (dx.float() - dx_ref.float()).abs().max().item() <= _tol(dtype, dx_ref)
+    assert torch.equal(dx, dx2)
+    for k in g_ref:
+        assert (g[k] - g_ref[k]).abs().max().item() <= _tol(dtype, g_ref[k]), k
+        assert torch.equal(g[k], g2[k]), k
 
 
 @pytest.mark.cuda
