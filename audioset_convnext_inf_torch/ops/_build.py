@@ -3,8 +3,13 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` (Hopper) into a shared library under
 ``build/torch_kernels/`` at the root of the checkout. The library's file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. ``nvcc`` is found through
+name carries a hash of the source, of every header it includes from
+``csrc/`` (``#include "..."``, followed through headers that include
+others) and of the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. A build may add ``-D`` macros
+(``defines``, e.g. ``("ABLATE_STENCIL",)``); they are part of the flags and
+so of the name. The package itself defines none; only
+``scripts/ablate_fused_block_torch.py`` does. ``nvcc`` is found through
 ``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda/bin``; without it, building
 raises.
 """
@@ -14,12 +19,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from functools import lru_cache
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -43,17 +49,44 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is built already.
-    The compiler's report (registers, shared memory, spills) goes to a
-    ``.log`` file beside the library."""
-    out = library_path(name)
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and, in the order first met, every file of
+    ``csrc/`` it includes by ``#include "..."``, directly or through another
+    header. Quoted includes that are not in ``csrc/`` are the toolkit's."""
+    csrc = CSRC.resolve()
+    found: List[Path] = []
+    todo = [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = (path.parent / inc).resolve()
+            if dep.is_file() and dep.parent == csrc:
+                todo.append(dep)
+    return found
+
+
+def _flags(defines: Sequence[str]) -> List[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, defines: Sequence[str] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` with ``defines`` unless its library is
+    built already. The compiler's report (registers, shared memory, spills)
+    goes to a ``.log`` file beside the library."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -66,7 +99,7 @@ def build(name: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [nvcc, *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")],
             capture_output=True, text=True,
         )
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -80,6 +113,7 @@ def build(name: str) -> Path:
 
 
 @lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build if needed, then load the kernel library (once per process)."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build if needed, then load the kernel library (once per process and
+    set of ``defines``, which must be hashable: a tuple)."""
+    return ctypes.CDLL(str(build(name, defines)))

@@ -19,12 +19,15 @@ On a CUDA tensor it launches ``csrc/fused_block.cu`` (built at first use by
 ``ops/_build.py``) or raises; on a CPU tensor it runs
 ``fused_block_reference``, the same function in plain PyTorch. The kernel
 source says what bounds it on the card and what its design does about it.
+``launch_plan`` chooses the launch (pixels per thread block, channel
+padding of the bf16 tiles, shared memory) from (C, dtype, pixel count); the
+wrapper passes it to the kernel, which refuses a plan it cannot run.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +38,69 @@ from audioset_convnext_inf_torch.ops.precision import fp32_precision
 K = 7
 MAX_C = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The bf16 kernels' tiles and plan, as csrc/mma_bf16.cuh sets them for K1
+# and K2 alike (the kernels refuse any other plan).
+CPAD = 128  # C is padded to a multiple of this for the tiles
+NH = 128  # hidden units per chunk
+HLD = NH + 8  # padded row of a hidden chunk (bf16)
+RING = 3 * 128 * (64 + 8)  # bf16 elements of the weight-tile ring: 3 stages of 128 x 72
+
+
+def width_class(cp: int) -> int:
+    """128-channel blocks the bf16 kernels' (MT, C) accumulator is sized
+    for: 3 up to C=384, 6 up to 768, else 8."""
+    return 3 if cp <= 384 else 6 if cp <= 768 else 8
+
+
+def bf16_tiling(c: int) -> Tuple[int, int, int]:
+    """(cp, mt, width class) of the bf16 kernels at C channels: C padded
+    to CPAD; 64 pixels per block up to C=384 (96 accumulator registers), 32
+    above (32 beat 16 at C=768 for both kernels: PERF.md, Findings)."""
+    cp = -(-c // CPAD) * CPAD
+    ncls = width_class(cp)
+    return cp, 64 if ncls == 3 else 32, ncls
+
+
+class LaunchPlan(NamedTuple):
+    mt: int          # output pixels per thread block
+    cp: int          # channels as the kernel's tiles see them (bf16: padded to CPAD)
+    ctas: int        # thread blocks of the launch
+    smem_bytes: int  # dynamic shared memory of one block
+    acc_regs: int    # f32 registers per thread that hold the (mt, C) sum
+
+
+def launch_plan(c: int, dtype: torch.dtype, npix: int) -> LaunchPlan:
+    """The forward kernel's launch for C channels and npix = B*H*W pixels.
+    bf16: the tensor-core kernel under ``bf16_tiling``. f32: the FMA
+    kernel, 16 pixels per block, the (16, C) sum in shared memory."""
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"fused_block supports 1 <= C <= {MAX_C}, got C={c}")
+    if dtype == torch.float32:
+        cs = (c + 3) & ~3
+        return LaunchPlan(16, c, -(-npix // 16), 4 * (2 * 16 * cs + 16 * 64 + 64 * 65), 4)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"fused_block takes float32 or bfloat16 activations, got {dtype}")
+    cp, mt, ncls = bf16_tiling(c)
+    smem = 2 * (mt * (cp + 8) + mt * HLD + RING)
+    return LaunchPlan(mt, cp, -(-npix // mt), smem, mt * ncls // 2)
+
+
+def tile_weights(w1: torch.Tensor, w2: torch.Tensor, dt: torch.dtype,
+                 cp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W1 (4C, C) and W2 (C, 4C) in dt as the kernels read them: (4cp, cp)
+    and (cp, 4cp), zero beyond C and 4C (no copy beyond the cast when cp =
+    C), 16-byte aligned for the kernels' 16-byte copies."""
+    c = w1.shape[1]
+    w1c, w2c = w1.detach().to(dt), w2.detach().to(dt)
+    if cp != c:
+        w1p = w1c.new_zeros(4 * cp, cp)
+        w1p[:4 * c, :c] = w1c
+        w2p = w2c.new_zeros(cp, 4 * cp)
+        w2p[:c, :4 * c] = w2c
+        w1c, w2c = w1p, w2p
+    w1c, w2c = w1c.contiguous(), w2c.contiguous()
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in (w1c, w2c))
 
 
 def fused_block_reference(
@@ -105,13 +171,17 @@ def _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s=None) -> None:
             raise ValueError(f"fused_block: {name} is on {t.device}, x on {x.device}")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_block")
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library, built with ``defines`` (-D macros; the package
+    uses none, scripts/ablate_fused_block_torch.py switches parts off)."""
+    lib = _build.load("fused_block", defines)
     fn = lib.fused_block_forward
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_int
+        lib.fused_block_plan_smem.argtypes = [ctypes.c_int] * 4
+        lib.fused_block_plan_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -141,7 +211,17 @@ def fused_block(
                                      s, save_dwconv)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block runs on cuda or cpu tensors, got {x.device}")
-    lib = _lib()
+    b, h, w, c = x.shape
+    plan = launch_plan(c, x.dtype, b * h * w)
+    return _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s,
+                         save_dwconv, plan)
+
+
+def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save_dwconv,
+                  plan: LaunchPlan, defines: Tuple[str, ...] = ()):
+    """One launch of the kernel under ``plan`` (checked arguments, CUDA x),
+    from the library built with ``defines``."""
+    lib = _lib(defines)
     b, h, w, c = x.shape
     dt = x.dtype
 
@@ -150,8 +230,8 @@ def fused_block(
 
     dww = f32(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
     args = (f32(dw_b), f32(ln_w), f32(ln_b))
-    w1c, b1c = w1.detach().to(dt).contiguous(), f32(b1)
-    w2c, b2c = w2.detach().to(dt).contiguous(), f32(b2)
+    w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
+    b1c, b2c = f32(b1), f32(b2)
     g = f32(gamma) if gamma is not None else None
     out = torch.empty_like(x)
     train = s is not None or save_dwconv
@@ -165,7 +245,7 @@ def fused_block(
             w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(),
             g.data_ptr() if g is not None else None,
             sc.data_ptr() if train else None, d.data_ptr() if train else None,
-            b, h, w, c, float(eps), _DTYPE_CODE[dt], stream)
+            b, h, w, c, float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: cudaError {err}")
     fused_block.launches += 1

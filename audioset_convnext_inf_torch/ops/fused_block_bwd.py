@@ -14,24 +14,100 @@ NHWC (B, H, W, C). It replaces the JAX package's
 ``csrc/fused_block_bwd.cu`` (built at first use by ``ops/_build.py``) or
 raises; on a CPU tensor it runs ``fused_block_bwd_reference``. The kernel
 source says what bounds it on the card and how its launches divide the work.
+``launch_plan`` chooses the launches (pixels per chain block, the split of
+the weight-gradient products over pixel ranges, shared memory) and the
+workspace sizes from (C, dtype, pixel count); the wrapper allocates what it
+says and passes it to the kernel, which refuses a plan it cannot run.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from audioset_convnext_inf_torch.ops import _build
-from audioset_convnext_inf_torch.ops.fused_block import K, _DTYPE_CODE, _check
+from audioset_convnext_inf_torch.ops.fused_block import (
+    HLD, K, MAX_C, RING, _DTYPE_CODE, _check, bf16_tiling, tile_weights)
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
 
 _C0 = 0.7978845608028654  # sqrt(2/pi)
 _C1 = 0.044715
 WGRAD_CHUNK = 256  # pixels per partial sum of the depthwise weight gradient
 CUDA_LAUNCHES = 7  # kernel launches per call (see the kernel source)
+SMS = 132  # streaming multiprocessors of an H100: the split-K target is two blocks each
+_GT, _KP = 128, 32  # output tile edge and pixels per step of the bf16 products
+WGRAD_SMEM = 2 * 4 * 2 * _KP * (_GT + 8)  # bf16 product block: 4 stages of two tiles
+
+
+class BwdPlan(NamedTuple):
+    mt: int           # pixels per chain block
+    cp: int           # channels as the kernels' tiles see them (bf16: padded to CPAD)
+    split: int        # pixel ranges of the bf16 weight-gradient products (split-K)
+    split_px: int     # pixels per range, a multiple of 32
+    chain_ctas: int   # thread blocks of the chain launch
+    wgrad_ctas: int   # thread blocks of the weight-gradient launch(es)
+    chain_smem: int   # dynamic shared memory of one chain block
+    wgrad_smem: int   # shared memory of one weight-gradient block
+    acc_regs: int     # f32 registers per thread that hold the chain's (mt, C) dxn
+    workspace: Dict[str, int]  # elements: xn, dys, gact, dh1, dd in dt; parts in f32
+
+
+def launch_plan(c: int, dtype: torch.dtype, npix: int) -> BwdPlan:
+    """The backward's launches and workspaces for C channels and npix =
+    B*H*W pixels. bf16: the tensor-core chain under the forward's
+    ``bf16_tiling``; the two weight-gradient products as 128x128 tiles in
+    one launch, the pixels cut into ``split`` ranges so that the launch has
+    about two blocks per SM. f32: the FMA kernels, 16 pixels per chain
+    block, no split."""
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"fused_block_bwd supports 1 <= C <= {MAX_C}, got C={c}")
+    if dtype == torch.float32:
+        mt, cp, split, split_px = 16, c, 1, max(npix, 1)
+        cs = (c + 3) & ~3
+        chain_smem = 4 * (3 * 16 * cs + 2 * 16 * 64 + 64 * 65 + 4 * 16)
+        wgrad_ctas = 2 * (-(-c // 64)) * (-(-4 * c // 64))  # two launches of 64x64 tiles
+        wgrad_smem = 2 * 4 * 32 * 64  # two static 32 x 64 f32 tiles
+        acc_regs = 4
+    elif dtype == torch.bfloat16:
+        cp, mt, ncls = bf16_tiling(c)
+        tiles = (cp // _GT) * (4 * cp // _GT)
+        want = max(1, round(2 * SMS / tiles))
+        per_range = -(-npix // want)
+        split_px = max(_KP, -(-per_range // _KP) * _KP)  # whole 32-pixel steps
+        split = max(1, -(-npix // split_px))
+        chain_smem = 2 * (2 * mt * (cp + 8) + 2 * mt * HLD + RING) + 4 * 4 * mt
+        wgrad_ctas, wgrad_smem, acc_regs = 2 * tiles * split, WGRAD_SMEM, mt * ncls // 2
+    else:
+        raise TypeError(f"fused_block_bwd takes float32 or bfloat16 activations, got {dtype}")
+    nchain = -(-npix // mt)
+    workspace = {
+        "xn": npix * cp, "dys": npix * cp, "gact": npix * 4 * cp, "dh1": npix * 4 * cp,
+        "dd": npix * c, "part_chain": nchain * 8 * c,
+        "part_wgrad": -(-npix // WGRAD_CHUNK) * K * K * c,
+        "part_mm": split * 2 * 4 * cp * cp if dtype == torch.bfloat16 else 0,
+    }
+    return BwdPlan(mt, cp, split, split_px, nchain, wgrad_ctas, chain_smem, wgrad_smem,
+                   acc_regs, workspace)
+
+
+_WS_DT = ("xn", "dys", "gact", "dh1", "dd")  # workspaces in the activation dtype
+
+
+def allocate(plan: BwdPlan, c: int, dt: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """Every buffer the kernel writes under ``plan``: the workspaces of
+    ``plan.workspace`` (flat), and the f32 sums vec (8C), dww (49, C), m
+    (cp, 4cp) and dw1 (4cp, cp). m and dw1 are the two halves of one buffer,
+    so that one fixed-order sum writes both."""
+    cp = plan.cp
+    bufs = {k: torch.empty(n, dtype=dt if k in _WS_DT else torch.float32, device=device)
+            for k, n in plan.workspace.items()}
+    mm = torch.empty(2, 4 * cp * cp, device=device)
+    bufs.update(vec=torch.empty(8 * c, device=device), dww=torch.empty(K * K, c, device=device),
+                m=mm[0].view(cp, 4 * cp), dw1=mm[1].view(4 * cp, cp))
+    return bufs
 
 Grads = Dict[str, torch.Tensor]
 
@@ -128,13 +204,19 @@ def fused_block_bwd_reference(
     return dx, _grads(dww, vec, m, dw1, w2, b2, gamma, dt)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_block_bwd")
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library, built with ``defines`` (see fused_block._lib)."""
+    lib = _build.load("fused_block_bwd", defines)
     fn = lib.fused_block_backward
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.fused_block_bwd_plan_smem.argtypes = [ctypes.c_int] * 4
+        lib.fused_block_bwd_plan_smem.restype = ctypes.c_longlong
+        lib.fused_block_bwd_wgrad_smem.argtypes = []
+        lib.fused_block_bwd_wgrad_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -161,36 +243,41 @@ def fused_block_bwd(
                                          gamma, s, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_bwd runs on cuda or cpu tensors, got {x.device}")
-    lib = _lib()
+    b, h, w, c = x.shape
+    plan = launch_plan(c, x.dtype, b * h * w)
+    return _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps, plan)
+
+
+def _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
+                   plan: BwdPlan, defines: Tuple[str, ...] = ()) -> Tuple[torch.Tensor, Grads]:
+    """One call of the kernel under ``plan`` (checked arguments, CUDA x),
+    from the library built with ``defines``."""
+    lib = _lib(defines)
     b, h, w, c = x.shape
     dt = x.dtype
-    npix = b * h * w
 
     def f32(t):
         return t.detach().to(torch.float32).contiguous()
 
     dww = f32(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
-    w1c, w2c = w1.detach().to(dt).contiguous(), w2.detach().to(dt).contiguous()
+    w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
     ins = (dww, f32(ln_w), f32(ln_b), w1c, f32(b1), w2c, f32(gamma), f32(s))
     dx = torch.empty_like(x)
-    ws = [x.new_empty(npix * n) for n in (c, c, 4 * c, 4 * c, c)]  # xn, dys, gact, dh1, dd
-    part_chain = torch.empty(-(-npix // 16) * 8 * c, device=x.device)
-    part_wgrad = torch.empty(-(-npix // WGRAD_CHUNK) * K * K * c, device=x.device)
-    vec = torch.empty(8 * c, device=x.device)
-    dww_g = torch.empty(K * K, c, device=x.device)
-    m = torch.empty(c, 4 * c, device=x.device)
-    dw1 = torch.empty(4 * c, c, device=x.device)
+    buf = allocate(plan, c, dt, x.device)
+    outs = ("xn", "dys", "gact", "dh1", "dd", "part_chain", "part_wgrad", "vec", "dww", "m",
+            "dw1")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_block_backward(
             x.data_ptr(), d.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in ins),
-            dx.data_ptr(), *(t.data_ptr() for t in ws), part_chain.data_ptr(),
-            part_wgrad.data_ptr(), vec.data_ptr(), dww_g.data_ptr(), m.data_ptr(),
-            dw1.data_ptr(), b, h, w, c, WGRAD_CHUNK, float(eps), _DTYPE_CODE[dt], stream)
+            dx.data_ptr(), *(buf[k].data_ptr() for k in outs), b, h, w, c, WGRAD_CHUNK,
+            float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp, plan.split, plan.split_px,
+            buf["part_mm"].data_ptr() if plan.workspace["part_mm"] else None)
     if err != 0:
         raise RuntimeError(f"fused_block_bwd kernel launch failed: cudaError {err}")
     fused_block_bwd.launches += 1
-    return dx, _grads(dww_g, vec, m, dw1, w2, b2, gamma, dt)
+    m, dw1 = buf["m"][:c, :4 * c], buf["dw1"][:4 * c, :c]
+    return dx, _grads(buf["dww"], buf["vec"], m, dw1, w2, b2, gamma, dt)
 
 
 fused_block_bwd.launches = 0

@@ -10,6 +10,10 @@ run (non-zero exit) on any error or mismatch:
  1. device: the card's name and power limit;
  2. build: every CUDA kernel of the two paths below, from the sources in
     the checkout, with nvcc for sm_90a, one nvcc per source, in parallel;
+    per instantiation, registers, static shared memory and spills (nvcc
+    -Xptxas -v) and the count of HMMA (tensor-core) instructions in the
+    library's SASS (cuobjdump -sass). Fails if a bf16 tensor-core
+    instantiation has no HMMA, or one the main path launches spills;
  3. kernels: each kernel against its plain PyTorch version on the card,
     in f32 and bf16, at the paths' shapes and at the widths the factories
     use, with the tolerances stated in KERNEL_TOL: the fused block (K1) in
@@ -31,7 +35,8 @@ run (non-zero exit) on any error or mismatch:
     launches K1 12 times in serving mode; one step's gradients with the
     fused blocks against the unfused ones (drop path off), bf16 and f32;
  6. times (CUDA events after warm-up): each kernel and its plain version at
-    the checked shapes beside the least time the card could take;
+    the checked shapes beside the least time the card could take; the
+    unfused bf16 block (unfused_ms) at the main path's shapes;
     end-to-end clips/s of the bf16 serving forward at B=16 and B=64 and of
     the training step; one torch.profiler trace of the serving forward and
     one of a training step (device time by kernel, idle share).
@@ -44,6 +49,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -141,20 +148,139 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # phase 2: build
 # ---------------------------------------------------------------------------
 
+def _toolkit(tool: str) -> str:
+    """A CUDA toolkit program beside nvcc (or on PATH)."""
+    from audioset_convnext_inf_torch.ops import _build
+
+    nvcc = _build.find_nvcc()
+    cand = Path(nvcc).parent / tool if nvcc else None
+    return str(cand) if cand and cand.exists() else (shutil.which(tool) or tool)
+
+
+def _demangle(names):
+    try:
+        out = subprocess.run([_toolkit("cu++filt")], input="\n".join(names), capture_output=True,
+                             text=True, timeout=120, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = []
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def ptxas_report(log_text: str):
+    """{mangled kernel: {"regs", "spill", "smem"}} from nvcc -Xptxas -v."""
+    rep, cur = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)'?", ln)
+        if m:
+            cur = m.group(1)
+            rep.setdefault(cur, {"regs": None, "spill": 0, "smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            rep[cur]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            rep[cur]["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            rep[cur]["smem"] = int(m.group(1)) if m else 0
+    return rep
+
+
+def hmma_counts(lib: Path):
+    """{mangled kernel: number of HMMA instructions} from cuobjdump -sass."""
+    out = subprocess.run([_toolkit("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in ln:
+            counts[cur] += 1
+    return counts
+
+
+def kernel_name(demangled: str) -> str:
+    """'void <unnamed>::k<(int)64, (bool)0>(...)' -> 'k<64, 0>'."""
+    s = re.sub(r"\((?:int|bool|unsigned int)\)", "", demangled)
+    s = s.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+    s = s.replace("true", "1").replace("false", "0")
+    return re.sub(r"^void ", "", s).split("(")[0]
+
+
+def main_path_kernels():
+    """Names (as kernel_name gives them) of the bf16 tensor-core
+    instantiations the two paths launch at the main-path widths (C = 384
+    and 768, B = 16)."""
+    from audioset_convnext_inf_torch.ops import fused_block as FB, fused_block_bwd as FBB
+
+    names = {"wgrad_mma_kernel"}
+    for name, b, h, w, c, _ in K1_CASES:
+        if name in K1_MAIN_PATH:
+            p = FB.launch_plan(c, torch.bfloat16, b * h * w)
+            q = FBB.launch_plan(c, torch.bfloat16, b * h * w)
+            ncls = FB.width_class(p.cp)
+            names |= {f"fused_block_mma_kernel<{p.mt}, {ncls}, {mode}>" for mode in (0, 1)}
+            names.add(f"chain_mma_kernel<{q.mt}, {ncls}>")
+    return names
+
+
+TC_KERNELS = ("fused_block_mma_kernel", "chain_mma_kernel", "wgrad_mma_kernel")
+
+
+def log_main_path_plans():
+    """The launch plans at the main-path shapes: pixels per block, blocks
+    and the dynamic shared memory each block takes (ptxas reports only the
+    static part)."""
+    from audioset_convnext_inf_torch.ops import fused_block as FB, fused_block_bwd as FBB
+
+    for name, b, h, w, c, _ in K1_CASES:
+        if name in K1_MAIN_PATH:
+            p = FB.launch_plan(c, torch.bfloat16, b * h * w)
+            q = FBB.launch_plan(c, torch.bfloat16, b * h * w)
+            log(f"  plan {name} (C={c}, {b * h * w} pixels): K1 {p.mt} px/block, {p.ctas} blocks, "
+                f"{p.smem_bytes} B dynamic smem, {p.acc_regs} accumulator registers; K2 chain "
+                f"{q.mt} px/block, {q.chain_ctas} blocks, {q.chain_smem} B; products {q.split} "
+                f"pixel ranges, {q.wgrad_ctas} blocks, {q.wgrad_smem} B")
+
+
 def build_kernels(names):
+    """Build every kernel library in parallel; print each instantiation's
+    registers, static shared memory, spills and HMMA count. Fails if a bf16
+    tensor-core instantiation has no HMMA, or one the main path launches
+    spills or is missing."""
     from audioset_convnext_inf_torch.ops import _build
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         paths = list(pool.map(_build.build, names))
     log(f"build: {len(names)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    log_main_path_plans()
+    main = main_path_kernels()
+    bad, seen = [], set()
     for name, path in zip(names, paths):
         report = path.with_suffix(".log")
-        lines = report.read_text().splitlines() if report.exists() else []
-        for ln in lines:
-            if "registers" in ln or "spill" in ln or "smem" in ln:
-                log(f"  {name}: {ln.strip()}")
+        rep = ptxas_report(report.read_text() if report.exists() else "")
+        hmma = hmma_counts(path)
+        pretty = _demangle(sorted(set(rep) | set(hmma)))
+        for mangled in sorted(pretty, key=lambda m: kernel_name(pretty[m])):
+            kname = kernel_name(pretty[mangled])
+            seen.add(kname)
+            r = rep.get(mangled, {})
+            n_hmma = hmma.get(mangled, 0)
+            log(f"  {name}: {kname}: {r.get('regs')} registers, {r.get('smem', 0)} B static smem, "
+                f"{r.get('spill', 0)} B spilled, {n_hmma} HMMA{' (main path)' if kname in main else ''}")
+            if kname.startswith(TC_KERNELS) and n_hmma == 0:
+                bad.append(f"{kname} has no HMMA instruction")
+            if kname in main and r.get("spill", 0):
+                bad.append(f"{kname} spills {r['spill']} B on the main path")
         _build.load(name)
+    bad += [f"{m} is not in the build" for m in sorted(main - seen)]
+    if bad:
+        raise AssertionError("build report: " + "; ".join(bad))
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +514,38 @@ def time_k2(device):
             before = fused_block_bwd.launches
             profile_run(lambda: fused_block_bwd(x, d, dy, *wts, s), f"K2 {name}", top=CUDA_LAUNCHES)
             fused_block_bwd.launches = before
+    return per_shape
+
+
+def unfused_block(c, args, device):
+    """The port's plain block (models/convnext.py Block) holding K1's
+    weights: what the serving path runs for stages 1-2."""
+    from audioset_convnext_inf_torch.models.convnext import Block
+
+    blk = Block(c, 1e-6, 1.0).to(device)
+    with torch.no_grad():
+        for t, v in zip((blk.dwconv.weight, blk.dwconv.bias, blk.norm.weight, blk.norm.bias,
+                         blk.pwconv1.weight, blk.pwconv1.bias, blk.pwconv2.weight,
+                         blk.pwconv2.bias, blk.gamma), args):
+            t.copy_(v)
+    return blk
+
+
+def time_unfused(device):
+    """The unfused bf16 block (_block_apply(..., "xla_approx"): cuDNN
+    depthwise conv, LN, two cuBLAS products, GELU, several launches) at the
+    main path's shapes: the yardstick for which stages K1 should take."""
+    from audioset_convnext_inf_torch.models.convnext import _block_apply
+
+    per_shape = {}
+    for name, b, h, w, c, _ in K1_CASES:
+        if name not in K1_MAIN_PATH:
+            continue
+        x, args = k1_inputs(b, h, w, c, True, torch.bfloat16, device, SEED)
+        blk = unfused_block(c, args, device)
+        with torch.no_grad():
+            per_shape[name] = cuda_ms(lambda: _block_apply(x, blk, "xla_approx"), iters=20)
+        log(f"  unfused bf16 block {name:13s} B={b} H={h} W={w} C={c}: {per_shape[name]:.4f} ms")
     return per_shape
 
 
@@ -691,21 +849,25 @@ def time_training(trainer, batch, steps: int = 5):
     profile_run(lambda: trainer.step(pcm, target), f"bf16 train step ({TRAIN_CLIPS} clips)", top=14)
 
 
-def _entry(name, source, replaces, launches, results, per_shape, mode, per_call):
+def _entry(name, source, replaces, launches, results, per_shape, mode, per_call, unfused=None):
     """One kernel's line: the main path's shapes, summed over the launches
-    one call of the path makes (``per_call`` per shape)."""
+    one call of the path makes (``per_call`` per shape); ``unfused_ms`` is
+    the unfused bf16 block's time over the same launches (several PyTorch
+    calls, no library_ms)."""
     totals = {key: sum(per_call[s] * per_shape[s][key] for s in per_call)
               for key in ("ms", "plain_ms", "bound_ms")}
+    unfused_ms = sum(per_call[s] * unfused[s] for s in per_call) if unfused else None
     err = max(r["max_abs_err"] for r in results
               if r["case"] in per_call and r["dtype"] == str(torch.bfloat16))
     log(f"  {name} ({mode}) per call of its path ({per_call}): kernel {totals['ms']:.3f} ms, "
-        f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms")
+        f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms"
+        + (f", unfused block {unfused_ms:.3f} ms" if unfused else ""))
     return {"name": name, "mode": mode, "route": "cuda",
             "source": f"audioset_convnext_inf_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": totals["ms"],
             "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
             "bound_by": per_shape["tiny stage 3"]["bound_by"], "library_ms": None,
-            "cases": len(results), "ok": True}
+            "unfused_ms": unfused_ms, "cases": len(results), "ok": True}
 
 
 def main() -> int:
@@ -738,17 +900,18 @@ def main() -> int:
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
+    unfused = time_unfused(device)
     time_end_to_end(serve, "bf16 serving")
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
     kernels = [
         _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
-               launches, k1_results, per_shape, "serving forward", K1_MAIN_PATH),
+               launches, k1_results, per_shape, "serving forward", K1_MAIN_PATH, unfused),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",
                train_launches[1], k1s_results, save_shape, "training forward (save mode)",
-               K1_MAIN_PATH),
+               K1_MAIN_PATH, unfused),
         _entry("fused_block_bwd", "fused_block_bwd.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66",
                train_launches[2], k2_results, k2_shape, "training backward", K1_MAIN_PATH),

@@ -35,6 +35,10 @@ def _block_args(rng, c, with_gamma=True):
     (torch.bfloat16, (16, 31, 7, 768), False),  # tiny stage-4 shape, no gamma
     (torch.float32, (2, 7, 7, 1024), True),     # widest: dynamic shared memory
     (torch.bfloat16, (3, 5, 4, 1), True),       # C=1
+    (torch.bfloat16, (16, 63, 14, 384), True),  # tiny stage-3 shape (main path)
+    (torch.bfloat16, (16, 31, 7, 768), True),   # tiny stage-4 shape (main path)
+    (torch.bfloat16, (3, 5, 7, 384), True),     # 105 pixels: a ragged last block
+    (torch.bfloat16, (2, 7, 7, 1024), True),    # widest bf16 width class
 ])
 def test_fused_block_kernel_matches_plain_version(dtype, shape, with_gamma):
     """Tolerance as in chip_smoke.py: 1e-4 (f32) or 2^-6 (bf16, four ulps)
@@ -62,6 +66,8 @@ def _tol(dtype, ref):
     (torch.float32, (4, 13, 14, 96)),
     (torch.bfloat16, (16, 31, 7, 768)),   # tiny stage-4 shape
     (torch.bfloat16, (4, 13, 14, 100)),   # odd width
+    (torch.bfloat16, (16, 63, 14, 384)),  # tiny stage-3 shape
+    (torch.bfloat16, (3, 5, 7, 768)),     # 105 pixels: a ragged last block
 ])
 def test_fused_block_save_mode_matches_plain_version(dtype, shape):
     """Save mode: y with per-sample scales (zeros among them) and d, within
@@ -97,6 +103,10 @@ def _bwd_case(rng, shape, dtype):
     (torch.bfloat16, (16, 31, 7, 768)),   # tiny stage-4 shape
     (torch.bfloat16, (4, 13, 14, 100)),   # odd width
     (torch.float32, (2, 7, 7, 1024)),     # widest: the most shared memory
+    (torch.bfloat16, (16, 63, 14, 384)),  # tiny stage-3 shape
+    (torch.bfloat16, (3, 5, 7, 384)),     # 105 pixels: a ragged last chain block
+    (torch.bfloat16, (2, 7, 7, 1024)),    # widest bf16 chain (205 KB shared memory)
+    (torch.bfloat16, (3, 5, 4, 1)),       # C=1: padded tiles, many split ranges
 ])
 def test_fused_block_bwd_matches_plain_version_and_is_deterministic(dtype, shape):
     """dx and the nine gradients within the kernel tolerance of the plain
@@ -114,6 +124,32 @@ def test_fused_block_bwd_matches_plain_version_and_is_deterministic(dtype, shape
     for k in g_ref:
         assert (g[k] - g_ref[k]).abs().max().item() <= _tol(dtype, g_ref[k]), k
         assert torch.equal(g[k], g2[k]), k
+
+
+WIDTHS = (1, 100, 160, 192, 256, 320, 384, 512, 640, 768, 1024)
+
+
+@pytest.mark.cuda
+def test_launch_plans_agree_with_the_kernels():
+    """Each plan's shared memory is what the kernel computes for it, the
+    kernels refuse a plan they cannot run, and the wrapper raises on a
+    refused launch."""
+    _need_card()
+    k1, k2 = FB._lib(), FBB._lib()
+    for c in WIDTHS:
+        for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            p, q = FB.launch_plan(c, dt, 3472), FBB.launch_plan(c, dt, 3472)
+            assert k1.fused_block_plan_smem(c, code, p.mt, p.cp) == p.smem_bytes, (c, dt)
+            assert k2.fused_block_bwd_plan_smem(c, code, q.mt, q.cp) == q.chain_smem, (c, dt)
+            assert k1.fused_block_plan_smem(c, code, 48, p.cp) == -1
+            assert k2.fused_block_bwd_plan_smem(c, code, q.mt, q.cp + 8) == -1
+    assert k2.fused_block_bwd_wgrad_smem() == FBB.WGRAD_SMEM
+    rng = np.random.RandomState(3)
+    args = _block_args(rng, 384)
+    x = torch.from_numpy(rng.randn(2, 5, 5, 384).astype(np.float32)).cuda().to(torch.bfloat16)
+    bad = FB.launch_plan(384, torch.bfloat16, 50)._replace(mt=32)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        FB._forward_cuda(x, *args, 1e-6, None, False, bad)
 
 
 @pytest.mark.cuda
