@@ -7,7 +7,8 @@ Mirrors the JAX package's ``models/api.py`` (reference convnext.py:569-901):
  - ``ConvNeXt.forward`` / ``forward_scene_embeddings`` /
    ``forward_frame_embeddings`` (reference convnext.py:287,333,369), which
    take numpy arrays or tensors, f32 or int16 PCM, and run eval-mode
-   inference under ``torch.inference_mode``.
+   inference under ``torch.inference_mode``;
+ - ``ConvNeXt.from_pretrained`` and the factories' ``pretrained_imagenet``.
 
 Everything runs on the card unless the caller passes ``device="cpu"``;
 without a card and without a device, construction raises.
@@ -21,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from audioset_convnext_inf_torch.checkpoint.convert import load_imagenet_backbone, to_tensors
 from audioset_convnext_inf_torch.config import AugmentConfig, ConvNeXtConfig
 from audioset_convnext_inf_torch.models import convnext as F
 from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
@@ -101,11 +103,23 @@ class ConvNeXt(F.ConvNeXtModule):
         return F.count_parameters(self)
 
     @classmethod
-    def from_pretrained(cls, pretrained_checkpoint_path: str, **kwargs) -> "ConvNeXt":
-        raise NotImplementedError(
-            "checkpoint loading is not ported to PyTorch yet (ROADMAP.md, queue 1 item 5); "
-            "load a reference state dict with model.load_state_dict(sd, strict=True)"
-        )
+    def from_pretrained(cls, pretrained_checkpoint_path: str, compute_dtype=torch.float32,
+                        cfg: Optional[ConvNeXtConfig] = None, auto_fast_serving: bool = True,
+                        device=None) -> "ConvNeXt":
+        """Load a local ``.pth``/``.safetensors``/native checkpoint, an https
+        URL or a HuggingFace model id (reference convnext.py:404-511). The
+        default ``cfg`` is convnext_tiny with the audio stem, as in the JAX
+        package; ``strict`` key and shape checks apply."""
+        from audioset_convnext_inf_torch.checkpoint.io import load_pretrained
+
+        device = resolve_device(device)
+        if cfg is None:
+            cfg = ConvNeXtConfig(drop_path_rate=0.0, after_stem_dim=(252, 56))
+        sd = load_pretrained(pretrained_checkpoint_path, cfg)
+        model = cls(cfg, compute_dtype=compute_dtype, auto_fast_serving=auto_fast_serving,
+                    device=device)
+        model.load_state_dict(to_tensors(sd), strict=True)
+        return model
 
 
 # ---------------------------------------------------------------------------
@@ -138,10 +152,6 @@ def _make_factory(name: str) -> Callable[..., ConvNeXt]:
         device=None,
         **kwargs,
     ) -> ConvNeXt:
-        if pretrained_imagenet:
-            raise NotImplementedError(
-                "ImageNet backbone init is not ported to PyTorch yet (ROADMAP.md, queue 1 item 5)"
-            )
         cfg = ConvNeXtConfig(
             name=name,
             depths=depths,
@@ -155,7 +165,14 @@ def _make_factory(name: str) -> Callable[..., ConvNeXt]:
             ),
             **kwargs,
         )
-        return ConvNeXt(cfg, compute_dtype=compute_dtype, device=device, seed=seed)
+        model = ConvNeXt(cfg, compute_dtype=compute_dtype, device=device, seed=seed)
+        if pretrained_imagenet:
+            # non-strict ImageNet backbone init with the audio stem, bn0 and
+            # head kept (reference convnext.py:663-707); a local image-ConvNeXt .pth
+            sd = torch.load(pretrained_imagenet, map_location="cpu", weights_only=True)
+            model.load_state_dict(to_tensors(load_imagenet_backbone(sd, cfg, model.state_dict())),
+                                  strict=True)
+        return model
 
     factory.__name__ = name
     factory.__doc__ = f"{name}: depths={depths}, dims={dims} (audio stem, 527 classes)."

@@ -39,7 +39,21 @@ run (non-zero exit) on any error or mismatch:
     unfused bf16 block (unfused_ms) at the main path's shapes;
     end-to-end clips/s of the bf16 serving forward at B=16 and B=64 and of
     the training step; one torch.profiler trace of the serving forward and
-    one of a training step (device time by kernel, idle share).
+    one of a training step (device time by kernel, idle share);
+ 7. inference surfaces, on the phase-4 serving model: a safetensors file
+    and a native checkpoint directory written by the port load through
+    ConvNeXt.from_pretrained with bit-equal outputs; the Evaluator over
+    EVAL_CLIPS seeded int16 clips at B=EVAL_BATCH through the port's
+    DataLoader over an in-memory dataset with AudioSetDataset's contract
+    (the card machine has no h5py; the HDF5 route is held against the JAX
+    package by the CPU tests), bit-equal to model.forward on the same
+    padded batches, with finite mAP/AUC/d-prime; tag_clip, tag_long_audio
+    and embed_long_audio on the fixture; each step must launch K1 12 times
+    per forward (phase 3 holds K1 against its plain version at each of
+    these batch sizes); the CLIs on their default device: convert and the
+    demo; then the Evaluator's clips/s (median of three runs) beside
+    model.forward's at the same batch, and one trace of two Evaluator
+    batches.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -49,6 +63,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -68,6 +83,11 @@ BATCH = 16
 
 TRAIN_CLIPS = 32  # clips per training step; mixup pairs them into B=16
 TRAIN_STEPS = 4
+
+EVAL_CLIPS = 200  # the last of 4 batches is padded from 8 clips to 64
+EVAL_BATCH = 64
+LONG_BATCH = 32  # tag_long_audio / embed_long_audio pad their windows to it
+WORK = ROOT / "build" / "chip_smoke"  # files phase 7 writes (the checkout's build/)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # the tensor cores, HBM3 bandwidth.
@@ -99,16 +119,27 @@ F32_LOGIT_TOL = 2e-4
 SERVING_PROB_TOL = 0.05
 
 # (name, B, H, W, C, gamma): the main path's two shapes first (tiny,
-# 10-s clips, B=16), then widths of other factories, an odd width, no gamma.
+# 10-s clips, B=16), then the batches the inference surfaces of phase 7
+# give K1 (the Evaluator, long audio, one clip), then widths of other
+# factories, an odd width, no gamma.
 K1_CASES = [
     ("tiny stage 3", BATCH, 63, 14, 384, True),
     ("tiny stage 4", BATCH, 31, 7, 768, True),
+    ("eval stage 3", EVAL_BATCH, 63, 14, 384, True),
+    ("eval stage 4", EVAL_BATCH, 31, 7, 768, True),
+    ("long stage 3", LONG_BATCH, 63, 14, 384, True),
+    ("long stage 4", LONG_BATCH, 31, 7, 768, True),
+    ("clip stage 3", 1, 63, 14, 384, True),
+    ("clip stage 4", 1, 31, 7, 768, True),
     ("atto stage 3", BATCH, 63, 14, 160, True),
     ("base stage 4", BATCH, 31, 7, 1024, True),
     ("odd width", 4, 13, 14, 100, True),
     ("no gamma", BATCH, 31, 7, 768, False),
 ]
 K1_MAIN_PATH = {"tiny stage 3": 9, "tiny stage 4": 3}  # launches per forward
+# every K1 shape the serving paths (phases 4 and 7) launch
+K1_SERVING_CASES = set(K1_MAIN_PATH) | {f"{p} stage {s}" for p in ("eval", "long", "clip")
+                                       for s in (3, 4)}
 # The training path's block shapes (K1 save mode and K2), then atto stage 3
 # and an odd width (K2 only).
 K2_CASES = [
@@ -599,7 +630,7 @@ def run_main_path(device):
     expect = sum(K1_MAIN_PATH.values())
     calls = [("forward", serve.forward), ("forward_scene_embeddings", serve.forward_scene_embeddings),
              ("forward_frame_embeddings", serve.forward_frame_embeddings)]
-    outs = {}
+    outs, launches = {}, 0
     for name, fn in calls:
         fused_block.launches = 0
         outs[name] = fn(pcm)
@@ -608,7 +639,7 @@ def run_main_path(device):
         log(f"  bf16 serving {name}: fused_block launches {n} (expect {expect})")
         if n != expect:
             raise AssertionError(f"{name}: fused_block launched {n} times, expected {expect}")
-    launches = expect
+        launches += n
     probs = outs["forward"]["clipwise_output"]
     shapes = {"forward": (probs.shape, (BATCH, 527)),
               "forward_scene_embeddings": (outs["forward_scene_embeddings"].shape, (BATCH, 768)),
@@ -849,16 +880,222 @@ def time_training(trainer, batch, steps: int = 5):
     profile_run(lambda: trainer.step(pcm, target), f"bf16 train step ({TRAIN_CLIPS} clips)", top=14)
 
 
-def _entry(name, source, replaces, launches, results, per_shape, mode, per_call, unfused=None):
+# ---------------------------------------------------------------------------
+# phase 7: inference surfaces
+# ---------------------------------------------------------------------------
+
+def _k1_count(fn):
+    """(fn(), K1 serving launches it made): the count is set to 0 just
+    before and read just after."""
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
+
+    fused_block.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fused_block.launches
+
+
+def _expect_launches(label, got, want):
+    log(f"  {label}: K1 launches {got} (expect {want})")
+    if got != want:
+        raise AssertionError(f"{label}: K1 launched {got} times, expected {want}")
+
+
+def check_checkpoint_round_trip(serve, device, pcm):
+    """The serving model written as safetensors and as a native directory,
+    each loaded by ConvNeXt.from_pretrained: outputs bit-equal to the
+    model's. Returns the K1 launches of the loaded models' forwards (the
+    reference forward's are not counted)."""
+    from audioset_convnext_inf_torch.checkpoint.io import save_checkpoint, save_safetensors
+    from audioset_convnext_inf_torch.models import ConvNeXt
+
+    per = sum(K1_MAIN_PATH.values())
+    ref = serve.forward(pcm)
+    total = 0
+    st = WORK / "tiny.safetensors"
+    save_safetensors(serve.state_dict(), str(st))
+    native = save_checkpoint(str(WORK / "tiny_native"), serve.state_dict(), serve.cfg)
+    for label, path in (("safetensors", str(st)), ("native directory", native)):
+        loaded = ConvNeXt.from_pretrained(path, compute_dtype=torch.bfloat16, device=device)
+        got, n = _k1_count(lambda: loaded.forward(pcm))
+        total += n
+        _expect_launches(f"from_pretrained({label}) forward B={len(pcm)}", n, per)
+        same = all(torch.equal(got[k], ref[k]) for k in ref)
+        diff = max((got[k] - ref[k]).abs().max().item() for k in ref)
+        log(f"  checkpoint round trip via {label} ({os.path.getsize(st) / 1e6:.1f} MB file): "
+            f"outputs bit-equal {same} (max abs diff {diff:.3e})")
+        if not same:
+            raise AssertionError(f"from_pretrained({label}) does not reproduce the model's outputs")
+        del loaded
+    return total
+
+
+def eval_data(seed: int):
+    """EVAL_CLIPS int16 fixture-derived clips and seeded multi-hot targets."""
+    pcm = fixture_batch(EVAL_CLIPS, seed)
+    rng = np.random.RandomState(seed + 11)
+    target = (rng.rand(EVAL_CLIPS, 527) < 0.02).astype(np.float32)
+    target[np.arange(EVAL_CLIPS), rng.randint(0, 527, EVAL_CLIPS)] = 1.0
+    return pcm, target
+
+
+class MemoryDataset:
+    """The AudioSetDataset contract (meta -> {audio_name, waveform, target})
+    over arrays in memory: the card machine has no h5py."""
+
+    def __init__(self, pcm, target):
+        self.pcm, self.target = pcm, target
+
+    def __getitem__(self, meta):
+        i = meta["index_in_hdf5"]
+        return {"audio_name": f"clip{i:04d}", "waveform": self.pcm[i], "target": self.target[i]}
+
+
+def eval_loader(pcm, target, n):
+    """The port's DataLoader over the first n clips of MemoryDataset, in
+    EvaluateSampler's batches of metas, padded to EVAL_BATCH."""
+    from audioset_convnext_inf_torch.data import DataLoader
+
+    metas = [{"index_in_hdf5": i, "target": target[i]} for i in range(n)]
+    batches = [metas[i:i + EVAL_BATCH] for i in range(0, n, EVAL_BATCH)]
+    return DataLoader(MemoryDataset(pcm, target), batches, num_workers=4,
+                      pad_to_batch_size=EVAL_BATCH)
+
+
+def check_evaluator(serve, device, pcm, target):
+    """Evaluator over EVAL_CLIPS clips: K1 launches, probabilities against
+    model.forward on the same padded batches, finite metrics. Returns the
+    Evaluator and its launches (the reference forwards' are not counted)."""
+    from audioset_convnext_inf_torch.engine import metrics as M
+    from audioset_convnext_inf_torch.engine.evaluator import Evaluator
+
+    ev = Evaluator(serve, device=device)
+    batches = -(-EVAL_CLIPS // EVAL_BATCH)
+    out, n = _k1_count(lambda: ev.infer_probs(eval_loader(pcm, target, EVAL_CLIPS)))
+    _expect_launches(f"Evaluator over {EVAL_CLIPS} clips, B={EVAL_BATCH} ({batches} batches)",
+                     n, batches * sum(K1_MAIN_PATH.values()))
+    probs = out["clipwise_output"]
+    if probs.shape != (EVAL_CLIPS, 527) or not np.array_equal(out["target"], target):
+        raise AssertionError(f"Evaluator returned {probs.shape} probabilities or other targets")
+    ref = []
+    for i in range(0, EVAL_CLIPS, EVAL_BATCH):
+        x = pcm[i:i + EVAL_BATCH]
+        k = len(x)
+        x = np.pad(x, ((0, EVAL_BATCH - k), (0, 0)))
+        ref.append(serve.forward(x)["clipwise_output"].cpu().numpy()[:k])
+    ref = np.concatenate(ref)
+    diff = float(np.abs(probs - ref).max())
+    log(f"  Evaluator vs model.forward on the same padded batches: bit-equal "
+        f"{np.array_equal(probs, ref)} (max abs diff {diff:.3e})")
+    if not np.array_equal(probs, ref):
+        raise AssertionError("Evaluator probabilities differ from model.forward's")
+    s = M.summarize(M.evaluate_clipwise(probs, target))
+    log(f"  metrics (random weights, seeded targets): mAP {s['mAP']:.6f}, AUC {s['mAUC']:.6f}, "
+        f"d-prime {s['dprime']:.6f}")
+    if not all(math.isfinite(v) for v in s.values()):
+        raise AssertionError(f"Evaluator metrics are not finite: {s}")
+    return ev, n
+
+
+def check_tagging(serve):
+    """tag_clip, tag_long_audio and embed_long_audio on the fixture."""
+    from audioset_convnext_inf_torch.engine import infer as I
+
+    per = sum(K1_MAIN_PATH.values())
+    res, n = _k1_count(lambda: I.tag_clip(serve, I.load_clip(str(FIXTURE)), threshold=0.25))
+    _expect_launches("tag_clip(load_clip(fixture))", n, per)
+    total = n
+    log(f"  tag_clip at 0.25 (random weights): {len(res['indexes'])} classes; first indexes "
+        f"{res['indexes'][:8].tolist()}, labels {res['labels'][:4]}")
+    with wave.open(str(FIXTURE), "rb") as f:
+        clip = np.frombuffer(f.readframes(f.getnframes()), dtype=np.int16)
+    sig = np.tile(clip, 4)[:35 * 32000]
+    out, n = _k1_count(lambda: I.tag_long_audio(serve, sig, hop_samples=5 * 32000,
+                                                batch_size=LONG_BATCH))
+    _expect_launches(f"tag_long_audio, 35-s int16 signal, 5-s hop, batch {LONG_BATCH}", n, per)
+    total += n
+    emb, n = _k1_count(lambda: I.embed_long_audio(serve, sig, batch_size=LONG_BATCH))
+    _expect_launches("embed_long_audio, same signal (frame and scene calls)", n, 2 * per)
+    total += n
+    shapes = {"windowwise_output": (out["windowwise_output"].shape, (6, 527)),
+              "clipwise_output": (out["clipwise_output"].shape, (527,)),
+              "frame_embeddings": (emb["frame_embeddings"].shape, (768, 124, 7)),
+              "scene_embedding": (emb["scene_embedding"].shape, (768,))}
+    for name, (got, want) in shapes.items():
+        log(f"  {name}: shape {tuple(got)}")
+        if tuple(got) != want:
+            raise AssertionError(f"{name}: shape {tuple(got)}, expected {want}")
+    if not all(np.isfinite(a).all() for a in (out["clipwise_output"], emb["frame_embeddings"])):
+        raise AssertionError("long-audio outputs are not finite")
+    return total
+
+
+def run_clis():
+    """The CLIs' main() with their default device (the card): convert the
+    phase-7 safetensors file to a native directory, and the demo on that
+    directory and the fixture (f32, as the demo loads it: no K1)."""
+    import contextlib
+    import io
+
+    from audioset_convnext_inf_torch.cli import convert, demo
+
+    def run(name, main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, n = _k1_count(lambda: main(argv))
+        lines = buf.getvalue().splitlines()
+        if rc != 0:
+            raise AssertionError(f"cli.{name} exited {rc}")
+        log(f"  cli.{name}: exit 0, K1 launches {n}; " + " | ".join(
+            ln for ln in lines if ln and not ln.startswith((" ", "[")) and not ln[0].isdigit()))
+        return n
+
+    native = str(WORK / "cli_native")
+    total = run("convert", convert.main, [str(WORK / "tiny.safetensors"), native, "--to", "native"])
+    total += run("demo", demo.main, [str(FIXTURE), "--checkpoint", native])
+    return total
+
+
+def time_evaluator(serve, ev, pcm, target, card):
+    """Evaluator clips/s over EVAL_CLIPS clips, loader included (the median
+    of three runs), beside model.forward at the same batch; one trace of two
+    Evaluator batches."""
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ev.infer_probs(eval_loader(pcm, target, EVAL_CLIPS))  # returns after its last copy's event
+        runs.append(time.perf_counter() - t0)
+    dt = sorted(runs)[1]
+    slots = -(-EVAL_CLIPS // EVAL_BATCH) * EVAL_BATCH
+    x = fixture_batch(EVAL_BATCH, SEED + 5)
+    serve.forward(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        serve.forward(x)
+    torch.cuda.synchronize()
+    fwd = (time.perf_counter() - t0) / 5
+    log(f"  Evaluator, {EVAL_CLIPS} clips at B={EVAL_BATCH}, loader included: "
+        f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} ms (median {dt * 1e3:.1f}): "
+        f"{EVAL_CLIPS / dt:.1f} clips/s ({slots / dt:.1f} padded slots/s); "
+        f"model.forward B={EVAL_BATCH}: {fwd * 1e3:.2f} ms/batch, {EVAL_BATCH / fwd:.1f} clips/s "
+        f"[{card}]")
+    profile_run(lambda: ev.infer_probs(eval_loader(pcm, target, 2 * EVAL_BATCH)),
+                f"Evaluator, 2 batches of {EVAL_BATCH}", top=8)
+
+
+def _entry(name, source, replaces, launches, results, per_shape, mode, per_call, unfused=None,
+           err_cases=None):
     """One kernel's line: the main path's shapes, summed over the launches
     one call of the path makes (``per_call`` per shape); ``unfused_ms`` is
     the unfused bf16 block's time over the same launches (several PyTorch
-    calls, no library_ms)."""
+    calls, no library_ms); max_abs_err over the bf16 checks at
+    ``err_cases`` (default: the shapes of ``per_call``)."""
     totals = {key: sum(per_call[s] * per_shape[s][key] for s in per_call)
               for key in ("ms", "plain_ms", "bound_ms")}
     unfused_ms = sum(per_call[s] * unfused[s] for s in per_call) if unfused else None
     err = max(r["max_abs_err"] for r in results
-              if r["case"] in per_call and r["dtype"] == str(torch.bfloat16))
+              if r["case"] in (err_cases or per_call) and r["dtype"] == str(torch.bfloat16))
     log(f"  {name} ({mode}) per call of its path ({per_call}): kernel {totals['ms']:.3f} ms, "
         f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms"
         + (f", unfused block {unfused_ms:.3f} ms" if unfused else ""))
@@ -877,26 +1114,26 @@ def main() -> int:
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    log(f"[1/6] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    log(f"[1/7] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    log("[2/6] build")
+    log("[2/7] build")
     build_kernels(["fused_block", "fused_block_bwd"])
 
-    log("[3/6] kernels against their plain versions")
+    log("[3/7] kernels against their plain versions")
     k1_results = check_k1(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
-    log("[4/6] serving path: convnext_tiny, B=16 x 10-s clips")
+    log("[4/7] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
 
-    log(f"[5/6] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+    log(f"[5/7] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
     trainer, batch, train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    log(f"[6/6] times on {card}")
+    log(f"[6/7] times on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
@@ -905,9 +1142,25 @@ def main() -> int:
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
+    log("[7/7] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
+    WORK.mkdir(parents=True, exist_ok=True)
+    surface_launches = check_checkpoint_round_trip(serve, device, fixture_batch(BATCH, SEED))
+    pcm, target = eval_data(SEED + 9)
+    log("  Evaluator route: in-memory dataset with AudioSetDataset's contract (no h5py here; "
+        "the HDF5 route, EvaluateSampler + AudioSetDataset, cli.evaluate and "
+        "cli.extract_embeddings are held against the JAX package by tests/test_torch_eval.py "
+        "and tests/test_torch_infer.py on the CPU)")
+    ev, n = check_evaluator(serve, device, pcm, target)
+    surface_launches += n + check_tagging(serve) + run_clis()
+    log(f"  inference surfaces: K1 launches {surface_launches} in all")
+    time_evaluator(serve, ev, pcm, target, card)
+    shutil.rmtree(WORK)
+
     kernels = [
         _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
-               launches, k1_results, per_shape, "serving forward", K1_MAIN_PATH, unfused),
+               launches + surface_launches, k1_results, per_shape,
+               "serving forward (phase 4 and the inference surfaces)", K1_MAIN_PATH, unfused,
+               err_cases=K1_SERVING_CASES),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",
                train_launches[1], k1s_results, save_shape, "training forward (save mode)",

@@ -165,3 +165,62 @@ def test_entry_points_default_to_the_card():
     torch.cuda.synchronize()
     assert out["clipwise_output"].is_cuda and out["clipwise_output"].shape == (2, 527)
     assert FB.fused_block.launches == sum(model.cfg.depths[2:])
+
+
+@pytest.mark.cuda
+def test_from_pretrained_round_trip_on_the_card(tmp_path):
+    """A bf16 serving convnext_atto written as safetensors and as a native
+    directory loads on the card with bit-equal outputs."""
+    _need_card()
+    from audioset_convnext_inf_torch.checkpoint.io import save_checkpoint, save_safetensors
+    from audioset_convnext_inf_torch.models import ConvNeXt, convnext_atto
+
+    with pytest.warns(UserWarning, match="auto-switched"):
+        model = convnext_atto(compute_dtype=torch.bfloat16, seed=3)
+    pcm = (np.random.RandomState(0).randn(4, 32000) * 3000).astype(np.int16)
+    ref = model.forward(pcm)
+    st = str(tmp_path / "m.safetensors")
+    save_safetensors(model.state_dict(), st)
+    native = save_checkpoint(str(tmp_path / "native"), model.state_dict(), model.cfg)
+    for path in (st, native):
+        loaded = ConvNeXt.from_pretrained(path, compute_dtype=torch.bfloat16, cfg=model.cfg)
+        assert next(loaded.parameters()).is_cuda
+        FB.fused_block.launches = 0
+        got = loaded.forward(pcm)
+        torch.cuda.synchronize()
+        assert FB.fused_block.launches == sum(model.cfg.depths[2:])
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), (path, k)
+
+
+@pytest.mark.cuda
+def test_evaluator_on_the_card_matches_forward():
+    """The Evaluator's probabilities over padded int16 batches equal
+    model.forward's on the same batches; K1 runs for every batch."""
+    _need_card()
+    from audioset_convnext_inf_torch.data import DataLoader
+    from audioset_convnext_inf_torch.engine.evaluator import Evaluator
+    from audioset_convnext_inf_torch.models import convnext_atto
+
+    with pytest.warns(UserWarning, match="auto-switched"):
+        model = convnext_atto(compute_dtype=torch.bfloat16, seed=4)
+    rng = np.random.RandomState(1)
+    pcm = (rng.randn(11, 32000) * 3000).astype(np.int16)
+    target = (rng.rand(11, 527) < 0.1).astype(np.float32)
+
+    class Memory:
+        def __getitem__(self, meta):
+            i = meta["i"]
+            return {"waveform": pcm[i], "target": target[i]}
+
+    batches = [[{"i": i} for i in range(s, min(s + 4, 11))] for s in range(0, 11, 4)]
+    FB.fused_block.launches = 0
+    out = Evaluator(model).infer_probs(DataLoader(Memory(), batches, num_workers=2,
+                                                  pad_to_batch_size=4))
+    torch.cuda.synchronize()
+    assert FB.fused_block.launches == 3 * sum(model.cfg.depths[2:])
+    np.testing.assert_array_equal(out["target"], target)
+    ref = np.concatenate([
+        model.forward(np.pad(pcm[s:s + 4], ((0, 4 - len(pcm[s:s + 4])), (0, 0))))
+        ["clipwise_output"].cpu().numpy()[:len(pcm[s:s + 4])] for s in range(0, 11, 4)])
+    np.testing.assert_array_equal(out["clipwise_output"], ref)

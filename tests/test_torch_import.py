@@ -28,8 +28,8 @@ def test_imports_with_jax_blocked():
     assert "audioset_convnext_inf_torch.ops.fused_block" in mods
     code = (
         "import sys, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['audioset_convnext_inf_tpu'] = None\n"
+        "for name in ('jax', 'audioset_convnext_inf_tpu', 'h5py', 'sklearn', 'safetensors'):\n"
+        "    sys.modules[name] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'audioset_convnext_inf_tpu')"
@@ -59,7 +59,9 @@ def test_sources_name_neither_jax_nor_the_jax_package():
                 assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib")], f
 
 
-def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch):
+def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
+    from audioset_convnext_inf_torch.cli import convert, demo, evaluate, extract_embeddings
+    from audioset_convnext_inf_torch.engine.evaluator import Evaluator
     from audioset_convnext_inf_torch.models import api
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -68,6 +70,30 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.create_model("convnext_atto")
     assert api.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.ConvNeXt.from_pretrained(str(tmp_path / "ckpt.safetensors"))
+    model = api.convnext_atto(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Evaluator(model)
+    with pytest.raises(ValueError, match="lives on"):
+        Evaluator(model, device="cuda")
+    wav = str(ROOT / "tests" / "fixtures" / "f62-S-v2swA_200000_210000.wav")
+    out = str(tmp_path / "out")
+    for argv, main in ((["--checkpoint", "c.pth", "--eval-indexes", "i.h5"], evaluate.main),
+                       ([wav], demo.main),
+                       ([wav, "--out", out + ".h5"], extract_embeddings.main),
+                       (["c.safetensors", out], convert.main)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    assert not list(tmp_path.iterdir())  # nothing was written
+
+
+def test_the_port_loads_no_native_library():
+    """The JAX package's native data plane (``native/libaudiohost.so``) is
+    built on demand by ``make``; the port reads audio with numpy and scipy."""
+    for f in sorted(PKG.rglob("*.py")):
+        text = f.read_text()
+        assert "libaudiohost" not in text and "audio_host" not in text, f
 
 
 def test_kernel_modules_import_and_run_on_cpu_without_nvcc():
