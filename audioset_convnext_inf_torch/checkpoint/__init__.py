@@ -11,6 +11,7 @@ from audioset_convnext_inf_torch.checkpoint.convert import (
 from audioset_convnext_inf_torch.checkpoint.io import (
     load_checkpoint,
     load_pretrained,
+    optimizer_state_from_optax,
     read_safetensors,
     save_checkpoint,
     save_safetensors,
@@ -22,6 +23,7 @@ __all__ = [
     "load_imagenet_backbone",
     "load_pretrained",
     "load_reference_state_dict",
+    "optimizer_state_from_optax",
     "read_safetensors",
     "save_checkpoint",
     "save_safetensors",

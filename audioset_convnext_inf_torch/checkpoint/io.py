@@ -16,7 +16,12 @@ The port's counterpart of the JAX package's ``checkpoint/io.py``:
    the other writes. Reading admits only numpy's array types and plain
    builtins; any other class in the pickle (the JAX trainer's optimizer
    state is optax objects) becomes an inert stand-in, so reading imports
-   neither optax nor JAX and runs no code a pickle names.
+   neither optax nor JAX and runs no code a pickle names;
+ - :func:`optimizer_state_from_optax` turns the JAX trainer's optax state,
+   as read here, into the port's ``Optimizer`` state, so a training run the
+   JAX package checkpointed resumes in the port. The port writes its own
+   optimizer state (plain numpy under reference keys), which the JAX
+   package reads but cannot resume from.
 """
 
 from __future__ import annotations
@@ -221,21 +226,33 @@ class _CheckpointUnpickler(pickle.Unpickler):
         return type(name, (_Inert,), {"_pickled_as": f"{module}.{name}"})
 
 
+def _host(tree):
+    """Tensors in a tree of dicts and lists as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host(v) for v in tree)
+    return _to_numpy(tree) if isinstance(tree, torch.Tensor) else tree
+
+
 def save_checkpoint(
     directory: str,
     state_dict: Dict[str, Any],
     cfg: Optional[ConvNeXtConfig] = None,
+    opt_state: Optional[Dict[str, Any]] = None,
     sampler_state: Any = None,
     iteration: Optional[int] = None,
     extra: Optional[Dict[str, Any]] = None,
 ) -> str:
     """Write a native checkpoint directory that the JAX package's
-    ``load_checkpoint`` reads: the parameters in its pytree layout, no
-    optimizer state. Returns the directory."""
+    ``load_checkpoint`` reads: the parameters in its pytree layout, and
+    ``opt_state``, the port's ``Optimizer.state_dict()`` (count, mini_step,
+    and the mu/nu/acc tensors under reference keys), as numpy. Returns the
+    directory."""
     os.makedirs(directory, exist_ok=True)
     state = {
         "params": jax_params_from_state_dict(state_dict),
-        "opt_state": None,
+        "opt_state": _host(opt_state),
         "bn_stats": None,
         "sampler_state": sampler_state,
         "iteration": iteration,
@@ -262,3 +279,104 @@ def load_checkpoint(directory: str) -> Dict[str, Any]:
         with open(cfg_path) as f:
             state["config"] = convnext_config_from_json(f.read())
     return state
+
+
+# ---------------------------------------------------------------------------
+# The JAX trainer's optax state -> the port's Optimizer state
+# ---------------------------------------------------------------------------
+
+# optax moved classes between modules across versions; they are matched by
+# class name. inject_hyperparams' state was renamed in optax 0.2.
+_INJECT_STATES = ("InjectHyperparamsState", "InjectStatefulHyperparamsState")
+# The port keeps bn0's running statistics as buffers, not parameters; in the
+# JAX package they are parameters that the loss never reaches.
+_BN0_STATS = ("bn0.running_mean", "bn0.running_var")
+
+
+def _class_name(node) -> str:
+    """The class an optax state node was pickled as ('' for plain containers)."""
+    if isinstance(node, _Inert):
+        return type(node)._pickled_as.rsplit(".", 1)[-1]
+    return type(node).__name__ if hasattr(node, "_fields") else ""
+
+
+def _structure(node) -> str:
+    """The nesting of state classes, for error messages: 'A(B, (C, D))'."""
+    if isinstance(node, tuple):
+        inner = ", ".join(_structure(x) for x in node if isinstance(x, tuple))
+        name = _class_name(node)
+        return f"{name}({inner})" if name else f"({inner})"
+    return ""
+
+
+def _moments(tree, what: str) -> Dict[str, np.ndarray]:
+    """A JAX-layout parameter tree of moments as a reference-keyed dict of
+    the port's parameters; bn0's running statistics must have none."""
+    sd = state_dict_from_jax_params(tree)
+    for key in _BN0_STATS:
+        v = sd.pop(key)
+        if np.any(v != 0):
+            raise ValueError(f"the optax state's {what} of {key} is not zero (max |.| "
+                             f"{float(np.abs(v).max()):.3e}): it was not written by the "
+                             "JAX package's trainer")
+    return sd
+
+
+def optimizer_state_from_optax(opt_state) -> Dict[str, Any]:
+    """The JAX trainer's optax state (``engine/trainer.py::make_optimizer``),
+    as ``load_checkpoint`` reads it, as the port's ``Optimizer.state_dict()``:
+    ``{"count", "mini_step", "mu", "nu", "acc", "structure"}``, numpy arrays
+    under reference keys.
+
+    Accepted structures: ``optax.adamw`` (ScaleByAdamState, the masked
+    weight-decay state, ScaleByScheduleState), ``optax.adam``,
+    ``optax.inject_hyperparams(adamw)`` (the weight-decay schedule), and
+    ``optax.MultiSteps`` around any of them (gradient accumulation). The
+    counts of the parts must agree. ``structure`` names what was found, as
+    ``Trainer.restore`` checks it against its own configuration. Anything
+    else raises ``ValueError`` naming the classes found."""
+    found = _structure(opt_state) or type(opt_state).__name__
+
+    def refuse(why: str):
+        raise ValueError(f"not an optimizer state of the JAX package's trainer ({why}); "
+                         f"found {found}")
+
+    node, mini_step, acc, wrap = opt_state, 0, None, "{}"
+    counts = {}
+    if _class_name(node) == "MultiStepsState":
+        if len(node) < 4:
+            refuse("MultiStepsState with fewer than 4 fields")
+        mini_step, counts["MultiSteps gradient_step"] = int(np.asarray(node[0])), node[1]
+        node, acc, wrap = node[2], node[3], "optax.MultiSteps({})"
+    inject = _class_name(node) in _INJECT_STATES
+    if inject:
+        counts["inject_hyperparams count"] = node[0]
+        node = node[-1]
+    if not (type(node) is tuple and node and _class_name(node[0]) == "ScaleByAdamState"):
+        refuse("no ScaleByAdamState at the head of the optimizer chain")
+    tail = [_class_name(x) for x in node[1:]]
+    if tail[:1] == ["MaskedState"] and [_class_name(x) for x in node[1]] != ["EmptyState"]:
+        refuse("the weight-decay mask holds a state")
+    if inject and tail == ["MaskedState", "EmptyState"]:
+        kind = "optax.inject_hyperparams(adamw)"
+    elif not inject and tail == ["MaskedState", "ScaleByScheduleState"]:
+        kind = "optax.adamw"
+    elif not inject and tail == ["ScaleByScheduleState"]:
+        kind = "optax.adam"
+    else:
+        refuse(f"chain {['ScaleByAdamState'] + tail}")
+    if not inject:
+        counts["ScaleByScheduleState count"] = node[-1][0]
+    adam = node[0]
+    count = int(np.asarray(adam[0]))
+    for what, c in counts.items():
+        if int(np.asarray(c)) != count:
+            refuse(f"{what} {int(np.asarray(c))} != ScaleByAdamState count {count}")
+    return {
+        "count": count,
+        "mini_step": mini_step,
+        "mu": _moments(adam[1], "mu"),
+        "nu": _moments(adam[2], "nu"),
+        "acc": _moments(acc, "accumulated gradient") if acc is not None else None,
+        "structure": wrap.format(kind),
+    }

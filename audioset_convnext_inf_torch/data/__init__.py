@@ -1,6 +1,7 @@
-"""Data plane: audio I/O, the AudioSet HDF5 dataset, the evaluation
-sampler, and the prefetching loader with host-to-card double buffering.
-h5py is imported only where an HDF5 file is opened."""
+"""Data plane: audio I/O, the AudioSet HDF5 dataset, the train and
+evaluation samplers, the blacklist, and the prefetching loader with
+host-to-card double buffering. h5py is imported only where an HDF5 file is
+opened."""
 
 from audioset_convnext_inf_torch.data.audio_io import (
     float32_to_int16,
@@ -9,20 +10,33 @@ from audioset_convnext_inf_torch.data.audio_io import (
     read_wav,
     resample_poly,
 )
+from audioset_convnext_inf_torch.data.blacklist import dcase2017_task4_ids, write_black_list
 from audioset_convnext_inf_torch.data.hdf5_dataset import AudioSetDataset, collate, load_index
 from audioset_convnext_inf_torch.data.loader import DataLoader, device_prefetch
-from audioset_convnext_inf_torch.data.samplers import EvaluateSampler
+from audioset_convnext_inf_torch.data.samplers import (
+    AlternateTrainSampler,
+    BalancedTrainSampler,
+    EvaluateSampler,
+    TrainSampler,
+    read_black_list,
+)
 
 __all__ = [
+    "AlternateTrainSampler",
     "AudioSetDataset",
+    "BalancedTrainSampler",
     "DataLoader",
     "EvaluateSampler",
+    "TrainSampler",
     "collate",
+    "dcase2017_task4_ids",
     "device_prefetch",
     "float32_to_int16",
     "int16_to_float32",
     "load_index",
     "pad_or_truncate",
+    "read_black_list",
     "read_wav",
     "resample_poly",
+    "write_black_list",
 ]

@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from audioset_convnext_inf_torch.checkpoint.io import optimizer_state_from_optax
 from audioset_convnext_inf_torch.engine.losses import clip_bce
 from audioset_convnext_inf_torch.models import convnext as F
 from audioset_convnext_inf_torch.ops.mixup import do_mixup, get_mixup_lambda
@@ -166,16 +167,33 @@ class Optimizer:
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Adopt a ``state_dict()`` whose tensors may be numpy arrays (as a
+        native checkpoint holds them) or tensors on any device."""
+        if (self.acc is None) != (state.get("acc") is None):
+            raise ValueError(f"the optimizer state {'lacks' if state.get('acc') is None else 'has'}"
+                             f" accumulated gradients, but accumulation_steps is "
+                             f"{self.cfg.accumulation_steps}")
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
         for name in ("mu", "nu", "acc"):
             mine = getattr(self, name)
             if mine is not None:
                 for n, t in mine.items():
-                    t.copy_(state[name][n])
+                    v = state[name][n]
+                    t.copy_(v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)))
 
 
 def make_optimizer(params: Params, cfg: TrainConfig) -> Optimizer:
     return Optimizer(params, cfg)
+
+
+def optax_structure(cfg: TrainConfig) -> str:
+    """The optax structure the JAX package's ``make_optimizer`` builds for
+    ``cfg``, as ``checkpoint.optimizer_state_from_optax`` names it."""
+    if cfg.optimizer == "adam":
+        kind = "optax.adam"
+    else:
+        kind = "optax.inject_hyperparams(adamw)" if cfg.use_wd_schedule else "optax.adamw"
+    return f"optax.MultiSteps({kind})" if cfg.accumulation_steps > 1 else kind
 
 
 def _step_generator(seed: int, step: int) -> torch.Generator:
@@ -238,9 +256,19 @@ class Trainer:
         # saves for an exact resume; the loader runs ahead of the trainer)
         self.last_sampler_state = None
 
-    def restore(self, state_dict: Params, opt_state: Dict[str, Any], step: int) -> None:
+    def restore(self, state_dict: Params, opt_state: Any, step: int) -> None:
         """Adopt a checkpoint: model weights (reference keys, strict), the
-        optimizer's state and the step counter."""
+        optimizer's state and the step counter. ``opt_state`` is the port's
+        ``Optimizer.state_dict()`` (tensors or numpy), or the JAX trainer's
+        optax state as ``checkpoint.load_checkpoint`` reads it: that is
+        converted (``checkpoint.optimizer_state_from_optax``) and must be the
+        structure the JAX package builds for this trainer's config."""
+        if not isinstance(opt_state, dict):
+            opt_state = optimizer_state_from_optax(opt_state)
+            want = optax_structure(self.train_cfg)
+            if opt_state["structure"] != want:
+                raise ValueError(f"the checkpoint holds an {opt_state['structure']} state; "
+                                 f"this training config builds {want}")
         self.model.load_state_dict(state_dict, strict=True)
         self.optimizer.load_state_dict(opt_state)
         self.step_index = int(step)

@@ -53,7 +53,22 @@ run (non-zero exit) on any error or mismatch:
     these batch sizes); the CLIs on their default device: convert and the
     demo; then the Evaluator's clips/s (median of three runs) beside
     model.forward's at the same batch, and one trace of two Evaluator
-    batches.
+    batches;
+ 8. the tagging service: cli/serve.py's server on a free port with the
+    phase-4 model, batch 16, max wait 20 ms. SERVE_CLIENTS client threads
+    send int16 clips to /tag in a closed loop for SERVE_SECONDS; every
+    answer must equal model.forward of that clip in a batch of 16 within
+    SERVICE_TOL, and each batch must launch K1 12 times. Requests/s,
+    p50/p99 latency and the mean batch fill, then the same with the
+    batcher driven directly (no HTTP); a 25-s request, /embed, /healthz;
+    one trace of a burst of requests;
+ 9. the training CLI's loop (cli/train.py::train) on the card over an
+    in-memory index and dataset: convnext_tiny in the fused bf16 recipe,
+    balanced sampler, mixup 1.0, 32 clips in, B=16, 4 loader threads, an
+    evaluation and a checkpoint every 3 steps. 6 steps straight (timed),
+    then 3 steps and a fresh run resuming at step 3 for 3 more: the sampler
+    states bit-equal, the parameters within RESUME_PARAM_LIMIT, each step
+    launching K1 in save mode and K2 12 times.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -62,13 +77,17 @@ The line before the last is one JSON object {"kernels": [...]}; the last is
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 import wave
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -87,7 +106,13 @@ TRAIN_STEPS = 4
 EVAL_CLIPS = 200  # the last of 4 batches is padded from 8 clips to 64
 EVAL_BATCH = 64
 LONG_BATCH = 32  # tag_long_audio / embed_long_audio pad their windows to it
-WORK = ROOT / "build" / "chip_smoke"  # files phase 7 writes (the checkout's build/)
+WORK = ROOT / "build" / "chip_smoke"  # files phases 7-9 write (the checkout's build/)
+
+SERVE_CLIENTS = 8  # client threads, each in a closed loop
+SERVE_SECONDS = 15.0
+SERVE_POOL = 32  # distinct int16 clips the clients send
+TRAIN_CLI_CLIPS = 64  # the in-memory training set of phase 9
+TRAIN_CLI_EVAL = 64  # its in-memory evaluation set (2 batches of 32)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # the tensor cores, HBM3 bandwidth.
@@ -117,6 +142,35 @@ F32_LOGIT_TOL = 2e-4
 # bf16 serving (tanh GELU, bf16 trunk and bf16 DFT) vs f32 parity (erf GELU,
 # true f32), probabilities, on random weights.
 SERVING_PROB_TOL = 0.05
+# The service's answer for a clip vs model.forward of that clip in a batch
+# of 16: the same kernels at the same shapes, and no operation mixes the
+# rows of a batch; but the service puts a clip at any row beside any other
+# clips, and a library GEMM may sum a row's products in an order that
+# depends on its position (split-K or stream-K tiles; seen at small widths
+# by tests/test_torch_cuda.py). Both are then bf16 roundings of one
+# function, bounded by the bf16 serving tolerance SERVING_PROB_TOL.
+# /embed runs at B=1 and is held against forward_scene_embeddings at B=1
+# with the bf16 kernel rule (KERNEL_TOL of the embedding's scale).
+SERVICE_TOL = SERVING_PROB_TOL
+# Resumed vs straight training (phase 9): the same batches and draws, but
+# ATen's backward kernels that sum with atomics are not bit-deterministic,
+# so a gradient may differ in its last bits and, where it is nearly zero,
+# in its sign. Adam bounds each step's update of a parameter by lr times
+# ADAM_RATIO(t) (|m_hat| / sqrt(v_hat), by Cauchy-Schwarz on the moment
+# sums), whatever the gradients; two runs can then drift apart by at most
+# twice that, summed over the steps. Weight decay adds wd * lr * the drift,
+# under 1e-9 of it here; the limit takes 1% on top.
+
+
+def adam_ratio(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The most |m_hat| / sqrt(v_hat) can be after t Adam steps."""
+    s = sum((b1 * b1 / b2) ** k for k in range(t))
+    return (1 - b1) / math.sqrt(1 - b2) * math.sqrt(s) * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+
+
+def resume_param_limit(lr, steps: int) -> float:
+    """RESUME_PARAM_LIMIT: 2 * sum over the steps of lr(step) * ADAM_RATIO, + 1%."""
+    return 1.01 * 2 * sum(lr(s) * adam_ratio(s + 1) for s in range(steps))
 
 # (name, B, H, W, C, gamma): the main path's two shapes first (tiny,
 # 10-s clips, B=16), then the batches the inference surfaces of phase 7
@@ -775,11 +829,15 @@ def _counts():
     return fused_block.launches, fused_block.save_launches, fused_block_bwd.launches
 
 
-def _zero_counts():
+def _set_counts(counts):
     from audioset_convnext_inf_torch.ops.fused_block import fused_block
     from audioset_convnext_inf_torch.ops.fused_block_bwd import fused_block_bwd
 
-    fused_block.launches = fused_block.save_launches = fused_block_bwd.launches = 0
+    fused_block.launches, fused_block.save_launches, fused_block_bwd.launches = counts
+
+
+def _zero_counts():
+    _set_counts((0, 0, 0))
 
 
 def run_training_path(device):
@@ -1084,6 +1142,282 @@ def time_evaluator(serve, ev, pcm, target, card):
                 f"Evaluator, 2 batches of {EVAL_BATCH}", top=8)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the tagging service
+# ---------------------------------------------------------------------------
+
+def _post(url, body: bytes, content_type: str):
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": content_type},
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.load(r)
+
+
+def _check_top(out, want, label):
+    """A /tag answer (top-10 indexes and probabilities) against the
+    reference probabilities: the probabilities within SERVICE_TOL and the
+    indexes among the reference's top ten up to it. Returns the max diff."""
+    idx = np.asarray(out["indexes"])
+    diff = float(np.abs(np.asarray(out["probs"]) - want[idx]).max())
+    tenth = np.sort(want)[-10]
+    if not (diff <= SERVICE_TOL and want[idx].min() >= tenth - SERVICE_TOL):
+        raise AssertionError(f"{label}: answer off by {diff:.3e} (tol {SERVICE_TOL}) or not "
+                             f"the top ten")
+    return diff
+
+
+def _closed_loop(call, pool, ref, seconds):
+    """SERVE_CLIENTS threads, each sending clips of the pool in turn for
+    ``seconds``; ``call(clip) -> max diff against ref`` checks each answer.
+    Returns (latencies in s, max diff, wall s)."""
+    lat, diffs, errors = [], [], []
+    end = time.perf_counter() + seconds
+
+    def client(t):
+        k = 0
+        while time.perf_counter() < end:
+            i = (t + SERVE_CLIENTS * k) % len(pool)
+            k += 1
+            t0 = time.perf_counter()
+            try:
+                d = call(i)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+                return
+            lat.append(time.perf_counter() - t0)
+            diffs.append(d)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{len(errors)} client(s) failed: {errors[:3]}")
+    return np.asarray(lat), max(diffs), wall
+
+
+def _load_report(label, service, before, lat, diff, wall, card):
+    after = service.counters()
+    batches, clips = after["batches"] - before["batches"], after["clips"] - before["clips"]
+    launches = _counts()
+    per = sum(K1_MAIN_PATH.values())
+    log(f"  {label}: {SERVE_CLIENTS} clients, 10-s int16 clips, batch {BATCH}, max wait 20 ms, "
+        f"{wall:.2f} s: {len(lat)} requests, {len(lat) / wall:.1f} requests/s, latency p50 "
+        f"{np.percentile(lat, 50) * 1e3:.2f} ms, p99 {np.percentile(lat, 99) * 1e3:.2f} ms, "
+        f"max {lat.max() * 1e3:.2f} ms; {batches} batches, mean fill {clips / batches:.2f} of "
+        f"{BATCH}; max diff vs forward {diff:.3e} (tol {SERVICE_TOL}); K1 launches "
+        f"{launches[0]} ({launches[0] / batches:.2f} per batch) [{card}]")
+    if clips != len(lat) or launches != (per * batches, 0, 0):
+        raise AssertionError(f"{label}: {clips} clips for {len(lat)} requests, launches "
+                             f"{launches} for {batches} batches (expect {per} K1 per batch)")
+    return launches[0]
+
+
+def run_service(serve, card):
+    """Phase 8. Returns the K1 launches of the service's runs."""
+    from audioset_convnext_inf_torch.cli import serve as serve_cli
+    from audioset_convnext_inf_torch.engine.infer import sliding_windows
+
+    per = sum(K1_MAIN_PATH.values())
+    pool = fixture_batch(SERVE_POOL, SEED + 21)
+    ref = np.concatenate([serve.forward(pool[i:i + BATCH])["clipwise_output"].cpu().numpy()
+                          for i in range(0, SERVE_POOL, BATCH)])
+    t0 = time.perf_counter()
+    server, service = serve_cli.make_server(
+        ["--port", "0", "--batch-size", str(BATCH), "--max-wait-ms", "20"], model=serve)
+    log(f"  server up (warm-up of both wire dtypes included) in {time.perf_counter() - t0:.2f} s")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    total = 0
+    try:
+        def http_tag(i):
+            return _check_top(_post(url + "/tag", pool[i].astype("<i2").tobytes(),
+                                     "application/pcm-int16"), ref[i], f"/tag clip {i}")
+
+        def batcher_tag(i):
+            got = service.tag(pool[i], timeout=120)["clipwise_output"]
+            diff = float(np.abs(got - ref[i]).max())
+            if not diff <= SERVICE_TOL:
+                raise AssertionError(f"batcher clip {i}: off by {diff:.3e}")
+            return diff
+
+        for label, call in (("HTTP /tag", http_tag), ("batcher alone", batcher_tag)):
+            _zero_counts()
+            before = service.counters()
+            lat, diff, wall = _closed_loop(call, pool, ref, SERVE_SECONDS)
+            torch.cuda.synchronize()
+            total += _load_report(label, service, before, lat, diff, wall, card)
+
+        sig = np.tile(pool[0], 3)[:800000]  # 25 s: 3 windows
+        windows, n = sliding_windows(sig)
+        want = serve.forward(np.pad(windows, ((0, BATCH - n), (0, 0))))["clipwise_output"]
+        want = want.cpu().numpy()[:n].max(axis=0)
+        _zero_counts()
+        before = service.counters()
+        out = _post(url + "/tag", sig.astype("<i2").tobytes(), "application/pcm-int16")
+        torch.cuda.synchronize()
+        batches = service.counters()["batches"] - before["batches"]
+        diff = _check_top(out, want, "25-s /tag")
+        log(f"  25-s /tag: num_windows {out['num_windows']}, {batches} batch(es), max diff "
+            f"{diff:.3e}, K1 launches {_counts()[0]}")
+        if out["num_windows"] != 3 or _counts() != (per * batches, 0, 0):
+            raise AssertionError(f"25-s /tag: {out['num_windows']} windows, launches {_counts()}")
+        total += _counts()[0]
+
+        emb_ref = serve.forward_scene_embeddings(pool[:1])[0].float().cpu().numpy()
+        _zero_counts()
+        emb = np.asarray(_post(url + "/embed", pool[0].astype("<i2").tobytes(),
+                               "application/pcm-int16")["embedding"])
+        torch.cuda.synchronize()
+        ediff = float(np.abs(emb - emb_ref).max())
+        etol = KERNEL_TOL[torch.bfloat16] * max(1.0, float(np.abs(emb_ref).max()))
+        log(f"  /embed: {emb.shape}, max diff vs forward_scene_embeddings (B=1) {ediff:.3e} "
+            f"(tol {etol:.3e}), K1 launches {_counts()[0]}")
+        if emb.shape != (emb_ref.shape[0],) or not ediff <= etol or _counts() != (per, 0, 0):
+            raise AssertionError(f"/embed: shape {emb.shape}, diff {ediff}, launches {_counts()}")
+        total += per
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.load(r)
+        log(f"  /healthz: {health}")
+        if health["status"] != "ok" or health["clips"] != health["requests"]:
+            raise AssertionError(f"/healthz: {health}")
+
+        def burst():
+            with ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+                list(ex.map(lambda i: service.tag(pool[i % SERVE_POOL], timeout=120),
+                            range(4 * BATCH)))
+
+        before = _counts()
+        profile_run(burst, f"service, a burst of {4 * BATCH} requests from {SERVE_CLIENTS} "
+                           f"threads", top=8)
+        _set_counts(before)
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        thread.join(timeout=30)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the training CLI's loop
+# ---------------------------------------------------------------------------
+
+def memory_index(target):
+    """An index in load_index's layout over MemoryDataset's clips."""
+    n = len(target)
+    return {"audio_names": np.array([f"clip{i:04d}" for i in range(n)]),
+            "hdf5_paths": np.array(["memory"] * n), "indexes_in_hdf5": np.arange(n),
+            "targets": target}
+
+
+def run_train_cli(device, card):
+    """Phase 9. Returns (K1 serving, K1 save, K2) launches of the three runs."""
+    from audioset_convnext_inf_torch.checkpoint import load_checkpoint, state_dict_from_jax_params
+    from audioset_convnext_inf_torch.cli import train as train_cli
+    from audioset_convnext_inf_torch.engine.trainer import TrainConfig, onecycle_lr
+
+    pcm, target = train_batch(TRAIN_CLI_CLIPS, SEED + 31)
+    epcm, etarget = eval_data(SEED + 33)
+    epcm, etarget = epcm[:TRAIN_CLI_EVAL], etarget[:TRAIN_CLI_EVAL]
+    data, edata = MemoryDataset(pcm, target), MemoryDataset(epcm, etarget)
+    per = sum(K1_MAIN_PATH.values())
+    eval_batches = -(-TRAIN_CLI_EVAL // 32)
+
+    def flags(ws, early_stop, resume=0):
+        return ["--train-indexes", "memory", "--model", "convnext_tiny", "--bf16",
+                "--block-impl", "xla_approx", "--fused-train-blocks", "--sampler", "balanced",
+                "--mixup-alpha", "1.0", "--batch-size", str(TRAIN_CLIPS // 2),
+                "--num-workers", "4", "--eval-interval", "3", "--checkpoint-interval", "3",
+                "--eval-batch-size", "32", "--early-stop", str(early_stop),
+                "--resume-iteration", str(resume), "--seed", str(SEED), "--workspace", str(ws)]
+
+    root = logging.getLogger()
+    level, handlers = root.level, list(root.handlers)
+
+    def run(ws, early_stop, resume=0):
+        """One CLI run: per step its loss, host time and launch deltas."""
+        steps = []
+        last = [time.perf_counter(), _counts()]
+
+        def on_step(it, loss):  # after the step's loss reached the host
+            now, counts = time.perf_counter(), _counts()
+            steps.append((it, loss, now - last[0], tuple(a - b for a, b in zip(counts, last[1]))))
+            last[:] = [now, counts]
+
+        _zero_counts()
+        last[1] = _counts()
+        t0 = time.perf_counter()
+        args = train_cli.parse_args(flags(ws, early_stop, resume))
+        try:
+            train_cli.train(args, memory_index(target), {"test": memory_index(etarget)}, data,
+                            edata, on_step=on_step)
+        finally:
+            for h in root.handlers[:]:  # the log handlers create_logging added
+                if h not in handlers:
+                    root.removeHandler(h)
+                    h.close()
+            root.setLevel(level)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for it, loss, dt, d in steps:
+            evals = it > 0 and it % 3 == 0  # the evaluation before this step
+            log(f"    step {it}: loss {loss:.6f}, {dt * 1e3:.1f} ms since the last, launches "
+                f"(K1, K1 save, K2) {d}" + (" (evaluation before it)" if evals else ""))
+            want = (per + (per * eval_batches if evals else 0), per, per)
+            if d != want or not math.isfinite(loss):
+                raise AssertionError(f"step {it}: launches {d}, expected {want}; loss {loss}")
+        return steps, wall, _counts()
+
+    straight, resumed = WORK / "train_straight", WORK / "train_resumed"
+    steps_a, wall_a, counts_a = run(straight, 6)
+    gaps = [dt for _, _, dt, _ in steps_a[1:]]
+    log(f"  straight run, 6 steps: {wall_a:.2f} s in all (model build, loader start, 2 "
+        f"evaluations of {TRAIN_CLI_EVAL} clips, 2 checkpoints); from step to step "
+        f"{', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms; median {np.median(gaps) * 1e3:.1f} ms "
+        f"= {1 / np.median(gaps):.2f} steps/s, mean with the callbacks {np.mean(gaps) * 1e3:.1f} "
+        f"ms [{card}]")
+    _, _, counts_b = run(resumed, 3)
+    steps_c, _, counts_c = run(resumed, 6, resume=3)
+    a = load_checkpoint(str(straight / "checkpoints" / "convnext_tiny" / "6_iterations"))
+    c = load_checkpoint(str(resumed / "checkpoints" / "convnext_tiny" / "6_iterations"))
+    if a["iteration"] != 6 or c["iteration"] != 6:
+        raise AssertionError(f"checkpoints at {a['iteration']} and {c['iteration']}")
+    sa, sc = (_leaves(x["sampler_state"]) for x in (a, c))
+    same = len(sa) == len(sc) and all(np.array_equal(x, y) for x, y in zip(sa, sc))
+    pa, pc = (state_dict_from_jax_params(x["params"]) for x in (a, c))
+    buffers = ("bn0.running_mean", "bn0.running_var")
+    pdiff = max(float(np.abs(pa[k] - pc[k]).max()) for k in pa if k not in buffers)
+    bdiff = max(float(np.abs(pa[k] - pc[k]).max()) for k in buffers)
+    limit = resume_param_limit(onecycle_lr(TrainConfig()), 6)
+    losses = {it: loss for it, loss, _, _ in steps_a}
+    log(f"  resumed at 3 for 3 steps vs straight: sampler state bit-equal {same}; parameters "
+        f"max diff {pdiff:.3e} (limit {limit:.3e}), bn0 running statistics {bdiff:.3e}; losses "
+        + ", ".join(f"step {it} {loss:.6f} vs {losses[it]:.6f}" for it, loss, _, _ in steps_c))
+    if not same or not pdiff <= limit:
+        raise AssertionError("the resumed run is not the straight run")
+    with open(straight / "statistics" / "convnext_tiny" / "statistics.pkl", "rb") as f:
+        stats = pickle.load(f)
+    maps = [s["mAP"] for s in stats["test"]]
+    log(f"  statistics: evaluations at {[s['iteration'] for s in stats['test']]}, mAP {maps}")
+    if [s["iteration"] for s in stats["test"]] != [3] or not all(map(math.isfinite, maps)):
+        raise AssertionError(f"statistics {stats}")
+    counts = [sum(x) for x in zip(counts_a, counts_b, counts_c)]
+    return counts[0] - counts[1], counts[1], counts[2]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [np.asarray(tree)]
+
+
 def _entry(name, source, replaces, launches, results, per_shape, mode, per_call, unfused=None,
            err_cases=None):
     """One kernel's line: the main path's shapes, summed over the launches
@@ -1111,29 +1445,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # the training CLI's metric log uses wandb where it imports, and wandb
+    # reports to outside hosts; this run stays on the machine (JSONL)
+    os.environ["WANDB_MODE"] = "disabled"
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    log(f"[1/7] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    log(f"[1/9] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    log("[2/7] build")
+    log("[2/9] build")
     build_kernels(["fused_block", "fused_block_bwd"])
 
-    log("[3/7] kernels against their plain versions")
+    log("[3/9] kernels against their plain versions")
     k1_results = check_k1(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
-    log("[4/7] serving path: convnext_tiny, B=16 x 10-s clips")
+    log("[4/9] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
 
-    log(f"[5/7] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+    log(f"[5/9] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
     trainer, batch, train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    log(f"[6/7] times on {card}")
+    log(f"[6/9] times on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
@@ -1142,7 +1479,7 @@ def main() -> int:
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
-    log("[7/7] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
+    log("[7/9] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
     WORK.mkdir(parents=True, exist_ok=True)
     surface_launches = check_checkpoint_round_trip(serve, device, fixture_batch(BATCH, SEED))
     pcm, target = eval_data(SEED + 9)
@@ -1154,20 +1491,30 @@ def main() -> int:
     surface_launches += n + check_tagging(serve) + run_clis()
     log(f"  inference surfaces: K1 launches {surface_launches} in all")
     time_evaluator(serve, ev, pcm, target, card)
+    del ev
+
+    log(f"[8/9] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
+    service_launches = run_service(serve, card)
+    del serve
+    torch.cuda.empty_cache()
+
+    log("[9/9] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
+    cli_launches = run_train_cli(device, card)
     shutil.rmtree(WORK)
 
     kernels = [
         _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
-               launches + surface_launches, k1_results, per_shape,
-               "serving forward (phase 4 and the inference surfaces)", K1_MAIN_PATH, unfused,
-               err_cases=K1_SERVING_CASES),
+               launches + surface_launches + service_launches + cli_launches[0], k1_results,
+               per_shape, "serving forward (phases 4, 7, 8, and phase 9's evaluations in f32)",
+               K1_MAIN_PATH, unfused, err_cases=K1_SERVING_CASES),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",
-               train_launches[1], k1s_results, save_shape, "training forward (save mode)",
-               K1_MAIN_PATH, unfused),
+               train_launches[1] + cli_launches[1], k1s_results, save_shape,
+               "training forward (save mode; phases 5 and 9)", K1_MAIN_PATH, unfused),
         _entry("fused_block_bwd", "fused_block_bwd.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66",
-               train_launches[2], k2_results, k2_shape, "training backward", K1_MAIN_PATH),
+               train_launches[2] + cli_launches[2], k2_results, k2_shape,
+               "training backward (phases 5 and 9)", K1_MAIN_PATH),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -224,3 +224,63 @@ def test_evaluator_on_the_card_matches_forward():
         model.forward(np.pad(pcm[s:s + 4], ((0, 4 - len(pcm[s:s + 4])), (0, 0))))
         ["clipwise_output"].cpu().numpy()[:len(pcm[s:s + 4])] for s in range(0, 11, 4)])
     np.testing.assert_array_equal(out["clipwise_output"], ref)
+
+
+@pytest.mark.cuda
+def test_service_on_the_card_gives_each_clip_its_own_result():
+    """The batcher's card path (pinned slab rings, the copy stream, results
+    copied back under their own event) with 8 threads sending 192 distinct
+    int16 clips through batches of 8. The model records each batch as the
+    card received it: every clip is in exactly one batch, intact (a slab
+    rewritten before its copy completed would break that), the other rows
+    are padding, each answer is its row of that batch's output, and each
+    batch's output is model.forward of that batch. (A clip's result also
+    depends on its row and neighbours in the batch: at these small sizes the
+    libraries' GEMMs sum by position, so the check is against the batch it
+    rode in.) K1 runs for every batch and no other time."""
+    _need_card()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from audioset_convnext_inf_torch.engine.service import InferenceService
+    from audioset_convnext_inf_torch.models import convnext_atto
+
+    with pytest.warns(UserWarning, match="auto-switched"):
+        model = convnext_atto(compute_dtype=torch.bfloat16, seed=5)
+
+    class Recording:
+        device = model.device
+
+        def __init__(self):
+            self.batches = []
+
+        def forward(self, x):
+            out = model.forward(x)
+            self.batches.append((x.clone(), out["clipwise_output"].clone()))
+            return out
+
+    rec = Recording()
+    pcm = (np.random.RandomState(2).randn(192, 32000) * 3000).astype(np.int16)
+    with InferenceService(rec, batch_size=8, max_wait_ms=2, clip_samples=32000,
+                          pcm_int16=True) as svc:
+        FB.fused_block.launches = 0
+        rec.batches.clear()  # the warm-up's
+        with ThreadPoolExecutor(8) as pool:
+            got = list(pool.map(lambda i: svc.tag(pcm[i], timeout=60)["clipwise_output"],
+                                range(192)))
+        torch.cuda.synchronize()
+    assert FB.fused_block.launches == len(rec.batches) * sum(model.cfg.depths[2:])
+    where = {}
+    for k, (x, _) in enumerate(rec.batches):
+        rows = x.cpu().numpy()
+        for r, row in enumerate(rows):
+            hits = np.flatnonzero((pcm == row).all(axis=1))
+            assert len(hits) == 1 or not row.any(), (k, r)
+            if len(hits):
+                assert hits[0] not in where, hits[0]
+                where[hits[0]] = (k, r)
+        ref = model.forward(x)["clipwise_output"]
+        assert (ref - rec.batches[k][1]).abs().max().item() <= 2.0 ** -8, k
+    assert sorted(where) == list(range(192))
+    for i, probs in enumerate(got):
+        k, r = where[i]
+        np.testing.assert_array_equal(probs, rec.batches[k][1][r].cpu().numpy())

@@ -28,11 +28,13 @@ def test_imports_with_jax_blocked():
     assert "audioset_convnext_inf_torch.ops.fused_block" in mods
     code = (
         "import sys, importlib\n"
-        "for name in ('jax', 'audioset_convnext_inf_tpu', 'h5py', 'sklearn', 'safetensors'):\n"
+        "for name in ('jax', 'optax', 'audioset_convnext_inf_tpu', 'h5py', 'sklearn',\n"
+        "             'safetensors', 'wandb'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'audioset_convnext_inf_tpu')"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax',"
+        " 'audioset_convnext_inf_tpu')"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -42,9 +44,17 @@ def test_imports_with_jax_blocked():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
 
 
+SERVING_AND_TRAINING = (
+    "cli/serve.py", "cli/train.py", "data/blacklist.py", "data/samplers.py",
+    "engine/service.py", "engine/statistics.py", "engine/trainer.py", "checkpoint/io.py",
+    "labels.py", "utils/logging_utils.py",
+)
+
+
 def test_sources_name_neither_jax_nor_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
     assert len(files) >= 10
+    assert {PKG / m for m in SERVING_AND_TRAINING} <= set(files)
     for f in files:
         text = f.read_text()
         assert "audioset_convnext_inf_tpu" not in text, f
@@ -56,11 +66,12 @@ def test_sources_name_neither_jax_nor_the_jax_package():
                     names = [node.module or ""]
                 else:
                     continue
-                assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib")], f
+                assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "optax")], f
 
 
 def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
-    from audioset_convnext_inf_torch.cli import convert, demo, evaluate, extract_embeddings
+    from audioset_convnext_inf_torch.cli import (convert, demo, evaluate, extract_embeddings,
+                                                 serve, train)
     from audioset_convnext_inf_torch.engine.evaluator import Evaluator
     from audioset_convnext_inf_torch.models import api
 
@@ -82,7 +93,9 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
     for argv, main in ((["--checkpoint", "c.pth", "--eval-indexes", "i.h5"], evaluate.main),
                        ([wav], demo.main),
                        ([wav, "--out", out + ".h5"], extract_embeddings.main),
-                       (["c.safetensors", out], convert.main)):
+                       (["c.safetensors", out], convert.main),
+                       (["--port", "0"], serve.main),
+                       (["--train-indexes", "i.h5", "--workspace", out], train.main)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     assert not list(tmp_path.iterdir())  # nothing was written
