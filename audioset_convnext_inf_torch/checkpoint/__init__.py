@@ -12,6 +12,7 @@ from audioset_convnext_inf_torch.checkpoint.io import (
     load_checkpoint,
     load_pretrained,
     optimizer_state_from_optax,
+    optimizer_state_to_optax,
     read_safetensors,
     save_checkpoint,
     save_safetensors,
@@ -24,6 +25,7 @@ __all__ = [
     "load_pretrained",
     "load_reference_state_dict",
     "optimizer_state_from_optax",
+    "optimizer_state_to_optax",
     "read_safetensors",
     "save_checkpoint",
     "save_safetensors",

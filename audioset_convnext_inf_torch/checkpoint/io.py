@@ -19,17 +19,22 @@ The port's counterpart of the JAX package's ``checkpoint/io.py``:
    neither optax nor JAX and runs no code a pickle names;
  - :func:`optimizer_state_from_optax` turns the JAX trainer's optax state,
    as read here, into the port's ``Optimizer`` state, so a training run the
-   JAX package checkpointed resumes in the port. The port writes its own
-   optimizer state (plain numpy under reference keys), which the JAX
-   package reads but cannot resume from.
+   JAX package checkpointed resumes in the port; :func:`optimizer_state_to_optax`
+   is its inverse, and :func:`save_checkpoint` writes the optimizer state
+   that way, so the JAX trainer resumes a run the port checkpointed. The
+   pickle names optax's classes by optax's public top-level names
+   (``optax.ScaleByAdamState``, ...), which the unpickler resolves wherever
+   a version of optax keeps them, and writing imports no optax.
 """
 
 from __future__ import annotations
 
 import builtins
+import collections
 import json
 import os
 import pickle
+import re
 import struct
 from typing import Any, Dict, Optional
 
@@ -226,13 +231,22 @@ class _CheckpointUnpickler(pickle.Unpickler):
         return type(name, (_Inert,), {"_pickled_as": f"{module}.{name}"})
 
 
-def _host(tree):
-    """Tensors in a tree of dicts and lists as numpy arrays."""
-    if isinstance(tree, dict):
-        return {k: _host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_host(v) for v in tree)
-    return _to_numpy(tree) if isinstance(tree, torch.Tensor) else tree
+class _OptaxPickler(pickle._Pickler):
+    """The pure-Python pickler, which writes the optax stand-ins' classes
+    under optax's names; every other global as pickle does. Use it with
+    protocol 4: at 5, Python 3.12.3's pure-Python pickler memoizes the
+    ``tobytes()`` of each numpy in-band buffer, and two equal zero- or
+    one-byte results are one cached object, which fails its memo check
+    (later 3.12 releases check first)."""
+
+    def save_global(self, obj, name=None):
+        module = getattr(obj, "_optax_module", None)
+        if module is None:
+            return super().save_global(obj, name)
+        self.save(module)
+        self.save(obj.__name__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
 
 
 def save_checkpoint(
@@ -245,14 +259,14 @@ def save_checkpoint(
     extra: Optional[Dict[str, Any]] = None,
 ) -> str:
     """Write a native checkpoint directory that the JAX package's
-    ``load_checkpoint`` reads: the parameters in its pytree layout, and
-    ``opt_state``, the port's ``Optimizer.state_dict()`` (count, mini_step,
-    and the mu/nu/acc tensors under reference keys), as numpy. Returns the
-    directory."""
+    ``load_checkpoint`` reads and its ``Trainer.restore`` resumes: the
+    parameters in its pytree layout, and ``opt_state``, the port's
+    ``Optimizer.state_dict()``, as the optax state of its structure
+    (:func:`optimizer_state_to_optax`). Returns the directory."""
     os.makedirs(directory, exist_ok=True)
     state = {
         "params": jax_params_from_state_dict(state_dict),
-        "opt_state": _host(opt_state),
+        "opt_state": None if opt_state is None else optimizer_state_to_optax(opt_state),
         "bn_stats": None,
         "sampler_state": sampler_state,
         "iteration": iteration,
@@ -260,7 +274,7 @@ def save_checkpoint(
     }
     tmp = os.path.join(directory, "state.pkl.tmp")
     with open(tmp, "wb") as f:
-        pickle.dump(state, f, protocol=pickle.HIGHEST_PROTOCOL)
+        _OptaxPickler(f, protocol=4).dump(state)
     os.replace(tmp, os.path.join(directory, "state.pkl"))
     if cfg is not None:
         with open(os.path.join(directory, "config.json"), "w") as f:
@@ -322,11 +336,73 @@ def _moments(tree, what: str) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _optax_class(name: str, fields: str, module: str = "optax"):
+    """A stand-in for an optax state class: a namedtuple of optax's fields
+    that pickles under ``module.name``."""
+    cls = collections.namedtuple(name, fields)
+    cls._optax_module = module
+    return cls
+
+
+# optax's fields, in its order (tests/test_torch_checkpoint.py holds them
+# against the installed optax). inject_hyperparams builds the stateful
+# state since optax 0.2; its schedule state has no top-level name.
+_ScaleByAdamState = _optax_class("ScaleByAdamState", "count mu nu")
+_ScaleByScheduleState = _optax_class("ScaleByScheduleState", "count")
+_MaskedState = _optax_class("MaskedState", "inner_state")
+_EmptyState = _optax_class("EmptyState", "")
+_MultiStepsState = _optax_class("MultiStepsState",
+                                "mini_step gradient_step inner_opt_state acc_grads skip_state")
+_InjectState = _optax_class("InjectStatefulHyperparamsState",
+                            "count hyperparams hyperparams_states inner_state")
+_WrappedScheduleState = _optax_class("WrappedScheduleState", "count", "optax.schedules._inject")
+_KINDS = ("optax.adamw", "optax.adam", "optax.inject_hyperparams(adamw)")
+
+
+def _moment_tree(moments: Dict[str, Any]):
+    """Reference-keyed moments as the JAX parameter tree, with the zero
+    moments of bn0's running statistics that the JAX trainer's state holds."""
+    sd = {k: _to_numpy(v) for k, v in moments.items()}
+    zeros = np.zeros_like(sd["bn0.weight"])
+    return jax_params_from_state_dict(dict(sd, **{k: zeros for k in _BN0_STATS}))
+
+
+def optimizer_state_to_optax(state: Dict[str, Any]):
+    """The port's ``Optimizer.state_dict()`` as the optax state that the JAX
+    package's ``make_optimizer`` builds for its ``structure``: the inverse
+    of :func:`optimizer_state_from_optax`, for the same structures. The
+    state tuples are stand-ins that pickle under optax's names; arrays are
+    numpy."""
+    structure = state.get("structure")
+    multi = re.fullmatch(r"optax\.MultiSteps\((.*)\)", structure or "")
+    kind = multi.group(1) if multi else structure
+    if kind not in _KINDS:
+        raise ValueError(f"no optax layout for the optimizer structure {structure!r}; "
+                         f"known: {list(_KINDS)} and optax.MultiSteps around each")
+    count = np.asarray(state["count"], np.int32)
+    adam = _ScaleByAdamState(count, _moment_tree(state["mu"]), _moment_tree(state["nu"]))
+    if kind == "optax.adamw":
+        node = (adam, _MaskedState(_EmptyState()), _ScaleByScheduleState(count))
+    elif kind == "optax.adam":
+        node = (adam, _ScaleByScheduleState(count))
+    else:
+        hp = {k: np.asarray(v, np.float32) for k, v in state["hyperparams"].items()}
+        node = _InjectState(count, dict(hp, eps_root=np.asarray(0.0, np.float32)),
+                            {k: _WrappedScheduleState(count) for k in hp},
+                            (adam, _MaskedState(_EmptyState()), _EmptyState()))
+    if multi:
+        node = _MultiStepsState(np.asarray(state["mini_step"], np.int32), count, node,
+                                _moment_tree(state["acc"]), ())
+    return node
+
+
 def optimizer_state_from_optax(opt_state) -> Dict[str, Any]:
     """The JAX trainer's optax state (``engine/trainer.py::make_optimizer``),
     as ``load_checkpoint`` reads it, as the port's ``Optimizer.state_dict()``:
-    ``{"count", "mini_step", "mu", "nu", "acc", "structure"}``, numpy arrays
-    under reference keys.
+    ``{"count", "mini_step", "mu", "nu", "acc", "structure", "hyperparams"}``,
+    numpy arrays under reference keys; ``hyperparams`` holds the learning
+    rate and weight decay of the last update for inject_hyperparams, else
+    None.
 
     Accepted structures: ``optax.adamw`` (ScaleByAdamState, the masked
     weight-decay state, ScaleByScheduleState), ``optax.adam``,
@@ -349,8 +425,11 @@ def optimizer_state_from_optax(opt_state) -> Dict[str, Any]:
         mini_step, counts["MultiSteps gradient_step"] = int(np.asarray(node[0])), node[1]
         node, acc, wrap = node[2], node[3], "optax.MultiSteps({})"
     inject = _class_name(node) in _INJECT_STATES
+    hyperparams = None
     if inject:
         counts["inject_hyperparams count"] = node[0]
+        hyperparams = {k: np.asarray(node[1][k], np.float32)
+                       for k in ("learning_rate", "weight_decay")}
         node = node[-1]
     if not (type(node) is tuple and node and _class_name(node[0]) == "ScaleByAdamState"):
         refuse("no ScaleByAdamState at the head of the optimizer chain")
@@ -379,4 +458,5 @@ def optimizer_state_from_optax(opt_state) -> Dict[str, Any]:
         "nu": _moments(adam[2], "nu"),
         "acc": _moments(acc, "accumulated gradient") if acc is not None else None,
         "structure": wrap.format(kind),
+        "hyperparams": hyperparams,
     }

@@ -2,7 +2,7 @@
 
     python -m audioset_convnext_inf_torch.cli.serve [--host 127.0.0.1] [--port 8787] \\
         [--checkpoint CKPT] [--batch-size 32] [--max-wait-ms 20] [--top-k 10] \\
-        [--dtype bfloat16|float32] [--device cpu|cuda]
+        [--dtype bfloat16|float32] [--device cpu|cuda] [--mesh]
 
 Runs on the card unless ``--device cpu`` is given. Endpoints (stdlib
 ``http.server``, one thread per connection; dynamic batching underneath,
@@ -20,9 +20,11 @@ Runs on the card unless ``--device cpu`` is given. Endpoints (stdlib
   POST /embed     -> same bodies; response: {"embedding": [768 floats]}
                      (the clip padded or cropped to 10 s)
 
-HTTP 429 when the request queue is full, 400 on any other error. The JAX
-package's ``--mesh`` (serving sharded over several devices) and ``--bundle``
-(an AOT export bundle) wait for the port's data-parallel and export slices.
+HTTP 429 when the request queue is full, 400 on any other error.
+``--mesh`` serves each batch over every card of the machine
+(``engine/service.py::ShardedModel``). The JAX package's ``--bundle`` (an
+AOT export bundle) waits for the port's export slice; with ``--mesh`` it
+would be an argument error, as it is there.
 """
 
 from __future__ import annotations
@@ -50,7 +52,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="bfloat16 serves the fast config (tanh GELU, the fused block kernel)")
     parser.add_argument("--device", default=None,
                         help="default: the card; 'cpu' to ask for the CPU")
-    return parser.parse_args(argv)
+    parser.add_argument("--mesh", action="store_true",
+                        help="shard each batch over every card of the machine "
+                             "(engine/service.py::ShardedModel); the batch size is not "
+                             "rounded: the fused block kernel runs at any per-card batch")
+    args = parser.parse_args(argv)
+    if args.mesh and args.device is not None and args.device != "cuda":
+        parser.error("--mesh serves over every card of the machine; --device names one")
+    return args
 
 
 def decode_audio(body: bytes, content_type: str) -> np.ndarray:
@@ -88,7 +97,11 @@ def make_server(argv=None, model=None) -> Tuple[object, object]:
 
     from audioset_convnext_inf_torch import models
     from audioset_convnext_inf_torch.engine.infer import sliding_windows
-    from audioset_convnext_inf_torch.engine.service import InferenceService, ServiceOverloaded
+    from audioset_convnext_inf_torch.engine.service import (
+        InferenceService,
+        ServiceOverloaded,
+        ShardedModel,
+    )
     from audioset_convnext_inf_torch.labels import read_audioset_label_tags
     from audioset_convnext_inf_torch.models.api import resolve_device
 
@@ -102,6 +115,9 @@ def make_server(argv=None, model=None) -> Tuple[object, object]:
             model = models.convnext_tiny(drop_path_rate=0.0, compute_dtype=compute_dtype,
                                          device=device)
             print("WARNING: no checkpoint given - serving random weights")
+    if args.mesh:
+        model = ShardedModel(model)  # every card; raises without one
+        print(f"mesh serving over {len(model.replicas.devices)} card(s)")
     service = InferenceService(model, batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
                                pcm_int16=True).start()
     labels = read_audioset_label_tags()

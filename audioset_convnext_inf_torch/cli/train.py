@@ -1,4 +1,5 @@
-"""Training CLI (reference pytorch/main.py train), on one card.
+"""Training CLI (reference pytorch/main.py train), on one card or
+data-parallel over several.
 
     python -m audioset_convnext_inf_torch.cli.train \\
         --train-indexes train_idx.h5 --eval-indexes eval_idx.h5 \\
@@ -18,10 +19,22 @@ sees the batches the uninterrupted one would have. Runs on the card unless
 ``--device cpu`` is given. The index and waveform HDF5 files need h5py,
 imported where they are opened.
 
-One card, one process: the JAX package's data parallelism over all devices
-and hosts (``initialize_distributed``, ``is_primary``, the Evaluator on a
-host's local devices) waits for the port's data-parallel slice, and its
-persistent compilation cache has no counterpart here yet.
+Data parallelism: one process per card, launched by torchrun or SLURM
+(``parallel.initialize_distributed`` reads either environment; without
+one the run is one process on one card):
+
+    torchrun --nproc-per-node 4 -m audioset_convnext_inf_torch.cli.train ...
+    srun --ntasks-per-node 4 --gpus-per-node 4 \\
+        python -m audioset_convnext_inf_torch.cli.train ...
+
+``--batch-size`` is the global batch (a multiple of the number of
+processes; with mixup, the 2 x batch clips split into pairs). Every rank
+builds the same sampler from the same seed and loads only its own rows of
+each batch; the sampler state stays the global one. Only the primary (rank
+0) writes the metric log, the statistics and the checkpoints, and only it
+evaluates, on its own card, while the others wait in their next
+all-reduce. Every rank resumes from the same checkpoint. The JAX package's
+persistent compilation cache has no counterpart here.
 
 ``main`` parses the flags and opens the index files and the datasets;
 :func:`train` runs everything from the sampler on, over indexes and
@@ -108,7 +121,12 @@ def train(args: argparse.Namespace, train_index: dict, eval_indexes: Dict[str, d
     of each of ``eval_indexes`` ({'bal'|'test': index}) over
     ``eval_dataset`` every ``--eval-interval`` steps, checkpoints, the
     statistics and the metric log. ``on_step(iteration, loss)`` goes to
-    ``Trainer.train``. Returns the trainer."""
+    ``Trainer.train``. Returns the trainer. A process group that this call
+    joined from the environment is left again at its end; one the caller
+    joined stays."""
+    import torch
+    import torch.distributed
+
     from audioset_convnext_inf_torch.checkpoint import (
         load_checkpoint,
         load_reference_state_dict,
@@ -130,16 +148,25 @@ def train(args: argparse.Namespace, train_index: dict, eval_indexes: Dict[str, d
     from audioset_convnext_inf_torch.engine.trainer import TrainConfig, Trainer
     from audioset_convnext_inf_torch.models import create_model
     from audioset_convnext_inf_torch.models.api import resolve_device
+    from audioset_convnext_inf_torch.parallel import get_mesh, initialize_distributed, is_primary
     from audioset_convnext_inf_torch.utils import MetricLogger, create_logging
 
     device = resolve_device(args.device)
-    create_logging(os.path.join(args.workspace, "logs", args.model))
-    metrics_logger = MetricLogger(
-        run_name=f"{args.model}-bs{args.batch_size}",
-        out_dir=os.path.join(args.workspace, "metrics", args.model),
-        config=vars(args),
-    )
+    mesh = metrics_logger = None
+    started = not torch.distributed.is_initialized()
     try:
+        if initialize_distributed(device=device):
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+            mesh = get_mesh([device])
+        primary = is_primary()
+        if primary:
+            create_logging(os.path.join(args.workspace, "logs", args.model))
+            metrics_logger = MetricLogger(
+                run_name=f"{args.model}-bs{args.batch_size}",
+                out_dir=os.path.join(args.workspace, "metrics", args.model),
+                config=vars(args),
+            )
         fe_precision = args.frontend_precision or ("high" if args.bf16 else "highest")
         model = create_model(
             args.model,
@@ -184,7 +211,7 @@ def train(args: argparse.Namespace, train_index: dict, eval_indexes: Dict[str, d
         ckpt_root = os.path.join(args.workspace, "checkpoints", args.model)
         statistics = StatisticsContainer(
             os.path.join(args.workspace, "statistics", args.model, "statistics.pkl"))
-        trainer = Trainer(model, train_cfg)
+        trainer = Trainer(model, train_cfg, mesh=mesh)
 
         if args.resume_iteration:
             ck = load_checkpoint(os.path.join(ckpt_root, f"{args.resume_iteration}_iterations"))
@@ -201,9 +228,12 @@ def train(args: argparse.Namespace, train_index: dict, eval_indexes: Dict[str, d
                 pass
             logging.info("resumed at iteration %d", ck["iteration"])
 
-        loader = DataLoader(train_dataset, sampler, num_workers=args.num_workers)
-        # the evaluator runs the trainer's own model, in eval mode, between steps
-        evaluator = Evaluator(model, device=device) if eval_indexes else None
+        loader = DataLoader(train_dataset, sampler if mesh is None else RankRows(sampler, mesh),
+                            num_workers=args.num_workers)
+        # the evaluator runs the trainer's own model, in eval mode, between
+        # steps, on the primary only; the other ranks wait in their next
+        # all-reduce (the process group's timeout outlasts an evaluation)
+        evaluator = Evaluator(model, device=device) if eval_indexes and primary else None
 
         def eval_fn(_model, iteration: int) -> None:
             for tag, index in eval_indexes.items():
@@ -219,6 +249,8 @@ def train(args: argparse.Namespace, train_index: dict, eval_indexes: Dict[str, d
             statistics.dump()
 
         def checkpoint_fn(tr, iteration: int) -> None:
+            if not primary:
+                return
             # the loader runs the sampler ahead of training: save the snapshot
             # that came with the last consumed batch (exact resume)
             state = tr.last_sampler_state
@@ -243,8 +275,29 @@ def train(args: argparse.Namespace, train_index: dict, eval_indexes: Dict[str, d
         )
         checkpoint_fn(trainer, trainer.step_index)
     finally:
-        metrics_logger.finish()
+        if metrics_logger is not None:
+            metrics_logger.finish()
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return trainer
+
+
+class RankRows:
+    """A batch sampler yielding this rank's rows of each of ``sampler``'s
+    batches, so that each rank's loader reads only its own clips; its state
+    is the wrapped sampler's, the global one (the same on every rank)."""
+
+    def __init__(self, sampler, mesh):
+        self.sampler, self.mesh = sampler, mesh
+
+    def __iter__(self):
+        from audioset_convnext_inf_torch.parallel import batch_sharding
+
+        for metas in self.sampler:
+            yield metas[batch_sharding(self.mesh, len(metas))]
+
+    def state_dict(self):
+        return self.sampler.state_dict()
 
 
 def main(argv=None) -> int:

@@ -2,9 +2,10 @@
 
 The same dataclasses, field names and JSON form as the JAX package's
 ``config.py``, kept as the port's own copy so that a config written by
-either package loads in the other (checkpoints carry this JSON). Runtime
-knobs of the JAX package (mesh axes, donation) have no counterpart here:
-the device and compute dtype are arguments of the model entry points.
+either package loads in the other (checkpoints carry this JSON). The JAX
+package's ``RuntimeConfig`` (mesh axis, donation) has no counterpart: no
+code of either package reads it; the device, the compute dtype and the
+devices of a data-parallel run are arguments of the entry points.
 """
 
 from __future__ import annotations

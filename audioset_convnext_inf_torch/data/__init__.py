@@ -1,7 +1,6 @@
 """Data plane: audio I/O, the AudioSet HDF5 dataset, the train and
-evaluation samplers, the blacklist, and the prefetching loader with
-host-to-card double buffering. h5py is imported only where an HDF5 file is
-opened."""
+evaluation samplers, the blacklist, and the prefetching loader. h5py is
+imported only where an HDF5 file is opened."""
 
 from audioset_convnext_inf_torch.data.audio_io import (
     float32_to_int16,
@@ -12,7 +11,7 @@ from audioset_convnext_inf_torch.data.audio_io import (
 )
 from audioset_convnext_inf_torch.data.blacklist import dcase2017_task4_ids, write_black_list
 from audioset_convnext_inf_torch.data.hdf5_dataset import AudioSetDataset, collate, load_index
-from audioset_convnext_inf_torch.data.loader import DataLoader, device_prefetch
+from audioset_convnext_inf_torch.data.loader import DataLoader
 from audioset_convnext_inf_torch.data.samplers import (
     AlternateTrainSampler,
     BalancedTrainSampler,
@@ -30,7 +29,6 @@ __all__ = [
     "TrainSampler",
     "collate",
     "dcase2017_task4_ids",
-    "device_prefetch",
     "float32_to_int16",
     "int16_to_float32",
     "load_index",

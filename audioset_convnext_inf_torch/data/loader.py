@@ -1,13 +1,12 @@
-"""Prefetching data loader and host-to-card double buffering.
+"""Prefetching data loader.
 
 The port's counterpart of the JAX package's ``data/loader.py``. The
 reference leans on torch's ``DataLoader`` with 10 worker processes
 (evaluate_convnext_on_audioset.py:71-85); h5py releases the GIL during
 reads, so a thread pool gets the same I/O overlap without pickling batches
 across processes. Batches are assembled ahead of consumption, in order, in
-a bounded queue, and :func:`device_prefetch` keeps ``size`` batches in
-flight to the card on a side stream so host I/O and copies overlap the
-card's compute.
+a bounded queue, so host I/O overlaps the card's compute (the Evaluator's
+replicas copy each batch to the card on their own streams).
 
 With ``pad_to_batch_size`` the last partial batch is zero-padded to the
 full batch size and its real length reported as ``batch["valid"]``.
@@ -22,7 +21,6 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
-import torch
 
 from audioset_convnext_inf_torch.data.hdf5_dataset import collate
 
@@ -135,58 +133,3 @@ class DataLoader:
                     q.get_nowait()
                 except queue.Empty:
                     break
-
-
-def _is_numeric(v) -> bool:
-    return isinstance(v, np.ndarray) and np.issubdtype(v.dtype, np.number)
-
-
-def device_prefetch(iterator: Iterable, device, size: int = 2) -> Iterator[dict]:
-    """Keep ``size`` batches in flight to ``device`` (double buffering).
-
-    Numeric numpy entries become tensors on ``device``; others pass through.
-    On the card each batch is copied into freshly pinned host memory and
-    sent with a non-blocking copy on a side stream; the consumer's stream
-    waits on that batch's copy event before the batch is handed out. The
-    pinned buffers are never refilled: each batch pins new ones from
-    PyTorch's caching host allocator, which itself keeps a block out of
-    reuse until the event recorded for its copy has completed.
-    """
-    device = torch.device(device)
-    cuda = device.type == "cuda"
-    stream = torch.cuda.Stream(device) if cuda else None
-
-    def to_device(batch):
-        if not cuda:
-            return {k: torch.from_numpy(v) if _is_numeric(v) else v for k, v in batch.items()}, None
-        out = {}
-        with torch.cuda.stream(stream):
-            for k, v in batch.items():
-                out[k] = (torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-                          if _is_numeric(v) else v)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return out, event
-
-    def hand_out(item):
-        batch, event = item
-        if event is not None:
-            consumer = torch.cuda.current_stream(device)
-            consumer.wait_event(event)
-            for v in batch.values():
-                if isinstance(v, torch.Tensor):
-                    v.record_stream(consumer)  # allocated on the side stream
-        return batch
-
-    buf: "collections.deque" = collections.deque()
-    it = iter(iterator)
-    for batch in it:
-        buf.append(to_device(batch))
-        if len(buf) >= size:
-            break
-    for batch in it:
-        item = buf.popleft()
-        buf.append(to_device(batch))
-        yield hand_out(item)
-    while buf:
-        yield hand_out(buf.popleft())

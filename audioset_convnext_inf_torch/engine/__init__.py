@@ -1,3 +1,4 @@
-"""Engine: evaluation (metrics, the one-card evaluator), inference front
-ends (tagging, long audio, embedding extraction), and training (losses,
-optimizer and schedules, the one-device trainer)."""
+"""Engine: evaluation (metrics, the evaluator on one device or several),
+inference front ends (tagging, long audio, embedding extraction), the
+tagging service, and training (losses, optimizer and schedules, the
+trainer on one card or data-parallel)."""

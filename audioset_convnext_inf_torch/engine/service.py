@@ -8,21 +8,24 @@ shape, and results fan back out through futures. A batch closes when
 whichever comes first. Long audio becomes extra rows upstream
 (``engine/infer.py::sliding_windows``).
 
-On the card (a model whose ``device`` is CUDA):
+On the card (a model whose ``device`` is CUDA), every batch goes through
+``parallel.Replicas``: the model's own device, or each device of a
+:class:`ShardedModel` (a contiguous block of the batch's rows on each):
 
  - Pinned slabs. Each wire dtype (float32, int16) has a ring of
    ``SLABS_PER_DTYPE`` pinned host slabs (batch_size, clip_samples). A batch
-   is assembled in a slab and copied to the card by a non-blocking copy on a
-   copy stream, with an event recorded after it; the forward's stream waits
-   on that event. The copy reads the slab after the call that issued it has
-   returned, so **a slab is rewritten only after its copy's event has
-   completed** (``_next_slab``).
+   is assembled in a slab, and each device copies its rows to itself by a
+   non-blocking copy on its copy stream, with an event recorded after it;
+   that device's compute stream waits on that event. The copies read the
+   slab after the call that issued them has returned, so **a slab is
+   rewritten only after every device's copy event has completed**
+   (``_next_slab``).
  - Results that do not wait for the next batch. Right after batch N's
-   forward, the copies of its ``clipwise_output`` and ``clipwise_logits``
-   into pinned host buffers are enqueued on the same stream, and an event is
-   recorded; resolving batch N waits on that event only. A ``.cpu()`` issued
-   after batch N+1 was launched would also wait for N+1 (one stream runs in
-   order).
+   forward on a device, the copies of its ``clipwise_output`` and
+   ``clipwise_logits`` rows into pinned host buffers are enqueued on the
+   same stream, and an event is recorded; resolving batch N waits on those
+   events only. A ``.cpu()`` issued after batch N+1 was launched would also
+   wait for N+1 (one stream runs in order).
  - So the batcher keeps one batch in flight: it launches batch N, then fans
    out batch N-1's results while the card computes N.
  - Model calls from other threads. The batcher holds ``model_lock`` while it
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 from audioset_convnext_inf_torch.config import CLIP_SAMPLES, INT16_SCALE
+from audioset_convnext_inf_torch.parallel.mesh import Replicas, get_mesh
 
 SLABS_PER_DTYPE = 2
 _OUTPUTS = ("clipwise_output", "clipwise_logits")
@@ -65,14 +69,38 @@ class ServiceStopped(RuntimeError):
     """The service was stopped before this request could be served."""
 
 
+class ShardedModel:
+    """A model served over its replicas on several devices of this process
+    (the JAX package's ``ShardedModel`` over a mesh): each batch is padded
+    to a multiple of the device count, split into contiguous blocks of
+    rows, run on each device, gathered and trimmed (``parallel.Replicas``).
+    No collectives: each clip is answered on its own. It keeps the live
+    model's contract for :class:`InferenceService` and the HTTP service:
+    ``forward`` and ``forward_scene_embeddings`` (outputs in host memory),
+    ``device`` (the first device) and ``cfg``. ``devices`` defaults to every
+    card of the machine. Any batch size works, and the fused block kernel
+    runs at any per-device batch."""
+
+    def __init__(self, model, devices=None):
+        self.replicas = Replicas(model, get_mesh(devices).devices)
+        self.model, self.cfg = model, model.cfg
+        self.device = self.replicas.devices[0]
+
+    def forward(self, waveform) -> Dict[str, torch.Tensor]:
+        return self.replicas(waveform, "forward")
+
+    def forward_scene_embeddings(self, waveform) -> torch.Tensor:
+        return self.replicas(waveform, "forward_scene_embeddings")
+
+
 class _Slab:
-    """One batch of host memory (pinned for the card) and the event after
-    the last copy that reads it."""
+    """One batch of host memory (pinned for the card) and the events after
+    the last copies that read it (one per device)."""
 
     def __init__(self, shape, dtype: np.dtype, pinned: bool):
         self.host = torch.zeros(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=pinned)
         self.array = self.host.numpy()
-        self.copied: Optional[torch.cuda.Event] = None
+        self.copied: List[torch.cuda.Event] = []
 
 
 class InferenceService:
@@ -107,8 +135,8 @@ class InferenceService:
         self.device = torch.device(device) if device is not None else None
         self._cuda = self.device is not None and self.device.type == "cuda"
         if self._cuda:
-            self._copy_stream = torch.cuda.Stream(self.device)
-            self._stream = torch.cuda.Stream(self.device)
+            self._replicas = (model.replicas if isinstance(model, ShardedModel)
+                              else Replicas(model, [self.device]))
         self._slabs: Dict[np.dtype, deque] = {}  # wire dtype -> ring of _Slab
 
     # -- lifecycle -----------------------------------------------------------
@@ -251,8 +279,8 @@ class InferenceService:
                 for _ in range(SLABS_PER_DTYPE))
         slab = ring[0]
         ring.rotate(-1)
-        if slab.copied is not None:
-            slab.copied.synchronize()  # the invariant: no rewrite before the copy is done
+        for event in slab.copied:
+            event.synchronize()  # the invariant: no rewrite before every copy is done
         return slab
 
     def _dispatch(self, batch: List):
@@ -280,35 +308,24 @@ class InferenceService:
             return None
 
     def _launch(self, slab: _Slab):
-        """Enqueue slab -> card, the forward and the outputs' copies back;
-        returns ({output: host array or tensor}, event after the copies)."""
+        """Enqueue slab -> card(s), the forward and the outputs' copies back;
+        returns ({output: host array or tensor}, the events after the
+        copies back)."""
         if not self._cuda:
             with self.model_lock:
                 out = self.model.forward(slab.array)
-            return {k: out[k] for k in _OUTPUTS}, None
-        with torch.cuda.stream(self._copy_stream):
-            x = slab.host.to(self.device, non_blocking=True)
-            slab.copied = torch.cuda.Event()
-            slab.copied.record(self._copy_stream)
-        with torch.cuda.stream(self._stream):
-            self._stream.wait_event(slab.copied)
-            x.record_stream(self._stream)  # allocated on the copy stream
-            with self.model_lock:
-                out = self.model.forward(x)
-            host = {}
-            for k in _OUTPUTS:
-                host[k] = torch.empty(out[k].shape, dtype=out[k].dtype, pin_memory=True)
-                host[k].copy_(out[k], non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-        return host, done
+            return {k: out[k] for k in _OUTPUTS}, []
+        with self.model_lock:
+            launch = self._replicas.launch(slab.host)
+        slab.copied = launch.copied
+        return {k: launch.host[k] for k in _OUTPUTS}, launch.done
 
     @staticmethod
     def _fetch(launched) -> Dict[str, np.ndarray]:
         """Wait for one launch's output copies (that launch only)."""
         host, done = launched
-        if done is not None:
-            done.synchronize()
+        for event in done:
+            event.synchronize()
         return {k: np.asarray(v) for k, v in host.items()}
 
     def _resolve(self, launched, batch: List) -> None:

@@ -1,7 +1,7 @@
-"""Training engine of the PyTorch port, on one device.
+"""Training engine of the PyTorch port, on one card or data-parallel.
 
 The JAX package's ``engine/trainer.py`` (the reference DDP loop,
-main.py:117-923), one device at a time:
+main.py:117-923):
 
  - AdamW with the reference's weight-decay grouping (no decay for rank-1
    tensors: biases, norm scales, gamma; pytorch_utils.custom_weight_decay),
@@ -13,13 +13,21 @@ main.py:117-923), one device at a time:
    mean of the micro-step gradients, one update every k micro-steps;
  - mixup (paired 2B batch), SpecAugment and drop path from one
    ``torch.Generator`` per step, seeded from (seed, step); bn0's running
-   statistics update in place during the forward.
-
-The multi-device trainer waits for the data-parallel slice of the port.
+   statistics update in place during the forward;
+ - data parallelism over a process group (``Trainer(..., mesh=...)``, one
+   card per process): every rank takes its contiguous block of the global
+   batch's rows; draws that depend on the batch are made for the global
+   batch and sliced, bn0's statistics are the global batch's, and the
+   gradients and the loss are averaged by one all-reduce of one flat buffer
+   before the optimizer step, so every rank applies the same update. On the
+   fused route each rank draws its own drop path (the JAX package's
+   ``fold_in`` by device index); on the unfused route the global draws are
+   sliced, and the step equals the one-process step on the global batch.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import math
 import time
@@ -35,6 +43,12 @@ from audioset_convnext_inf_torch.models import convnext as F
 from audioset_convnext_inf_torch.ops.mixup import do_mixup, get_mixup_lambda
 from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
+from audioset_convnext_inf_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    batch_sharding,
+    replicate,
+)
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -162,8 +176,19 @@ class Optimizer:
         return True
 
     def state_dict(self) -> Dict[str, Any]:
+        """count, mini_step, the moments (and accumulated gradients) under
+        reference keys, and what the optax form of the state needs:
+        ``structure`` (``optax_structure``) and, for the weight-decay
+        schedule, ``hyperparams``, the learning rate and weight decay of the
+        last update, as optax's inject_hyperparams keeps them."""
+        hyperparams = None
+        if self.cfg.optimizer == "adamw" and self.cfg.use_wd_schedule:
+            last = max(self.count - 1, 0)
+            hyperparams = {"learning_rate": np.float32(self.lr(last)),
+                           "weight_decay": np.float32(self.wd(last))}
         return {"count": self.count, "mini_step": self.mini_step, "mu": self.mu, "nu": self.nu,
-                "acc": self.acc}
+                "acc": self.acc, "structure": optax_structure(self.cfg),
+                "hyperparams": hyperparams}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -202,56 +227,158 @@ def _step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
 
 
+def _rank_generator(seed: int, step: int, rank: int) -> torch.Generator:
+    """A rank's own stream for the step (the fused route's drop path)."""
+    words = np.random.SeedSequence([seed & 0xFFFFFFFF, step & 0xFFFFFFFF, rank]).generate_state(2)
+    return torch.Generator().manual_seed((int(words[0]) << 31) ^ int(words[1]))
+
+
+class CollectiveTimer:
+    """Time spent in the step's collectives since the last :meth:`ms`: CUDA
+    events around them on the card, the host clock elsewhere; ``calls``
+    counts the collectives timed since construction. Event pairs
+    are folded into a running sum once they complete, and at most
+    ``MAX_PENDING`` stay unread (the oldest is waited for beyond that), so
+    a run that never reads the timer holds a bounded number of events."""
+
+    MAX_PENDING = 64
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.pending = collections.deque()  # (start, end) CUDA event pairs
+        self.total_ms = 0.0
+        self.calls = 0
+
+    def __call__(self, fn):
+        def timed(tensors):
+            self.calls += 1
+            if not self.cuda:
+                t0 = time.perf_counter()
+                out = fn(tensors)
+                self.total_ms += 1e3 * (time.perf_counter() - t0)
+                return out
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(tensors)
+            end.record()
+            self.pending.append((start, end))
+            self._fold(wait=len(self.pending) > self.MAX_PENDING)
+            return out
+        return timed
+
+    def _fold(self, wait: bool = False) -> None:
+        while self.pending:
+            start, end = self.pending[0]
+            if wait:
+                end.synchronize()
+                wait = len(self.pending) - 1 > self.MAX_PENDING
+            elif not end.query():
+                return
+            self.total_ms += start.elapsed_time(end)
+            self.pending.popleft()
+
+    def ms(self) -> float:
+        """The ms of the collectives since the last call (waits for them)."""
+        for _, end in self.pending:
+            end.synchronize()
+        self._fold()
+        total, self.total_ms = self.total_ms, 0.0
+        return total
+
+
 def make_train_step(model, train_cfg: TrainConfig, optimizer: Optimizer,
-                    loss_fn: Callable = clip_bce):
-    """One-device train step for a ``models.ConvNeXt``:
+                    loss_fn: Callable = clip_bce, mesh: Optional[Mesh] = None,
+                    timer: Optional[CollectiveTimer] = None):
+    """The train step for a ``models.ConvNeXt``:
 
         step(waveform, target, step_idx) -> loss (a device scalar, no sync)
 
     ``waveform`` is int16 PCM (decoded on the device) or f32, on the
     model's device. With mixup the incoming batch is 2B and the trunk's B.
     The backward runs with TF32 off, so f32 gradients are true f32; the
-    parameters' ``.grad`` hold the step's gradients afterwards."""
+    parameters' ``.grad`` hold the step's gradients afterwards.
+
+    With a ``mesh`` in a process group, the batch is this rank's rows of
+    the global batch (``parallel.shard_batch``), which is world_size times
+    as large; with mixup the global batch must be a multiple of
+    2 x world_size, so that mixup's pairs stay on one rank. The returned
+    loss is the global batch's mean, and ``.grad`` holds the averaged
+    gradients. ``timer`` wraps the collectives."""
     compute_dtype = torch.bfloat16 if train_cfg.bf16_compute else torch.float32
     params = optimizer.params
+    group = mesh is not None and mesh.group is not None
+    wrap = timer if timer is not None else (lambda fn: fn)
+    reduce_mean = wrap(lambda ts: all_reduce_(ts, mesh, mean=True))
 
     def train_step(waveform: torch.Tensor, target: torch.Tensor, step_idx: int) -> torch.Tensor:
         gen = _step_generator(train_cfg.seed, step_idx)
         waveform = decode_pcm_if_int16(waveform)
-        mixup_lambda = None
-        if train_cfg.mixup_alpha > 0:
-            mixup_lambda = get_mixup_lambda(gen, waveform.shape[0], train_cfg.mixup_alpha)
-            mixup_lambda = mixup_lambda.to(waveform.device)
-            target = do_mixup(target, mixup_lambda)
-        for p in params.values():
-            p.grad = None
+        n, rows, shard = waveform.shape[0], slice(None), None  # the global batch, our rows
+        if group:
+            n *= mesh.world_size
+            if train_cfg.mixup_alpha > 0 and n % (2 * mesh.world_size):
+                raise ValueError(f"mixup pairs adjacent clips: a global batch of {n} clips does "
+                                 f"not split into pairs over {mesh.world_size} processes")
+            rows = batch_sharding(mesh, n)
         was_training = model.training
         model.train()
         try:
+            if group:
+                fused = F.fused_train_route(model, model.cfg) and mesh.world_size > 1
+                shard = F.Shard(rows, n, reduce_mean,
+                                _rank_generator(train_cfg.seed, step_idx, mesh.rank)
+                                if fused else None)
+            mixup_lambda = None
+            if train_cfg.mixup_alpha > 0:
+                mixup_lambda = get_mixup_lambda(gen, n, train_cfg.mixup_alpha)[rows]
+                mixup_lambda = mixup_lambda.to(waveform.device)
+                target = do_mixup(target, mixup_lambda)
+            for p in params.values():
+                p.grad = None
             out = F.forward_train(model, waveform, model.cfg, model.frontend, gen,
-                                  mixup_lambda, compute_dtype)
+                                  mixup_lambda, compute_dtype, shard=shard)
             loss = loss_fn(out, {"target": target})
             with fp32_precision("highest"):
                 loss.backward()
         finally:
             model.train(was_training)
-        optimizer.step({n: p.grad if p.grad is not None else torch.zeros_like(p)
-                        for n, p in params.items()})
-        return loss.detach()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        loss = loss.detach()
+        if group:  # one flat buffer, the parameters' order, the loss last
+            loss = loss.reshape(1).clone()
+            reduce_mean(list(grads.values()) + [loss])
+            loss = loss[0]
+        optimizer.step(grads)
+        return loss
 
     return train_step
 
 
 class Trainer:
-    """The loop: steps, periodic eval and checkpoint callbacks, resume."""
+    """The loop: steps, periodic eval and checkpoint callbacks, resume.
 
-    def __init__(self, model, train_cfg: TrainConfig, loss_fn: Callable = clip_bce):
+    ``mesh`` (``parallel.get_mesh()`` in a process group): data-parallel
+    training, one card per process, the model's. The parameters are
+    broadcast from rank 0 here and in :meth:`restore`. Without a process
+    group the step is the one-process step, with no collective."""
+
+    def __init__(self, model, train_cfg: TrainConfig, loss_fn: Callable = clip_bce,
+                 mesh: Optional[Mesh] = None):
         self.model = model
         self.train_cfg = train_cfg
         self.device = next(model.parameters()).device
+        self.mesh = mesh
+        if mesh is not None:
+            if len(mesh.devices) != 1 or mesh.devices[0].type != self.device.type:
+                raise ValueError(f"a data-parallel trainer drives one device per process, the "
+                                 f"model's ({self.device}); the mesh has {mesh.devices}")
+            replicate(model, mesh)
         self.optimizer = make_optimizer(dict(model.named_parameters()), train_cfg)
         self.step_index = 0
-        self._step_fn = make_train_step(model, train_cfg, self.optimizer, loss_fn)
+        self.collectives = CollectiveTimer(self.device)
+        self._step_fn = make_train_step(model, train_cfg, self.optimizer, loss_fn, mesh,
+                                        self.collectives)
         # sampler snapshot of the last consumed batch (what a checkpoint
         # saves for an exact resume; the loader runs ahead of the trainer)
         self.last_sampler_state = None
@@ -259,23 +386,27 @@ class Trainer:
     def restore(self, state_dict: Params, opt_state: Any, step: int) -> None:
         """Adopt a checkpoint: model weights (reference keys, strict), the
         optimizer's state and the step counter. ``opt_state`` is the port's
-        ``Optimizer.state_dict()`` (tensors or numpy), or the JAX trainer's
-        optax state as ``checkpoint.load_checkpoint`` reads it: that is
-        converted (``checkpoint.optimizer_state_from_optax``) and must be the
+        ``Optimizer.state_dict()`` (tensors or numpy; older port checkpoints
+        hold it so), or an optax state as ``checkpoint.load_checkpoint``
+        reads it (what either package writes): that is converted
+        (``checkpoint.optimizer_state_from_optax``). Either must be the
         structure the JAX package builds for this trainer's config."""
         if not isinstance(opt_state, dict):
             opt_state = optimizer_state_from_optax(opt_state)
-            want = optax_structure(self.train_cfg)
-            if opt_state["structure"] != want:
-                raise ValueError(f"the checkpoint holds an {opt_state['structure']} state; "
-                                 f"this training config builds {want}")
+        want = optax_structure(self.train_cfg)
+        if opt_state.get("structure", want) != want:
+            raise ValueError(f"the checkpoint holds an {opt_state['structure']} state; "
+                             f"this training config builds {want}")
         self.model.load_state_dict(state_dict, strict=True)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
         self.optimizer.load_state_dict(opt_state)
         self.step_index = int(step)
 
     def step_async(self, waveform, target) -> torch.Tensor:
         """Run one step; return the loss as a device scalar (no sync).
-        int16 PCM crosses to the device as int16 and decodes there."""
+        int16 PCM crosses to the device as int16 and decodes there. In a
+        process group the batch is this rank's rows of the global batch."""
         wav = torch.as_tensor(np.asarray(waveform))
         if wav.dtype != torch.int16:
             wav = wav.to(torch.float32)
@@ -312,6 +443,9 @@ class Trainer:
         - A non-finite loss is logged and training goes on, as in the
           reference.
         ``on_step`` receives a host float, which syncs the device every step.
+        In a process group each batch holds this rank's rows of the global
+        batch, and each log line also gives the ms spent in collectives
+        since the last one.
         """
         t0 = time.time()
         loss = None
@@ -356,7 +490,11 @@ class Trainer:
                 lossf = sync_loss(loss, it)
                 if not np.isfinite(lossf):
                     logging.warning("non-finite loss %.4f at iter %d", lossf, it)
-                logging.info("iteration %d loss %.4f (%.2f s)", it, lossf, time.time() - t0)
+                if self.mesh is not None and self.mesh.group is not None:
+                    logging.info("iteration %d loss %.4f (%.2f s, collectives %.1f ms)", it,
+                                 lossf, time.time() - t0, self.collectives.ms())
+                else:
+                    logging.info("iteration %d loss %.4f (%.2f s)", it, lossf, time.time() - t0)
                 t0 = time.time()
             if early_stop is not None and self.step_index >= early_stop:
                 break

@@ -22,7 +22,7 @@ backward kernel (``ops/fused_block_bwd.py``).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,7 +36,7 @@ from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
 from audioset_convnext_inf_torch.ops.fused_block import fused_block
 from audioset_convnext_inf_torch.ops.fused_block_train import FusedBlockTrain
 from audioset_convnext_inf_torch.ops.mixup import do_mixup
-from audioset_convnext_inf_torch.ops.specaugment import spec_augment
+from audioset_convnext_inf_torch.ops.specaugment import draw_stripes, spec_augment
 
 # Stage indices whose blocks run the fused kernel in the bf16 serving
 # config: the JAX package's set (its _FUSED_STAGE_TILES keys). The fused and
@@ -144,6 +144,20 @@ def init_params_(model: ConvNeXtModule, cfg: ConvNeXtConfig, gen: torch.Generato
         model.head_audioset.bias.mul_(cfg.head_init_scale)
 
 
+class Shard(NamedTuple):
+    """One process's part of a data-parallel training step. ``rows`` are its
+    rows of the global input batch of ``total`` (2B with mixup);
+    ``all_reduce`` averages a list of tensors over the processes in place
+    and returns their number (bn0's global statistics). Draws that depend on the batch are made for the
+    global batch and sliced to ``rows``, except drop path when
+    ``drop_path_generator`` is given: it then draws for these rows alone."""
+
+    rows: slice
+    total: int
+    all_reduce: Callable[[List[torch.Tensor]], int]
+    drop_path_generator: Optional[torch.Generator] = None
+
+
 def count_parameters(model: nn.Module) -> int:
     """Trainable parameter count; bn0's running stats are buffers and do not
     count (the reference's ``count_parameters``)."""
@@ -222,6 +236,7 @@ def forward_features(
     cfg: ConvNeXtConfig,
     return_frame_embeddings: bool = False,
     drop_path_scales: Optional[List[Optional[torch.Tensor]]] = None,
+    tap: Optional[Callable[[str, torch.Tensor], None]] = None,
 ) -> torch.Tensor:
     """Spectrogram image (B, T, M, 1) -> pooled (B, C) or frames (B, H, W, C).
 
@@ -229,8 +244,13 @@ def forward_features(
     final LayerNorm; frame embeddings are the pre-norm stage-4 output.
     In training mode, ``drop_path_scales`` holds one draw per block
     (``draw_drop_path_scales``; None = no drop path), and ``remat_blocks``
-    recomputes the unfused blocks in the backward.
+    recomputes the unfused blocks in the backward. ``tap(name, x)``, when
+    given, sees each layer's output (the stem with its LN, each downsample,
+    each block, the pooling, the final LN): the layer-by-layer view that
+    tests use to find where two forwards part.
     """
+    if tap is None:
+        tap = _no_tap
     train = model.training
     fused = cfg.block_impl == "xla_approx" and not train
     fused_train = fused_train_route(model, cfg)
@@ -243,11 +263,13 @@ def forward_features(
         ds = model.downsample_layers[i]
         if i == 0:
             x = ds[1](_stem_conv(x, ds[0], cfg))
+            tap("stem", x)
         else:
             # after a fused stage the JAX package downsamples by patch GEMM
             # (one bf16 rounding); otherwise by conv (its conv2d rounding)
             x = L.conv2d(ds[0](x), ds[1].weight, ds[1].bias, stride=(2, 2),
                          acc_f32=prev_fused)
+            tap(f"downsample {i}", x)
         stage_fused = (fused or fused_train) and i in FUSED_STAGES
         for j, blk in enumerate(model.stages[i]):
             s = scales[cur + j]
@@ -258,6 +280,7 @@ def forward_features(
                     _block_apply, x, blk, cfg.block_impl, s, use_reentrant=False)
             else:
                 x = _block_apply(x, blk, cfg.block_impl, s)
+            tap(f"stage {i + 1} block {j}" + (" (fused)" if stage_fused else ""), x)
         cur += len(model.stages[i])
         prev_fused = stage_fused
 
@@ -265,7 +288,14 @@ def forward_features(
         return x  # (B, H, W, C) pre-norm, reference convnext.py:276-277
     x = x.mean(dim=2)  # freq
     x = x.amax(dim=1) + x.mean(dim=1)  # time
-    return model.norm(x)
+    tap("pooling", x)
+    x = model.norm(x)
+    tap("final norm", x)
+    return x
+
+
+def _no_tap(name: str, x: torch.Tensor) -> None:
+    pass
 
 
 def _frontend_and_bn0(
@@ -277,6 +307,7 @@ def _frontend_and_bn0(
     train: bool = False,
     generator: Optional[torch.Generator] = None,
     mixup_lambda: Optional[torch.Tensor] = None,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """Waveform (B, N) -> normalized spectrogram image (B, T, M, 1).
 
@@ -286,7 +317,9 @@ def _frontend_and_bn0(
     reference's order), the log-mel frontend, bn0 with batch statistics
     (its running statistics update in place), SpecAugment, then mixup of
     the 2B clips into B. Draws come from ``generator``; without one, no
-    augmentation runs.
+    augmentation runs. With a ``shard``, bn0's statistics and the
+    SpecAugment draws are the global batch's (``mixup_lambda`` is already
+    this process's rows).
     """
     x = waveform_or_spec
     if x.ndim == 1:
@@ -307,12 +340,22 @@ def _frontend_and_bn0(
         x = frontend(x).permute(0, 2, 3, 1)
     x = x.to(compute_dtype)
     bn = model.bn0
-    norm = L.batch_norm_train if train else L.batch_norm_apply
-    x = norm(x[..., 0], bn.weight, bn.bias, bn.running_mean, bn.running_var,
-             eps=cfg.bn_eps, axis=2)[..., None]
+    if train:
+        x = L.batch_norm_train(x[..., 0], bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                               eps=cfg.bn_eps, axis=2,
+                               all_reduce=None if shard is None else shard.all_reduce)[..., None]
+    else:
+        x = L.batch_norm_apply(x[..., 0], bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                               eps=cfg.bn_eps, axis=2)[..., None]
     if train and cfg.augment.use_spec_augment and generator is not None:
+        draws = None
+        if shard is not None:
+            sa = cfg.augment.spec_augment
+            draws = tuple(tuple(t[shard.rows] for t in draw_stripes(generator, shard.total, w, k))
+                          for w, k in ((sa.time_drop_width, sa.time_stripes_num),
+                                       (sa.freq_drop_width, sa.freq_stripes_num)))
         x = spec_augment(x, time_axis=1, freq_axis=2, cfg=cfg.augment.spec_augment,
-                         generator=generator)
+                         generator=generator, draws=draws)
     if train and mixup_lambda is not None:
         x = do_mixup(x, mixup_lambda)
     return x
@@ -324,13 +367,19 @@ def forward(
     cfg: ConvNeXtConfig,
     frontend: LogMelFrontend,
     compute_dtype=torch.float32,
+    tap: Optional[Callable[[str, torch.Tensor], None]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Eval forward (reference convnext.py:287-331): sigmoid probabilities
-    and logits, both f32."""
+    and logits, both f32. ``tap`` as in ``forward_features``, which also
+    sees the frontend's output (bn0 folded in) and the head's logits."""
     x = _frontend_and_bn0(model, waveform, cfg, frontend, compute_dtype)
-    emb = forward_features(model, x, cfg)
+    if tap is not None:
+        tap("frontend", x)
+    emb = forward_features(model, x, cfg, tap=tap)
     head = model.head_audioset
     logits = L.linear(emb, head.weight, head.bias).float()
+    if tap is not None:
+        tap("head", logits)
     return {"clipwise_output": torch.sigmoid(logits), "clipwise_logits": logits}
 
 
@@ -342,16 +391,26 @@ def forward_train(
     generator: Optional[torch.Generator] = None,
     mixup_lambda: Optional[torch.Tensor] = None,
     compute_dtype=torch.float32,
+    shard: Optional[Shard] = None,
 ) -> Dict[str, torch.Tensor]:
     """Training forward (``model`` in training mode): the train prologue of
     ``_frontend_and_bn0``, then the trunk with one drop-path draw per block
     and the head. Returns the outputs; bn0's running statistics are updated
     in place (the JAX package returns them instead). Draws come from
     ``generator`` in the order: waveform augmentations, SpecAugment, drop
-    path; without one, nothing random runs."""
+    path; without one, nothing random runs. With a ``shard``, ``waveform``
+    holds this process's rows of the global batch (see :class:`Shard`)."""
     x = _frontend_and_bn0(model, waveform, cfg, frontend, compute_dtype, train=True,
-                          generator=generator, mixup_lambda=mixup_lambda)
-    scales = draw_drop_path_scales(generator, x.shape[0], cfg)
+                          generator=generator, mixup_lambda=mixup_lambda, shard=shard)
+    if shard is None:
+        scales = draw_drop_path_scales(generator, x.shape[0], cfg)
+    elif shard.drop_path_generator is not None:
+        scales = draw_drop_path_scales(shard.drop_path_generator, x.shape[0], cfg)
+    else:  # the global batch's draws, these rows (after mixup: half of each)
+        half = 2 if mixup_lambda is not None else 1
+        rows = slice(shard.rows.start // half, shard.rows.stop // half)
+        scales = [None if s is None else s[rows]
+                  for s in draw_drop_path_scales(generator, shard.total // half, cfg)]
     emb = forward_features(model, x, cfg, drop_path_scales=scales)
     head = model.head_audioset
     logits = L.linear(emb, head.weight, head.bias).float()

@@ -11,7 +11,7 @@ with TF32 off (``ops.precision``), so the f32 path is true f32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -69,7 +69,9 @@ def _update_running(running: torch.Tensor, batch_stat: torch.Tensor, momentum: f
 
 def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor,
-                     eps: float = 1e-5, momentum: float = 0.1, axis: int = -1) -> torch.Tensor:
+                     eps: float = 1e-5, momentum: float = 0.1, axis: int = -1,
+                     all_reduce: Optional[Callable[[List[torch.Tensor]], int]] = None
+                     ) -> torch.Tensor:
     """Training-mode BatchNorm over ``axis`` with f32 batch statistics taken
     over every other axis; the result is cast back to x's dtype.
 
@@ -77,6 +79,16 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     convention, where the JAX package returns them): running = (1 -
     momentum) * running + momentum * batch_stat, with the *unbiased* batch
     variance entering the running average.
+
+    ``all_reduce`` (averages a list of tensors over the processes of a
+    data-parallel job, in place) makes the statistics those of the global
+    batch when ``x`` holds one process's rows, and every process holds as
+    many: the global mean is the mean of the processes' per-bin means, then
+    the variance the mean of their mean squared deviations from it, both in
+    f32, two passes. Every process then normalizes with, and stores, the
+    same statistics; in a group of one the arithmetic is the one-process
+    arithmetic bit for bit. The statistics take no gradient: x comes from
+    the frozen frontend.
     """
     xf = x.float()
     axis = axis % x.ndim
@@ -84,14 +96,22 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     n = 1
     for i in dims:
         n *= x.shape[i]
-    mean_k = xf.mean(dim=dims, keepdim=True)
-    var_k = torch.square(xf - mean_k).mean(dim=dims, keepdim=True)
+    if all_reduce is None:
+        mean_k = xf.mean(dim=dims, keepdim=True)
+        var_k = torch.square(xf - mean_k).mean(dim=dims, keepdim=True)
+    else:
+        with torch.no_grad():
+            mean_k = xf.mean(dim=dims, keepdim=True)
+            n *= all_reduce([mean_k])  # returns the number of processes
+            var_k = torch.square(xf - mean_k).mean(dim=dims, keepdim=True)
+            all_reduce([var_k])
+    unbiased = n / max(n - 1, 1)
     shape = [1] * x.ndim
     shape[axis] = -1
     inv = torch.rsqrt(var_k + eps) * weight.reshape(shape)
     y = xf * inv + (bias.reshape(shape) - mean_k * inv)
     _update_running(running_mean, mean_k.reshape(-1), momentum)
-    _update_running(running_var, var_k.reshape(-1) * (n / max(n - 1, 1)), momentum)
+    _update_running(running_var, var_k.reshape(-1) * unbiased, momentum)
     return y.to(x.dtype)
 
 

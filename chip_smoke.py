@@ -26,6 +26,9 @@ run (non-zero exit) on any error or mismatch:
     call must launch the fused block kernel exactly once per stage-3/4 block;
     the f32 parity config launches it never and matches the port's own f32
     forward on the CPU; bf16 serving probabilities stay near f32 parity;
+    fault 1: row 0 of every layer's output is bit-equal beside zero rows
+    and beside other clips (reported beside: the clip at row 5, and at
+    B=8);
  5. training path: convnext_tiny at full width in the JAX package's fused
     training recipe (tanh GELU, fused_train_blocks, drop path 0.1, bf16
     compute, mixup 1.0, SpecAugment, AdamW with OneCycle), TRAIN_STEPS
@@ -68,7 +71,18 @@ run (non-zero exit) on any error or mismatch:
     evaluation and a checkpoint every 3 steps. 6 steps straight (timed),
     then 3 steps and a fresh run resuming at step 3 for 3 more: the sampler
     states bit-equal, the parameters within RESUME_PARAM_LIMIT, each step
-    launching K1 in save mode and K2 12 times.
+    launching K1 in save mode and K2 12 times;
+10. data parallelism on the one card: (a) cli/train.py::train under a
+    torchrun environment of one process (NCCL, the all-reduces of a group
+    of one), 3 steps within RESUME_PARAM_LIMIT of phase 9's first 3; (b)
+    two processes on card 0 with the gloo backend, one Trainer step each
+    of 32 clips against one process's step (f32 unfused, bf16 fused; the
+    bounds in DP_CASES' comment), 12 K1-save and 12 K2 calls a rank a
+    step, each step's ms and its collectives' ms; (c) the Evaluator over
+    two replicas on the one card against one replica (SHARDED_EVAL_TOL),
+    clips/s beside phase 7's; (d) cli/serve.py --mesh with the phase-4
+    model for SERVE_MESH_SECONDS of phase 8's traffic, every answer within
+    SERVICE_TOL, K1 12 times per replica batch.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -143,15 +157,14 @@ F32_LOGIT_TOL = 2e-4
 # true f32), probabilities, on random weights.
 SERVING_PROB_TOL = 0.05
 # The service's answer for a clip vs model.forward of that clip in a batch
-# of 16: the same kernels at the same shapes, and no operation mixes the
-# rows of a batch; but the service puts a clip at any row beside any other
-# clips, and a library GEMM may sum a row's products in an order that
-# depends on its position (split-K or stream-K tiles; seen at small widths
-# by tests/test_torch_cuda.py). Both are then bf16 roundings of one
-# function, bounded by the bf16 serving tolerance SERVING_PROB_TOL.
-# /embed runs at B=1 and is held against forward_scene_embeddings at B=1
-# with the bf16 kernel rule (KERNEL_TOL of the embedding's scale).
-SERVICE_TOL = SERVING_PROB_TOL
+# of 16: bit-equal. Every batch runs at B=16, as the reference forward does,
+# and no operation of the eval forward depends on a row's neighbours or its
+# position at a fixed batch size (fault 1: check_row_independence and
+# tests/test_torch_cuda.py hold every layer's output bit-equal; PERF.md
+# §6). /embed runs at B=1 and is held against
+# forward_scene_embeddings at B=1 with the bf16 kernel rule (KERNEL_TOL of
+# the embedding's scale).
+SERVICE_TOL = 0.0
 # Resumed vs straight training (phase 9): the same batches and draws, but
 # ATen's backward kernels that sum with atomics are not bit-deterministic,
 # so a gradient may differ in its last bits and, where it is nearly zero,
@@ -194,11 +207,21 @@ K1_MAIN_PATH = {"tiny stage 3": 9, "tiny stage 4": 3}  # launches per forward
 # every K1 shape the serving paths (phases 4 and 7) launch
 K1_SERVING_CASES = set(K1_MAIN_PATH) | {f"{p} stage {s}" for p in ("eval", "long", "clip")
                                        for s in (3, 4)}
-# The training path's block shapes (K1 save mode and K2), then atto stage 3
-# and an odd width (K2 only).
+# A rank's trunk batch in phase 10(b): TRAIN_CLIPS clips, paired by mixup,
+# split over 2 processes.
+DP_RANK_BATCH = TRAIN_CLIPS // 2 // 2
+# The training paths' block shapes (K1 save mode and K2): the one-process
+# step's, then a rank's of phase 10(b); then atto stage 3 and an odd width
+# (K2 only).
+K1_SAVE_CASES = [case for case in K1_CASES if case[0] in K1_MAIN_PATH] + [
+    ("rank stage 3", DP_RANK_BATCH, 63, 14, 384, True),
+    ("rank stage 4", DP_RANK_BATCH, 31, 7, 768, True),
+]
 K2_CASES = [
     ("tiny stage 3", BATCH, 63, 14, 384),
     ("tiny stage 4", BATCH, 31, 7, 768),
+    ("rank stage 3", DP_RANK_BATCH, 63, 14, 384),
+    ("rank stage 4", DP_RANK_BATCH, 31, 7, 768),
     ("atto stage 3", BATCH, 63, 14, 160),
     ("odd width", 4, 13, 14, 100),
 ]
@@ -463,13 +486,11 @@ def drop_scales(b, device, seed):
 
 
 def check_k1_save(device):
-    """K1's save mode at the training path's shapes: y (scaled branch) and d."""
+    """K1's save mode at the training paths' shapes: y (scaled branch) and d."""
     from audioset_convnext_inf_torch.ops.fused_block import fused_block, fused_block_reference
 
     results = []
-    for name, b, h, w, c, _ in K1_CASES:
-        if name not in K1_MAIN_PATH:
-            continue
+    for name, b, h, w, c, _ in K1_SAVE_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x, args = k1_inputs(b, h, w, c, True, dtype, device, SEED)
             s = drop_scales(b, device, SEED)
@@ -730,6 +751,53 @@ def run_main_path(device):
     return serve, launches
 
 
+def row0_layers(model, pcm, row=0):
+    """{layer: row ``row`` of its output} of model.forward on the int16
+    batch ``pcm``: the frontend's power spectrum and mel product, then every
+    layer forward's tap sees (the layer-by-layer view of fault 1, PERF.md)."""
+    from audioset_convnext_inf_torch.models import convnext as F
+    from audioset_convnext_inf_torch.ops import frontend as FE
+    from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
+
+    rows = {}
+
+    def tap(name, x):
+        rows[name] = x[row].float().cpu().clone()
+
+    with torch.inference_mode():
+        x = decode_pcm_if_int16(torch.from_numpy(pcm).to(model.device))
+        fe = model.frontend
+        power = FE.power_spectrogram_conv(x, fe.cfg, fe.dft_weight)
+        tap("frontend: power spectrum", power)
+        tap("frontend: mel product", FE._matmul(power, fe.mel_weights.t(), fe.cfg.precision))
+        F.forward(model, x, model.cfg, fe, model.compute_dtype, tap=tap)
+    return rows
+
+
+def check_row_independence(serve):
+    """Fault 1 at full size: row 0 of B=16 holds the fixture clip beside
+    zero rows, then beside 15 other clips; row 0 of every layer's output
+    must be bit-equal. Reported beside: the clip at row 5, and the first 8
+    rows as a batch of 8 (a replica's share in phase 10(c))."""
+    pcm = fixture_batch(BATCH, SEED + 51)
+    zeros = np.zeros_like(pcm)
+    zeros[0] = pcm[0]
+    moved = pcm.copy()
+    moved[[0, 5]] = pcm[[5, 0]]
+    a, b = row0_layers(serve, zeros), row0_layers(serve, pcm)
+    parted = next((n for n in a if not torch.equal(a[n], b[n])), None)
+    for label, other in (("at row 5", row0_layers(serve, moved, row=5)),
+                         ("at B=8", row0_layers(serve, pcm[:8]))):
+        where = next((n for n in b if not torch.equal(b[n], other[n])), None)
+        pdiff = (torch.sigmoid(other["head"]) - torch.sigmoid(b["head"])).abs().max().item()
+        log(f"  fault 1: the clip {label} vs row 0 of B={BATCH}: first layer that parts "
+            f"{where}, probabilities max diff {pdiff:.3e}")
+    log(f"  fault 1: row 0 beside zeros vs beside other clips, {len(a)} layers: first layer "
+        f"that parts {parted}")
+    if parted is not None:
+        raise AssertionError(f"row 0's answer depends on its neighbours from {parted} on")
+
+
 def time_end_to_end(model, label: str):
     for batch in (16, 64):
         pcm = fixture_batch(batch, SEED + batch)
@@ -801,7 +869,8 @@ def train_batch(clips: int, seed: int):
     return pcm, target
 
 
-def build_train_model(device, fused: bool = True, drop_path_rate: float = 0.1):
+def build_train_model(device, fused: bool = True, drop_path_rate: float = 0.1,
+                      frontend_precision: str = "high"):
     """convnext_tiny in the JAX package's fused training recipe
     (cli/train.py with --bf16 --block-impl xla_approx --fused-train-blocks):
     tanh GELU, layer scale 1e-6 then seeded gamma, frontend precision "high"."""
@@ -809,7 +878,8 @@ def build_train_model(device, fused: bool = True, drop_path_rate: float = 0.1):
     from audioset_convnext_inf_torch.models import convnext_tiny
 
     model = convnext_tiny(drop_path_rate=drop_path_rate, block_impl="xla_approx",
-                          fused_train_blocks=fused, frontend=FrontendConfig(precision="high"),
+                          fused_train_blocks=fused,
+                          frontend=FrontendConfig(precision=frontend_precision),
                           seed=SEED, device=device)
     if model.count_parameters() != 28_222_767:
         raise AssertionError(f"convnext_tiny has {model.count_parameters()} parameters")
@@ -1133,6 +1203,7 @@ def time_evaluator(serve, ev, pcm, target, card):
         serve.forward(x)
     torch.cuda.synchronize()
     fwd = (time.perf_counter() - t0) / 5
+    rate = EVAL_CLIPS / dt
     log(f"  Evaluator, {EVAL_CLIPS} clips at B={EVAL_BATCH}, loader included: "
         f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} ms (median {dt * 1e3:.1f}): "
         f"{EVAL_CLIPS / dt:.1f} clips/s ({slots / dt:.1f} padded slots/s); "
@@ -1140,6 +1211,7 @@ def time_evaluator(serve, ev, pcm, target, card):
         f"[{card}]")
     profile_run(lambda: ev.infer_probs(eval_loader(pcm, target, 2 * EVAL_BATCH)),
                 f"Evaluator, 2 batches of {EVAL_BATCH}", top=8)
+    return rate
 
 
 # ---------------------------------------------------------------------------
@@ -1199,11 +1271,13 @@ def _closed_loop(call, pool, ref, seconds):
     return np.asarray(lat), max(diffs), wall
 
 
-def _load_report(label, service, before, lat, diff, wall, card):
+def _load_report(label, service, before, lat, diff, wall, card, replicas: int = 1):
+    """Rates and latencies of a closed-loop run; every batch must launch K1
+    12 times per replica."""
     after = service.counters()
     batches, clips = after["batches"] - before["batches"], after["clips"] - before["clips"]
     launches = _counts()
-    per = sum(K1_MAIN_PATH.values())
+    per = sum(K1_MAIN_PATH.values()) * replicas
     log(f"  {label}: {SERVE_CLIENTS} clients, 10-s int16 clips, batch {BATCH}, max wait 20 ms, "
         f"{wall:.2f} s: {len(lat)} requests, {len(lat) / wall:.1f} requests/s, latency p50 "
         f"{np.percentile(lat, 50) * 1e3:.2f} ms, p99 {np.percentile(lat, 99) * 1e3:.2f} ms, "
@@ -1315,19 +1389,22 @@ def memory_index(target):
             "targets": target}
 
 
-def run_train_cli(device, card):
-    """Phase 9. Returns (K1 serving, K1 save, K2) launches of the three runs."""
-    from audioset_convnext_inf_torch.checkpoint import load_checkpoint, state_dict_from_jax_params
-    from audioset_convnext_inf_torch.cli import train as train_cli
-    from audioset_convnext_inf_torch.engine.trainer import TrainConfig, onecycle_lr
+class CliRunner:
+    """Runs of cli/train.py::train over the in-memory training and
+    evaluation sets, in the fused bf16 recipe; each step's loss, host time
+    and launch deltas are recorded and checked (K1 save and K2 12 times a
+    step, and K1 12 times per evaluation batch before a step that evaluates)."""
 
-    pcm, target = train_batch(TRAIN_CLI_CLIPS, SEED + 31)
-    epcm, etarget = eval_data(SEED + 33)
-    epcm, etarget = epcm[:TRAIN_CLI_EVAL], etarget[:TRAIN_CLI_EVAL]
-    data, edata = MemoryDataset(pcm, target), MemoryDataset(epcm, etarget)
-    per = sum(K1_MAIN_PATH.values())
-    eval_batches = -(-TRAIN_CLI_EVAL // 32)
+    def __init__(self):
+        pcm, self.target = train_batch(TRAIN_CLI_CLIPS, SEED + 31)
+        epcm, etarget = eval_data(SEED + 33)
+        self.epcm, self.etarget = epcm[:TRAIN_CLI_EVAL], etarget[:TRAIN_CLI_EVAL]
+        self.data = MemoryDataset(pcm, self.target)
+        self.edata = MemoryDataset(self.epcm, self.etarget)
+        self.per = sum(K1_MAIN_PATH.values())
+        self.eval_batches = -(-TRAIN_CLI_EVAL // 32)
 
+    @staticmethod
     def flags(ws, early_stop, resume=0):
         return ["--train-indexes", "memory", "--model", "convnext_tiny", "--bf16",
                 "--block-impl", "xla_approx", "--fused-train-blocks", "--sampler", "balanced",
@@ -1336,15 +1413,19 @@ def run_train_cli(device, card):
                 "--eval-batch-size", "32", "--early-stop", str(early_stop),
                 "--resume-iteration", str(resume), "--seed", str(SEED), "--workspace", str(ws)]
 
-    root = logging.getLogger()
-    level, handlers = root.level, list(root.handlers)
+    def run(self, ws, early_stop, resume=0, on_step_extra=None):
+        """One CLI run: per step its loss, host time and launch deltas;
+        ``on_step_extra(iteration)`` runs inside each step's callback."""
+        from audioset_convnext_inf_torch.cli import train as train_cli
 
-    def run(ws, early_stop, resume=0):
-        """One CLI run: per step its loss, host time and launch deltas."""
+        root = logging.getLogger()
+        level, handlers = root.level, list(root.handlers)
         steps = []
         last = [time.perf_counter(), _counts()]
 
         def on_step(it, loss):  # after the step's loss reached the host
+            if on_step_extra is not None:
+                on_step_extra(it)
             now, counts = time.perf_counter(), _counts()
             steps.append((it, loss, now - last[0], tuple(a - b for a, b in zip(counts, last[1]))))
             last[:] = [now, counts]
@@ -1352,10 +1433,10 @@ def run_train_cli(device, card):
         _zero_counts()
         last[1] = _counts()
         t0 = time.perf_counter()
-        args = train_cli.parse_args(flags(ws, early_stop, resume))
+        args = train_cli.parse_args(self.flags(ws, early_stop, resume))
         try:
-            train_cli.train(args, memory_index(target), {"test": memory_index(etarget)}, data,
-                            edata, on_step=on_step)
+            train_cli.train(args, memory_index(self.target), {"test": memory_index(self.etarget)},
+                            self.data, self.edata, on_step=on_step)
         finally:
             for h in root.handlers[:]:  # the log handlers create_logging added
                 if h not in handlers:
@@ -1368,31 +1449,50 @@ def run_train_cli(device, card):
             evals = it > 0 and it % 3 == 0  # the evaluation before this step
             log(f"    step {it}: loss {loss:.6f}, {dt * 1e3:.1f} ms since the last, launches "
                 f"(K1, K1 save, K2) {d}" + (" (evaluation before it)" if evals else ""))
-            want = (per + (per * eval_batches if evals else 0), per, per)
+            per = self.per
+            want = (per + (per * self.eval_batches if evals else 0), per, per)
             if d != want or not math.isfinite(loss):
                 raise AssertionError(f"step {it}: launches {d}, expected {want}; loss {loss}")
         return steps, wall, _counts()
 
+
+def _ckpt_params(ws, it):
+    from audioset_convnext_inf_torch.checkpoint import load_checkpoint, state_dict_from_jax_params
+
+    ck = load_checkpoint(str(ws / "checkpoints" / "convnext_tiny" / f"{it}_iterations"))
+    if ck["iteration"] != it:
+        raise AssertionError(f"checkpoint {it}_iterations holds iteration {ck['iteration']}")
+    return ck, state_dict_from_jax_params(ck["params"])
+
+
+def _param_diffs(pa, pc):
+    buffers = ("bn0.running_mean", "bn0.running_var")
+    pdiff = max(float(np.abs(pa[k] - pc[k]).max()) for k in pa if k not in buffers)
+    bdiff = max(float(np.abs(pa[k] - pc[k]).max()) for k in buffers)
+    return pdiff, bdiff
+
+
+def run_train_cli(runner, card):
+    """Phase 9. Returns (K1 serving, K1 save, K2) launches of the three runs
+    and the parameters of the 3-step run's checkpoint."""
+    from audioset_convnext_inf_torch.engine.trainer import TrainConfig, onecycle_lr
+
     straight, resumed = WORK / "train_straight", WORK / "train_resumed"
-    steps_a, wall_a, counts_a = run(straight, 6)
+    steps_a, wall_a, counts_a = runner.run(straight, 6)
     gaps = [dt for _, _, dt, _ in steps_a[1:]]
     log(f"  straight run, 6 steps: {wall_a:.2f} s in all (model build, loader start, 2 "
         f"evaluations of {TRAIN_CLI_EVAL} clips, 2 checkpoints); from step to step "
         f"{', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms; median {np.median(gaps) * 1e3:.1f} ms "
         f"= {1 / np.median(gaps):.2f} steps/s, mean with the callbacks {np.mean(gaps) * 1e3:.1f} "
         f"ms [{card}]")
-    _, _, counts_b = run(resumed, 3)
-    steps_c, _, counts_c = run(resumed, 6, resume=3)
-    a = load_checkpoint(str(straight / "checkpoints" / "convnext_tiny" / "6_iterations"))
-    c = load_checkpoint(str(resumed / "checkpoints" / "convnext_tiny" / "6_iterations"))
-    if a["iteration"] != 6 or c["iteration"] != 6:
-        raise AssertionError(f"checkpoints at {a['iteration']} and {c['iteration']}")
+    _, _, counts_b = runner.run(resumed, 3)
+    _, three = _ckpt_params(resumed, 3)
+    steps_c, _, counts_c = runner.run(resumed, 6, resume=3)
+    a, pa = _ckpt_params(straight, 6)
+    c, pc = _ckpt_params(resumed, 6)
     sa, sc = (_leaves(x["sampler_state"]) for x in (a, c))
     same = len(sa) == len(sc) and all(np.array_equal(x, y) for x, y in zip(sa, sc))
-    pa, pc = (state_dict_from_jax_params(x["params"]) for x in (a, c))
-    buffers = ("bn0.running_mean", "bn0.running_var")
-    pdiff = max(float(np.abs(pa[k] - pc[k]).max()) for k in pa if k not in buffers)
-    bdiff = max(float(np.abs(pa[k] - pc[k]).max()) for k in buffers)
+    pdiff, bdiff = _param_diffs(pa, pc)
     limit = resume_param_limit(onecycle_lr(TrainConfig()), 6)
     losses = {it: loss for it, loss, _, _ in steps_a}
     log(f"  resumed at 3 for 3 steps vs straight: sampler state bit-equal {same}; parameters "
@@ -1407,7 +1507,340 @@ def run_train_cli(device, card):
     if [s["iteration"] for s in stats["test"]] != [3] or not all(map(math.isfinite, maps)):
         raise AssertionError(f"statistics {stats}")
     counts = [sum(x) for x in zip(counts_a, counts_b, counts_c)]
-    return counts[0] - counts[1], counts[1], counts[2]
+    return (counts[0] - counts[1], counts[1], counts[2]), three
+
+
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism on the one card
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2  # processes of the gloo pair, both on card 0
+# The pair's one Trainer step (32 clips in, 16 a rank, 8 a rank after
+# mixup; each rank is handed its rows, parallel.shard_batch, as the
+# training CLI hands them) against one process's step on the same 32
+# clips. The gradients are the check that holds the step: the averaged
+# .grad each rank's step leaves (its rows' gradients, all-reduced), each
+# leaf's error as a share of its norm.
+#  - f32, unfused blocks, mixup 1.0, drop path 0.1, SpecAugment, true-f32
+#    frontend: every draw is the global batch's, sliced, so only the order
+#    of the sums differs (each rank sums its 8 rows; the all-reduce adds the
+#    halves). Against the one-process step, with the CPU test's constants
+#    (tests/test_torch_parallel.py, the JAX package's for its sharded step):
+#    loss and each gradient leaf rtol 1e-5 (DP_GRAD_RTOL), parameters atol
+#    1e-5; bn0's running statistics within 1e-5 of their
+#    scale max(1, |x|) (f32 sums over 32k frames of values near -40 dB
+#    carry relative noise);
+#  - bf16, fused blocks (K1 save, K2), drop path 0, the recipe's TF32
+#    frontend. The one-process bf16 step is bit-deterministic, but each
+#    rank's trunk runs at batch 8 instead of 16, the libraries' bf16
+#    kernels round at other points there, and the bf16 backward lifts that
+#    to a large share of the sums that cancel most: against the
+#    one-process step, median leaf 1.650e-02 and stage 1's first
+#    depthwise bias 1.036e-01 (PERF.md §6). That is the size of bf16's
+#    own error: against the same step in f32 (true-f32 frontend) the
+#    one-process bf16 step's median leaf is 2.999e-02 and the two
+#    processes' 3.021e-02 (that bias 1.983e-01 and 2.281e-01). So each leaf
+#    is held against f32: the two processes' error within DP_GRAD_FACTOR
+#    times the one-process step's own plus DP_GRAD_FLOOR (2^-6, for leaves
+#    whose own error is tiny; measured: the nearest leaf at 0.553 of its
+#    bound); a gradient that is not averaged, or a rank's rows lost, is off
+#    by 1/2 or more on every leaf. Loss rtol 2^-8 (one bf16 ulp; the loss averages 8 x 527
+#    terms a rank); bn0's statistics within 1e-3 of their scale (TF32
+#    products, 2^-11 relative each, may be summed by another kernel at
+#    another batch). The parameters are also held to RESUME_PARAM_LIMIT for
+#    one step, an extra check only: Adam moves a parameter by at most lr x
+#    ADAM_RATIO in a step, whatever the gradients.
+DP_CASES = (
+    # label, bf16, fused, drop path, frontend precision
+    ("f32, unfused, drop path 0.1", False, False, 0.1, "highest"),
+    ("bf16, fused, drop path 0", True, True, 0.0, "high"),
+)
+DP_LOSS_RTOL = {False: 1e-5, True: 2.0 ** -8}
+DP_STAT_RTOL = {False: 1e-5, True: 1e-3}
+DP_GRAD_RTOL = 1e-5  # f32: each leaf, against the one-process step
+DP_GRAD_FACTOR, DP_GRAD_FLOOR = 2.0, 2.0 ** -6  # bf16: each leaf, against f32
+DP_F32_PARAM_TOL = 1e-5
+# Evaluator over two replicas (each 32 rows of a batch of 64) against one.
+# No op mixes rows or depends on a row's position (fault 1), but each
+# replica runs a batch of 32, not 64, and cuBLAS chooses its kernel by the
+# row count: at convnext_atto on 1-s clips the f32 sums of the frontend's
+# mel product parted by 2.98e-08 between B=8 and B=16 (PERF.md §6;
+# the probabilities stayed bit-equal). A part that small can move one bf16
+# rounding downstream by one ulp: bound 2^-8 of a probability.
+SHARDED_EVAL_TOL = 2.0 ** -8
+SERVE_MESH_SECONDS = 5.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_nccl_world_1(runner, three, card):
+    """Phase 10(a): cli/train.py::train under a torchrun environment of one
+    process (RANK=0, WORLD_SIZE=1): the NCCL group, the all-reduces of a
+    group of one, 3 steps; the parameters within RESUME_PARAM_LIMIT of
+    phase 9's first 3 steps. Returns the (K1, K1 save, K2) launches."""
+    from audioset_convnext_inf_torch.engine.trainer import TrainConfig, onecycle_lr
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    groups = []
+
+    def probe(it):
+        dist = torch.distributed
+        groups.append((dist.get_backend(), dist.get_world_size()) if dist.is_initialized()
+                      else None)
+
+    os.environ.update(env)
+    try:
+        steps, wall, counts = runner.run(WORK / "train_nccl", 3, on_step_extra=probe)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _, params = _ckpt_params(WORK / "train_nccl", 3)
+    pdiff, bdiff = _param_diffs(three, params)
+    limit = resume_param_limit(onecycle_lr(TrainConfig()), 3)
+    gaps = [dt for _, _, dt, _ in steps[1:]]
+    log(f"  NCCL at world size 1, 3 steps: process group per step {groups}; {wall:.2f} s in "
+        f"all; step to step {', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms [{card}]; "
+        f"parameters vs phase 9's first 3 steps: max diff {pdiff:.3e} (limit {limit:.3e}), bn0 "
+        f"running statistics {bdiff:.3e}; left the group: {not torch.distributed.is_initialized()}")
+    if groups != [("nccl", 1)] * 3 or torch.distributed.is_initialized():
+        raise AssertionError(f"the CLI ran in {groups}, expected an NCCL group of one")
+    if not pdiff <= limit:
+        raise AssertionError("NCCL world-1 training is not phase 9's training")
+    return counts
+
+
+def dp_worker(rank, world, rendezvous, out, device):
+    """Phase 10(b), one process of the gloo pair on ``device``: for each of
+    DP_CASES two Trainer steps on this rank's rows of the global batch;
+    what it saw goes to ``<out>/rank<r>.pkl`` (the state and the averaged
+    gradients after the first step)."""
+    from audioset_convnext_inf_torch.engine.trainer import Trainer
+    from audioset_convnext_inf_torch.parallel import get_mesh, initialize_distributed, shard_batch
+
+    device = torch.device(device)
+    initialize_distributed(f"file://{rendezvous}", world, rank, backend="gloo", device=device)
+    mesh = get_mesh([device])
+    pcm, target = shard_batch(train_batch(TRAIN_CLIPS, SEED + 41), mesh)
+    seen = {}
+    for label, bf16, fused, dp, precision in DP_CASES:
+        trainer = Trainer(build_train_model(device, fused, dp, precision), train_config(bf16),
+                          mesh=mesh)
+        steps, state, grads = [], None, None
+        for i in range(2):
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.step(pcm, target)
+            torch.cuda.synchronize()
+            steps.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                          "collective_ms": trainer.collectives.ms(), "launches": _counts()})
+            if state is None:
+                state = {k: v.detach().float().cpu().numpy()
+                         for k, v in trainer.model.state_dict().items()}
+                grads = {k: p.grad.float().cpu().numpy()
+                         for k, p in trainer.model.named_parameters()}
+        seen[label] = {"steps": steps, "state": state, "grads": grads}
+        del trainer
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(seen, f)
+
+
+def run_dp_pair(device, card):
+    """Phase 10(b): the gloo pair against one process's step. Returns the
+    (K1 save, K2) launches of both ranks' steps."""
+    import torch.multiprocessing as mp
+
+    from audioset_convnext_inf_torch.engine.trainer import Trainer, TrainConfig, onecycle_lr
+
+    pcm, target = train_batch(TRAIN_CLIPS, SEED + 41)
+
+    def one_process(bf16, fused, dp, precision):
+        model = build_train_model(device, fused, dp, precision)
+        loss = Trainer(model, train_config(bf16)).step(pcm, target)
+        state = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+        grads = {k: p.grad.float().cpu().numpy() for k, p in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+        return loss, state, grads
+
+    # each case's one-process step twice (the second: the step's own
+    # run-to-run spread), and for bf16 the same route in f32 with a true-f32
+    # frontend (the yardstick of bf16's own gradient error)
+    refs = {label: (one_process(bf16, fused, dp, precision),
+                    one_process(bf16, fused, dp, precision)[2],
+                    one_process(False, fused, dp, "highest")[2] if bf16 else None)
+            for label, bf16, fused, dp, precision in DP_CASES}
+    out = WORK / "dp"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    card0 = "cuda:0" if device.type == "cuda" else str(device)
+    mp.start_processes(dp_worker, args=(DP_WORLD, str(out / "rendezvous"), str(out), card0),
+                       nprocs=DP_WORLD, start_method="spawn")
+    log(f"  {DP_WORLD} processes on {card0}, backend gloo: {time.perf_counter() - t0:.1f} s "
+        f"from spawn to exit")
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    per = sum(K1_MAIN_PATH.values())
+    launches = [0, 0]
+    buffers = ("bn0.running_mean", "bn0.running_var")
+    for label, bf16, fused, dp, precision in DP_CASES:
+        (ref_loss, ref, ref_grads), again, f32 = refs[label]
+        a = ranks[0][label]
+        same = all(np.array_equal(a["state"][k], x[label]["state"][k])
+                   for x in ranks[1:] for k in ref) and \
+            all(np.array_equal(a["grads"][k], x[label]["grads"][k])
+                for x in ranks[1:] for k in ref_grads)
+        gerr = _rel_norms(a["grads"], ref_grads)
+        spread = _rel_norms(again, ref_grads)
+        if bf16:  # against f32: the two processes' error over its bound from bf16's own
+            own, dp_err = _rel_norms(ref_grads, f32), _rel_norms(a["grads"], f32)
+            share = {k: dp_err[k] / (DP_GRAD_FACTOR * own[k] + DP_GRAD_FLOOR) for k in own}
+            gworst = max(share.values())
+        else:
+            gworst = max(gerr.values())
+        loss = a["steps"][0]["loss"]
+        pdiff = max(float(np.abs(a["state"][k] - ref[k]).max()) for k in ref if k not in buffers)
+        sdiff = max(float((np.abs(a["state"][k] - ref[k]) / np.maximum(1.0, np.abs(ref[k]))).max())
+                    for k in buffers)
+        plimit = resume_param_limit(onecycle_lr(TrainConfig()), 1) if bf16 else DP_F32_PARAM_TOL
+        lerr = abs(loss - ref_loss) / abs(ref_loss)
+        log(f"  {label}: world {DP_WORLD} vs one process: loss {loss:.6f} vs {ref_loss:.6f} "
+            f"(rel {lerr:.3e}, tol {DP_LOSS_RTOL[bf16]:.3e}); parameters max diff {pdiff:.3e} "
+            f"(tol {plimit:.3e}); bn0 statistics {sdiff:.3e} of scale (tol "
+            f"{DP_STAT_RTOL[bf16]:.0e}); ranks bit-equal {same}")
+        log(f"    averaged gradients, error norm over the leaf's norm, {len(gerr)} leaves: vs "
+            f"the one-process step {_worst(gerr)}; the one-process step run again "
+            f"{_worst(spread)}")
+        if bf16:
+            near = sorted(share, key=share.get, reverse=True)[:3]
+            log(f"    vs the f32 step: the one-process bf16 step {_worst(own)}; the two "
+                f"processes' {_worst(dp_err)}; nearest their bound {DP_GRAD_FACTOR} x the "
+                f"one-process error + {DP_GRAD_FLOOR:.3e}: "
+                + ", ".join(f"{k} {dp_err[k]:.3e} vs {own[k]:.3e} ({share[k]:.3f} of the bound)"
+                            for k in near))
+        else:
+            log(f"    worst leaf {gworst:.3e} (tol {DP_GRAD_RTOL:.0e})")
+        for r, x in enumerate(ranks):
+            for i, st in enumerate(x[label]["steps"]):
+                log(f"    rank {r} step {i}: loss {st['loss']:.6f}, {st['ms']:.1f} ms, "
+                    f"collectives {st['collective_ms']:.2f} ms, launches (K1, K1 save, K2) "
+                    f"{st['launches']} [{card}]")
+                want = (per, per, per) if fused else (0, 0, 0)
+                if st["launches"] != want or not math.isfinite(st["loss"]):
+                    raise AssertionError(f"{label} rank {r} step {i}: launches {st['launches']}, "
+                                         f"expected {want}; loss {st['loss']}")
+                launches[0] += st["launches"][1]
+                launches[1] += st["launches"][2]
+        if not (same and lerr <= DP_LOSS_RTOL[bf16] and pdiff <= plimit
+                and sdiff <= DP_STAT_RTOL[bf16]
+                and gworst <= (1.0 if bf16 else DP_GRAD_RTOL)):
+            raise AssertionError(f"{label}: the data-parallel step is not the one-process step")
+    shutil.rmtree(out)
+    return tuple(launches)
+
+
+def _rel_norms(got, ref):
+    """{leaf: |got - ref| / |ref|}, Frobenius norms."""
+    return {k: float(np.linalg.norm(got[k] - r) / max(float(np.linalg.norm(r)), 1e-30))
+            for k, r in ref.items()}
+
+
+def _worst(errs, top: int = 3) -> str:
+    """The ``top`` worst leaves and the median, as text."""
+    worst = sorted(errs, key=errs.get, reverse=True)[:top]
+    return (", ".join(f"{k} {errs[k]:.3e}" for k in worst)
+            + f" (median {float(np.median(list(errs.values()))):.3e})")
+
+
+def check_sharded_evaluator(serve, device, pcm, target, one_rate, card):
+    """Phase 10(c): the Evaluator over two replicas on the one card against
+    one replica, over phase 7's clips at B=EVAL_BATCH. Each replica runs a
+    block of EVAL_BATCH / 2 rows: bit-equal to model.forward of each block,
+    and within SHARDED_EVAL_TOL of the one-replica Evaluator. Returns its K1
+    launches."""
+    from audioset_convnext_inf_torch.engine.evaluator import Evaluator
+
+    half = EVAL_BATCH // 2
+    one = Evaluator(serve, device=device).infer_probs(eval_loader(pcm, target, EVAL_CLIPS))
+    two = Evaluator(serve, devices=[device, device])
+    out, n = _k1_count(lambda: two.infer_probs(eval_loader(pcm, target, EVAL_CLIPS)))
+    batches = -(-EVAL_CLIPS // EVAL_BATCH)
+    _expect_launches(f"Evaluator over 2 replicas, {EVAL_CLIPS} clips at B={EVAL_BATCH}", n,
+                     2 * batches * sum(K1_MAIN_PATH.values()))
+    probs = out["clipwise_output"]
+    padded = np.pad(pcm[:EVAL_CLIPS], ((0, batches * EVAL_BATCH - EVAL_CLIPS), (0, 0)))
+    blocks = np.concatenate([serve.forward(padded[i:i + half])["clipwise_output"].cpu().numpy()
+                             for i in range(0, len(padded), half)])[:EVAL_CLIPS]
+    diff = float(np.abs(probs - one["clipwise_output"]).max())
+    log(f"  2 replicas vs model.forward of each {half}-row block: bit-equal "
+        f"{np.array_equal(probs, blocks)}; vs the one-replica Evaluator: max abs diff {diff:.3e} "
+        f"(tol {SHARDED_EVAL_TOL})")
+    if not np.array_equal(probs, blocks) or not diff <= SHARDED_EVAL_TOL:
+        raise AssertionError("the two-replica Evaluator is not the one-replica Evaluator")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        two.infer_probs(eval_loader(pcm, target, EVAL_CLIPS))
+        runs.append(time.perf_counter() - t0)
+    dt = sorted(runs)[1]
+    log(f"  Evaluator over 2 replicas on one card, {EVAL_CLIPS} clips at B={EVAL_BATCH}: "
+        f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} ms (median {dt * 1e3:.1f}): "
+        f"{EVAL_CLIPS / dt:.1f} clips/s, beside one replica's {one_rate:.1f} clips/s (phase 7) "
+        f"[{card}]")
+    return n
+
+
+def run_service_mesh(serve, card):
+    """Phase 10(d): cli/serve.py --mesh with the phase-4 model: the batches
+    go through ShardedModel over every card; phase 8's HTTP traffic for
+    SERVE_MESH_SECONDS, every answer within SERVICE_TOL of model.forward of
+    its clip, K1 12 times per replica batch. Returns the K1 launches."""
+    from audioset_convnext_inf_torch.cli import serve as serve_cli
+    from audioset_convnext_inf_torch.engine.service import ShardedModel
+
+    pool = fixture_batch(SERVE_POOL, SEED + 21)
+    ref = np.concatenate([serve.forward(pool[i:i + BATCH])["clipwise_output"].cpu().numpy()
+                          for i in range(0, SERVE_POOL, BATCH)])
+    server, service = serve_cli.make_server(
+        ["--port", "0", "--batch-size", str(BATCH), "--max-wait-ms", "20", "--mesh"], model=serve)
+    cards = torch.cuda.device_count()
+    if not isinstance(service.model, ShardedModel) or \
+            len(service.model.replicas.devices) != cards:
+        raise AssertionError("serve --mesh did not shard over every card")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        def http_tag(i):
+            return _check_top(_post(url + "/tag", pool[i].astype("<i2").tobytes(),
+                                     "application/pcm-int16"), ref[i], f"/tag clip {i}")
+
+        _zero_counts()
+        before = service.counters()
+        lat, diff, wall = _closed_loop(http_tag, pool, ref, SERVE_MESH_SECONDS)
+        torch.cuda.synchronize()
+        return _load_report(f"HTTP /tag, serve --mesh over {cards} card(s)", service, before,
+                            lat, diff, wall, card, replicas=cards)
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        thread.join(timeout=30)
 
 
 def _leaves(tree):
@@ -1449,28 +1882,34 @@ def main() -> int:
     # reports to outside hosts; this run stays on the machine (JSONL)
     os.environ["WANDB_MODE"] = "disabled"
     device = torch.device("cuda")
+    start = time.perf_counter()
+
+    def phase(text):  # each phase's header with the seconds since the start
+        log(f"{text}  [{time.perf_counter() - start:.1f} s into the run]")
+
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    log(f"[1/9] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    phase(f"[1/10] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    log("[2/9] build")
+    phase("[2/10] build")
     build_kernels(["fused_block", "fused_block_bwd"])
 
-    log("[3/9] kernels against their plain versions")
+    phase("[3/10] kernels against their plain versions")
     k1_results = check_k1(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
-    log("[4/9] serving path: convnext_tiny, B=16 x 10-s clips")
+    phase("[4/10] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
+    check_row_independence(serve)
 
-    log(f"[5/9] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+    phase(f"[5/10] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
     trainer, batch, train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    log(f"[6/9] times on {card}")
+    phase(f"[6/10] times on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
@@ -1479,7 +1918,7 @@ def main() -> int:
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
-    log("[7/9] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
+    phase("[7/10] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
     WORK.mkdir(parents=True, exist_ok=True)
     surface_launches = check_checkpoint_round_trip(serve, device, fixture_batch(BATCH, SEED))
     pcm, target = eval_data(SEED + 9)
@@ -1490,31 +1929,48 @@ def main() -> int:
     ev, n = check_evaluator(serve, device, pcm, target)
     surface_launches += n + check_tagging(serve) + run_clis()
     log(f"  inference surfaces: K1 launches {surface_launches} in all")
-    time_evaluator(serve, ev, pcm, target, card)
+    one_rate = time_evaluator(serve, ev, pcm, target, card)
     del ev
 
-    log(f"[8/9] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
+    phase(f"[8/10] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
     service_launches = run_service(serve, card)
-    del serve
     torch.cuda.empty_cache()
 
-    log("[9/9] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
-    cli_launches = run_train_cli(device, card)
+    phase("[9/10] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
+    runner = CliRunner()
+    cli_launches, three = run_train_cli(runner, card)
+
+    phase("[10/10] data parallelism on the one card")
+    torch.cuda.empty_cache()
+    log("  (a) cli/train.py under torchrun's environment, world size 1, NCCL")
+    nccl_launches = run_nccl_world_1(runner, three, card)
+    del three
+    log(f"  (b) {DP_WORLD} processes, backend gloo, one Trainer step of {TRAIN_CLIPS} clips")
+    torch.cuda.empty_cache()
+    pair_launches = run_dp_pair(device, card)
+    log("  (c) the Evaluator over two replicas on the one card")
+    sharded_eval_launches = check_sharded_evaluator(serve, device, pcm, target, one_rate, card)
+    log("  (d) cli/serve.py --mesh")
+    mesh_launches = run_service_mesh(serve, card)
+    del serve
     shutil.rmtree(WORK)
+    phase("done")
 
     kernels = [
         _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
-               launches + surface_launches + service_launches + cli_launches[0], k1_results,
-               per_shape, "serving forward (phases 4, 7, 8, and phase 9's evaluations in f32)",
+               launches + surface_launches + service_launches + cli_launches[0]
+               + sharded_eval_launches + mesh_launches, k1_results, per_shape,
+               "serving forward (phases 4, 7, 8, 10(c-d), and phase 9's evaluations in f32)",
                K1_MAIN_PATH, unfused, err_cases=K1_SERVING_CASES),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",
-               train_launches[1] + cli_launches[1], k1s_results, save_shape,
-               "training forward (save mode; phases 5 and 9)", K1_MAIN_PATH, unfused),
+               train_launches[1] + cli_launches[1] + nccl_launches[1] + pair_launches[0],
+               k1s_results, save_shape, "training forward (save mode; phases 5, 9, 10(a-b))",
+               K1_MAIN_PATH, unfused),
         _entry("fused_block_bwd", "fused_block_bwd.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66",
-               train_launches[2] + cli_launches[2], k2_results, k2_shape,
-               "training backward (phases 5 and 9)", K1_MAIN_PATH),
+               train_launches[2] + cli_launches[2] + nccl_launches[2] + pair_launches[1],
+               k2_results, k2_shape, "training backward (phases 5, 9, 10(a-b))", K1_MAIN_PATH),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -367,3 +367,110 @@ def test_a_missing_local_path_fails_fast(path):
         IO._resolve_checkpoint_path(path)
     with pytest.raises(FileNotFoundError):
         JIO._resolve_checkpoint_path(path)
+
+
+# ---------------------------------------------------------------------------
+# The port's optimizer state in optax's layout: the JAX trainer resumes it
+# ---------------------------------------------------------------------------
+
+TINY = dict(depths=(1, 1, 1, 1), dims=(8, 16, 32, 64), drop_path_rate=0.0)
+LAYOUTS = {
+    "optax.adamw": dict(),
+    "optax.adam": dict(optimizer="adam"),
+    "optax.inject_hyperparams(adamw)": dict(use_wd_schedule=True, wd_constant_cooldown=False),
+    "optax.MultiSteps(optax.adamw)": dict(accumulation_steps=2),
+    "optax.MultiSteps(optax.adam)": dict(optimizer="adam", accumulation_steps=2),
+    "optax.MultiSteps(optax.inject_hyperparams(adamw))": dict(accumulation_steps=2,
+                                                              use_wd_schedule=True),
+}
+
+
+def test_optax_stand_ins_have_the_installed_optax_fields():
+    """Each stand-in class the port pickles has the fields, in order, of the
+    class its top-level name gives in the installed optax, and
+    inject_hyperparams builds the stand-in's class."""
+    for cls in (IO._ScaleByAdamState, IO._ScaleByScheduleState, IO._MaskedState,
+                IO._EmptyState, IO._MultiStepsState, IO._InjectState):
+        assert cls._optax_module == "optax"
+        assert getattr(optax, cls.__name__)._fields == cls._fields, cls.__name__
+    from optax.schedules import _inject
+
+    assert _inject.WrappedScheduleState._fields == IO._WrappedScheduleState._fields
+    params = {"w": jnp.ones((2, 2))}
+    state = optax.inject_hyperparams(optax.adamw)(learning_rate=lambda c: 0.1).init(params)
+    assert type(state).__name__ == IO._InjectState.__name__
+
+
+def _trained_port(kw, steps=3):
+    """A port trainer (f32, no augmentation) after ``steps`` steps of one
+    seeded batch of half-second clips, and that batch."""
+    from audioset_convnext_inf_torch.config import AugmentConfig
+    from audioset_convnext_inf_torch.engine import trainer as T
+
+    cfg = ConvNeXtConfig(**TINY, augment=AugmentConfig(use_spec_augment=False))
+    model = ConvNeXt(cfg, device="cpu", seed=2)
+    tr = T.Trainer(model, T.TrainConfig(max_lr=1e-2, total_steps=10, weight_decay=0.1, **kw))
+    rng = np.random.RandomState(6)
+    wav = (rng.randn(4, 16000) * 0.1).astype(np.float32)
+    target = (rng.rand(4, 527) < 0.05).astype(np.float32)
+    for _ in range(steps):
+        tr.step(wav, target)
+    return tr, cfg, wav, target
+
+
+@pytest.mark.parametrize("structure", sorted(LAYOUTS))
+def test_jax_trainer_resumes_a_port_checkpoint_and_steps_like_the_port(tmp_path, structure):
+    """The port trains 3 steps and checkpoints; the JAX package loads the
+    checkpoint, its Trainer restores it (the optimizer state arrives as
+    optax's own classes) and takes one step; the port takes the same step.
+    The parameters agree within 1e-6, bn0's statistics within 1e-5 of scale."""
+    from audioset_convnext_inf_tpu.config import AugmentConfig as JaxAugmentConfig
+    from audioset_convnext_inf_tpu.engine import trainer as JT
+    from audioset_convnext_inf_tpu.parallel.mesh import get_mesh
+
+    kw = LAYOUTS[structure]
+    tr, cfg, wav, target = _trained_port(kw)
+    ck = str(tmp_path / "ck")
+    IO.save_checkpoint(ck, tr.model.state_dict(), cfg, opt_state=tr.optimizer.state_dict(),
+                       iteration=3)
+    state = JIO.load_checkpoint(ck)
+    jcfg = JaxConfig(**TINY, augment=JaxAugmentConfig(use_spec_augment=False))
+    jtcfg = JT.TrainConfig(max_lr=1e-2, total_steps=10, weight_decay=0.1, **kw)
+    jtr = JT.Trainer(jcfg, jtcfg, state["params"], mesh=get_mesh(jax.devices()[:1]))
+    assert jax.tree_util.tree_structure(state["opt_state"]) == \
+        jax.tree_util.tree_structure(jtr.state.opt_state)
+    jtr.restore(state["params"], state["opt_state"], state["iteration"])
+    jtr.step(wav, target)
+    tr.step(wav, target)
+    want = C.state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, jtr.state.params))
+    got = {k: v.numpy() for k, v in tr.model.state_dict().items()}
+    for k in want:
+        atol = 1e-5 * max(1.0, float(np.abs(want[k]).max())) if k.startswith("bn0.running") \
+            else 1e-6
+        np.testing.assert_allclose(got[k], want[k], atol=atol, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("structure", sorted(LAYOUTS))
+def test_optimizer_state_round_trips_port_jax_port_bit_equal(tmp_path, structure):
+    """The port's optimizer state, written by the port, read and written
+    again by the JAX package, read by the port: every field bit-equal."""
+    tr, cfg, _, _ = _trained_port(LAYOUTS[structure], steps=2)
+    mine = tr.optimizer.state_dict()
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    IO.save_checkpoint(a, tr.model.state_dict(), cfg, opt_state=mine, iteration=2)
+    state = JIO.load_checkpoint(a)
+    JIO.save_checkpoint(b, state["params"], state["config"], opt_state=state["opt_state"],
+                        iteration=2)
+    back = IO.optimizer_state_from_optax(IO.load_checkpoint(b)["opt_state"])
+    assert back["structure"] == mine["structure"] == structure
+    assert (back["count"], back["mini_step"]) == (mine["count"], mine["mini_step"])
+    assert (back["hyperparams"] is None) == (mine["hyperparams"] is None)
+    for k, v in (mine["hyperparams"] or {}).items():
+        assert back["hyperparams"][k].tobytes() == v.tobytes(), k
+    for part in ("mu", "nu", "acc"):
+        if mine[part] is None:
+            assert back[part] is None
+            continue
+        assert sorted(back[part]) == sorted(mine[part])
+        for k, v in mine[part].items():
+            np.testing.assert_array_equal(back[part][k], v.numpy(), err_msg=f"{part} {k}")

@@ -234,10 +234,10 @@ def test_service_on_the_card_gives_each_clip_its_own_result():
     card received it: every clip is in exactly one batch, intact (a slab
     rewritten before its copy completed would break that), the other rows
     are padding, each answer is its row of that batch's output, and each
-    batch's output is model.forward of that batch. (A clip's result also
-    depends on its row and neighbours in the batch: at these small sizes the
-    libraries' GEMMs sum by position, so the check is against the batch it
-    rode in.) K1 runs for every batch and no other time."""
+    batch's output is model.forward of that batch, bit for bit: the service
+    computes on its own streams, and a batch's answer does not depend on
+    the stream (test_a_clips_answer_does_not_depend_on_its_batch_neighbours).
+    K1 runs for every batch and no other time."""
     _need_card()
     from concurrent.futures import ThreadPoolExecutor
 
@@ -279,8 +279,100 @@ def test_service_on_the_card_gives_each_clip_its_own_result():
                 assert hits[0] not in where, hits[0]
                 where[hits[0]] = (k, r)
         ref = model.forward(x)["clipwise_output"]
-        assert (ref - rec.batches[k][1]).abs().max().item() <= 2.0 ** -8, k
+        assert torch.equal(ref, rec.batches[k][1]), k
     assert sorted(where) == list(range(192))
     for i, probs in enumerate(got):
         k, r = where[i]
         np.testing.assert_array_equal(probs, rec.batches[k][1][r].cpu().numpy())
+
+
+def _row0_layers(model, pcm, row=0):
+    """{layer: row ``row`` of its output} of model.forward on the int16
+    batch ``pcm``: the frontend's power spectrum and mel product (sub-steps
+    of "frontend"), then each layer that ``forward``'s tap sees."""
+    from audioset_convnext_inf_torch.models import convnext as F
+    from audioset_convnext_inf_torch.ops import frontend as FE
+    from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
+
+    rows = {}
+
+    def tap(name, x):
+        rows[name] = x[row].float().cpu().clone()
+
+    with torch.inference_mode():
+        x = decode_pcm_if_int16(torch.from_numpy(pcm).to(model.device))
+        fe = model.frontend
+        power = FE.power_spectrogram_conv(x, fe.cfg, fe.dft_weight)
+        tap("frontend: power spectrum", power)
+        tap("frontend: mel product", FE._matmul(power, fe.mel_weights.t(), fe.cfg.precision))
+        F.forward(model, x, model.cfg, fe, model.compute_dtype, tap=tap)
+    return rows
+
+
+def _first_parting(a, b):
+    """(first layer whose row 0 differs, its max abs diff), or None."""
+    for name in a:
+        if not torch.equal(a[name], b[name]):
+            return name, (a[name] - b[name]).abs().max().item()
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,seconds", [("convnext_atto", 1), ("convnext_tiny", 10)])
+def test_a_clips_answer_does_not_depend_on_its_batch_neighbours(name, seconds):
+    """bf16 serving (tanh GELU, frontend "default", conv DFT), B=16: row 0
+    holds the same clip while rows 1..15 hold zeros or two sets of other
+    clips. Row 0 of every layer's output must be bit-equal across the three
+    batches; the same batch must repeat bit-exactly on one stream, and on
+    a compute stream beside a copy stream (the service's two streams).
+    Reported beside: where the clip's answer parts when it moves to another
+    row, or into a batch of 8."""
+    _need_card()
+    from audioset_convnext_inf_torch import models
+
+    with pytest.warns(UserWarning, match="auto-switched"):
+        model = models.MODEL_REGISTRY[name](compute_dtype=torch.bfloat16, seed=3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():  # gamma 1e-6 at init would make every block the identity
+        for stage in model.stages:
+            for blk in stage:
+                blk.gamma.copy_(torch.rand(blk.gamma.shape, generator=g) * 0.9 + 0.1)
+    rng = np.random.RandomState(5)
+    n = 32000 * seconds
+    pcm = lambda: (rng.randn(16, n) * 3000).astype(np.int16)  # noqa: E731
+    a, b, c = np.zeros((16, n), np.int16), pcm(), pcm()
+    b[0] = c[0] = a[0] = pcm()[0]
+    rows = {k: _row0_layers(model, x) for k, x in (("zeros", a), ("others", b), ("others 2", c))}
+    parted = {k: _first_parting(rows["zeros"], rows[k]) for k in ("others", "others 2")}
+    parted["others vs others 2"] = _first_parting(rows["others"], rows["others 2"])
+    again = _first_parting(rows["others"], _row0_layers(model, b))
+    # reported, not asserted: the clip at row 5 instead of 0 (the service
+    # puts a clip at any row), and row 0 in a batch of 8 (what a sharded
+    # evaluation over two replicas gives each replica) against 16
+    moved = b.copy()
+    moved[[0, 5]] = b[[5, 0]]
+    other = {"row 5": _row0_layers(model, moved, row=5), "B=8": _row0_layers(model, b[:8])}
+    where = {k: _first_parting(rows["others"], v) for k, v in other.items()}
+    probs = {k: (torch.sigmoid(v["head"]) - torch.sigmoid(rows["others"]["head"])).abs().max().item()
+             for k, v in other.items()}
+
+    copy, compute = torch.cuda.Stream(), torch.cuda.Stream()
+    host = torch.from_numpy(b).pin_memory()
+    with torch.cuda.stream(copy):
+        x = host.to(model.device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(copy)
+    with torch.cuda.stream(compute):
+        compute.wait_event(done)
+        x.record_stream(compute)
+        side = model.forward(x)["clipwise_output"]
+    torch.cuda.synchronize()
+    main = model.forward(b)["clipwise_output"]
+    streams = (side - main).abs().max().item()
+    print(f"\n{name}, {seconds}-s clips, B=16: first layer whose row 0 parts "
+          f"{parted}; the same batch again {again}; two streams max diff {streams:.3e}; "
+          f"the same clip at row 5, and at B=8: first parting {where}, probabilities max "
+          f"diff {probs}; "
+          f"layers {list(rows['zeros'])}")
+    assert all(v is None for v in parted.values()), parted
+    assert again is None and streams == 0.0

@@ -27,7 +27,6 @@ from audioset_convnext_inf_tpu.utils import native
 from audioset_convnext_inf_torch.checkpoint import state_dict_from_jax_params, to_tensors
 from audioset_convnext_inf_torch.config import ConvNeXtConfig
 from audioset_convnext_inf_torch.data import AudioSetDataset, DataLoader, EvaluateSampler
-from audioset_convnext_inf_torch.data.loader import device_prefetch
 from audioset_convnext_inf_torch.engine import metrics as M
 from audioset_convnext_inf_torch.engine.evaluator import Evaluator
 from audioset_convnext_inf_torch.models import ConvNeXt
@@ -139,16 +138,6 @@ def test_loader_batches_match_jax(pair, keep_int16, counting):
                 assert g[k] == w[k], k
     assert got[0]["waveform"].dtype == (np.int16 if keep_int16 else np.float32)
     assert got[-1]["waveform"].shape == (BATCH, 32000) and not got[-1]["waveform"][5:].any()
-
-
-def test_device_prefetch_on_the_cpu_keeps_order_and_passes_the_rest():
-    batches = [{"x": np.full((2, 3), i, np.int16), "name": np.array(["a", "b"]), "valid": i}
-               for i in range(5)]
-    out = list(device_prefetch(iter(batches), "cpu", size=2))
-    assert [b["valid"] for b in out] == list(range(5))
-    for i, b in enumerate(out):
-        assert isinstance(b["x"], torch.Tensor) and b["x"].dtype == torch.int16
-        assert int(b["x"][0, 0]) == i and list(b["name"]) == ["a", "b"]
 
 
 @pytest.mark.parametrize("keep_int16", [False, True])

@@ -355,7 +355,8 @@ def test_two_steps_write_a_checkpoint_that_reloads(runs):
     _, straight, two = runs
     state = IO.load_checkpoint(_ckpt(two, 2))
     assert state["iteration"] == 2 and state["sampler_state"] is not None
-    assert state["opt_state"]["count"] == 2 and state["opt_state"]["acc"] is None
+    opt = IO.optimizer_state_from_optax(state["opt_state"])  # written in optax's layout
+    assert opt["count"] == 2 and opt["acc"] is None and opt["structure"] == "optax.adamw"
     assert state["config"].name == MODEL
     ref = IO.load_checkpoint(_ckpt(straight, 2))  # the straight run's checkpoint at 2
     for x, y in zip(_flat(state["params"]), _flat(ref["params"])):
@@ -378,7 +379,8 @@ def test_resume_is_bit_identical_to_the_straight_run(runs):
     a, b = IO.load_checkpoint(_ckpt(straight, 4)), IO.load_checkpoint(_ckpt(two, 4))
     assert a["iteration"] == b["iteration"] == 4
     for part in ("params", "opt_state", "sampler_state"):
-        xa, xb = _flat(a[part]), _flat(b[part])
+        xa, xb = (_flat(IO.optimizer_state_from_optax(x[part]) if part == "opt_state" else x[part])
+                  for x in (a, b))
         assert len(xa) == len(xb) > 4
         for x, y in zip(xa, xb):
             np.testing.assert_array_equal(x, y, err_msg=part)
@@ -391,7 +393,8 @@ def test_jax_reads_a_port_training_checkpoint(runs, sample_wav_path):
     _, straight, _ = runs
     path = _ckpt(straight, 4)
     state = JIO.load_checkpoint(path)
-    assert state["iteration"] == 4 and state["opt_state"]["count"] == 4
+    assert state["iteration"] == 4 and int(state["opt_state"][0].count) == 4
+    assert isinstance(state["opt_state"][0], optax.ScaleByAdamState)
     assert state["config"].name == MODEL
     from scipy.io import wavfile
 
@@ -410,7 +413,7 @@ def test_a_jax_checkpoint_with_optax_state_resumes_in_the_port(runs, tmp_path):
     index, straight, _ = runs
     port = IO.load_checkpoint(_ckpt(straight, 2))
     params = jax.tree_util.tree_map(jnp.asarray, port["params"])
-    opt = port["opt_state"]
+    opt = IO.optimizer_state_from_optax(port["opt_state"])
 
     def tree(moments):
         zeros = np.zeros_like(port["params"]["bn0"]["mean"])
