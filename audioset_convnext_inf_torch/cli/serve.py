@@ -1,8 +1,8 @@
 """HTTP tagging service.
 
     python -m audioset_convnext_inf_torch.cli.serve [--host 127.0.0.1] [--port 8787] \\
-        [--checkpoint CKPT] [--batch-size 32] [--max-wait-ms 20] [--top-k 10] \\
-        [--dtype bfloat16|float32] [--device cpu|cuda] [--mesh]
+        [--checkpoint CKPT | --bundle AOT_DIR] [--batch-size 32] [--max-wait-ms 20] \\
+        [--top-k 10] [--dtype bfloat16|float32] [--device cpu|cuda] [--mesh]
 
 Runs on the card unless ``--device cpu`` is given. Endpoints (stdlib
 ``http.server``, one thread per connection; dynamic batching underneath,
@@ -22,9 +22,14 @@ Runs on the card unless ``--device cpu`` is given. Endpoints (stdlib
 
 HTTP 429 when the request queue is full, 400 on any other error.
 ``--mesh`` serves each batch over every card of the machine
-(``engine/service.py::ShardedModel``). The JAX package's ``--bundle`` (an
-AOT export bundle) waits for the port's export slice; with ``--mesh`` it
-would be an argument error, as it is there.
+(``engine/service.py::ShardedModel``). ``--bundle`` serves from an AOT
+bundle (``cli/export_serving.py``): no model code runs, the programs carry
+the weights, ``--batch-size`` is clamped to the largest exported bucket, and
+``--checkpoint`` and ``--dtype`` do not apply; the bundle serves on the
+card unless ``--device cpu`` is given, and only on the device type it was
+exported on.
+/embed needs the bundle's "scene" programs. ``--bundle`` with ``--mesh`` is
+an argument error: a bundle runs on one device.
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8787)
     parser.add_argument("--checkpoint", default=None)
+    parser.add_argument("--bundle", default=None,
+                        help="serve from an AOT bundle directory (cli/export_serving.py); "
+                             "no model code, no checkpoint")
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--max-wait-ms", type=float, default=20.0)
     parser.add_argument("--top-k", type=int, default=10)
@@ -57,6 +65,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(engine/service.py::ShardedModel); the batch size is not "
                              "rounded: the fused block kernel runs at any per-card batch")
     args = parser.parse_args(argv)
+    if args.mesh and args.bundle:  # before any loading
+        parser.error("--mesh shards the live model; a bundle runs on one device")
     if args.mesh and args.device is not None and args.device != "cuda":
         parser.error("--mesh serves over every card of the machine; --device names one")
     return args
@@ -88,14 +98,14 @@ def decode_audio(body: bytes, content_type: str) -> np.ndarray:
 def make_server(argv=None, model=None) -> Tuple[object, object]:
     """The HTTP server (not yet serving) and its started batching service.
     ``model`` replaces the one the flags would build (a ``models.ConvNeXt``
-    on the flags' device). ``server.serve_forever()`` serves; to stop, call
-    ``server.shutdown()``, ``server.server_close()`` and ``service.stop()``."""
+    on the flags' device; with ``--bundle``, an ``aot_export.BundleModel``).
+    ``server.serve_forever()`` serves; to stop, call ``server.shutdown()``,
+    ``server.server_close()`` and ``service.stop()``."""
     args = parse_args(argv)
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     import torch
 
-    from audioset_convnext_inf_torch import models
     from audioset_convnext_inf_torch.engine.infer import sliding_windows
     from audioset_convnext_inf_torch.engine.service import (
         InferenceService,
@@ -103,9 +113,15 @@ def make_server(argv=None, model=None) -> Tuple[object, object]:
         ShardedModel,
     )
     from audioset_convnext_inf_torch.labels import read_audioset_label_tags
-    from audioset_convnext_inf_torch.models.api import resolve_device
 
-    if model is None:
+    if model is None and args.bundle:
+        from audioset_convnext_inf_torch.engine.aot_export import BundleModel, load_bundle
+
+        model = BundleModel(load_bundle(args.bundle, device=args.device))
+    elif model is None:
+        from audioset_convnext_inf_torch import models
+        from audioset_convnext_inf_torch.models.api import resolve_device
+
         device = resolve_device(args.device)
         compute_dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
         if args.checkpoint:
@@ -115,6 +131,10 @@ def make_server(argv=None, model=None) -> Tuple[object, object]:
             model = models.convnext_tiny(drop_path_rate=0.0, compute_dtype=compute_dtype,
                                          device=device)
             print("WARNING: no checkpoint given - serving random weights")
+    max_batch = getattr(model, "max_batch", None)
+    if max_batch is not None and args.batch_size > max_batch:
+        print(f"batch-size {args.batch_size} > the bundle's largest bucket; using {max_batch}")
+        args.batch_size = max_batch
     if args.mesh:
         model = ShardedModel(model)  # every card; raises without one
         print(f"mesh serving over {len(model.replicas.devices)} card(s)")

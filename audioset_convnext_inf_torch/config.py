@@ -55,8 +55,9 @@ class FrontendConfig:
     # near-silent bins is real, so keep "highest" for f32 parity work).
     precision: str = "highest"
     # DFT algorithm: "conv" (default) = the windowed DFT as one strided 1-D
-    # conv over hop-sized blocks; "direct" = frame + one GEMM pair. The JAX
-    # package's "ct" and "rfft" are not ported yet (ROADMAP.md).
+    # conv over hop-sized blocks; "direct" = frame + one GEMM pair; "ct" =
+    # the two-stage Cooley-Tukey GEMM DFT ("direct" where n_fft does not
+    # factor); "rfft" = torch.fft.rfft (ops/frontend.py).
     dft_impl: str = "conv"
 
     @property

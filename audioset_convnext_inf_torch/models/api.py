@@ -24,20 +24,10 @@ import torch
 
 from audioset_convnext_inf_torch.checkpoint.convert import load_imagenet_backbone, to_tensors
 from audioset_convnext_inf_torch.config import AugmentConfig, ConvNeXtConfig
+from audioset_convnext_inf_torch.device import resolve_device
 from audioset_convnext_inf_torch.models import convnext as F
 from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
 from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the card; never the CPU unasked."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the model on the CPU"
-        )
-    return torch.device("cuda")
 
 
 class ConvNeXt(F.ConvNeXtModule):

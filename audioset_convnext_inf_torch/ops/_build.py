@@ -11,13 +11,16 @@ unchanged one is loaded as it is. A build may add ``-D`` macros
 so of the name. The package itself defines none; only
 ``scripts/ablate_fused_block_torch.py`` does. ``nvcc`` is found through
 ``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda/bin``; without it, building
-raises.
+raises. ``use_library`` runs a kernel from a library built elsewhere (a
+serving bundle carries the one it was exported with,
+``engine/aot_export.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import re
 import shutil
@@ -25,7 +28,7 @@ import subprocess
 import tempfile
 from functools import lru_cache
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -112,8 +115,65 @@ def build(name: str, defines: Sequence[str] = ()) -> Path:
     return out
 
 
+_PINNED: Dict[str, Path] = {}  # kernel name -> the library file to load instead of its build
+
+
+def use_library(name: str, path) -> bool:
+    """Run kernel ``name`` from the built library ``path`` (a serving
+    bundle's copy). Where the package's own build has the same file name
+    (the name carries the hash of the sources and flags), the two are one
+    library: the build is used, installed from ``path`` if it is not built
+    yet, and nothing is pinned. Otherwise ``name`` is pinned to ``path``
+    for every caller for the rest of the process, which is logged. A
+    missing file raises, and so does another file for a pinned kernel.
+    Returns whether ``name`` is pinned."""
+    path = Path(path).resolve()
+    if not path.is_file():
+        raise FileNotFoundError(f"kernel library {path} not found")
+    held = _PINNED.get(name)
+    if held is not None:
+        if held.name != path.name:
+            raise RuntimeError(f"kernel {name!r} is pinned to {held}, not {path}")
+        return True
+    own = library_path(name) if (CSRC / f"{name}.cu").is_file() else None
+    if own is not None and own.name == path.name:
+        if not own.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            shutil.copyfile(path, tmp)
+            os.replace(tmp, own)
+        return False
+    _PINNED[name] = path
+    logging.getLogger(__name__).warning(
+        "kernel %r runs from %s for the rest of the process, not from this package's build %s",
+        name, path, own.name if own is not None else "(no sources)")
+    return True
+
+
+def library(name: str, defines: Sequence[str] = ()) -> Path:
+    """The library file kernel ``name`` loads from: its pinned file, else
+    its build with ``defines`` (built if needed, once per process: the
+    hash of the sources is not taken again at each launch). A pinned kernel
+    takes no ``defines``."""
+    if name in _PINNED:
+        if defines:
+            raise RuntimeError(f"kernel {name!r} is pinned to {_PINNED[name]}: no -D builds")
+        return _PINNED[name]
+    return _build_once(name, tuple(defines))
+
+
 @lru_cache(maxsize=None)
+def _build_once(name: str, defines: Sequence[str]) -> Path:
+    return build(name, defines)
+
+
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """Build if needed, then load the kernel library (once per process and
-    set of ``defines``, which must be hashable: a tuple)."""
-    return ctypes.CDLL(str(build(name, defines)))
+    """Load ``library(name, defines)``, once per process and file. Each
+    kernel launch calls this."""
+    return _open(str(library(name, defines)))
+
+
+@lru_cache(maxsize=None)
+def _open(path: str) -> ctypes.CDLL:
+    return ctypes.CDLL(path)

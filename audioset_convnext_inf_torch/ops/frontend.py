@@ -10,8 +10,13 @@ the reference's torchlibrosa ``Spectrogram`` + ``LogmelFilterBank``
             -(power @ mel^T)                   -> mel     (B, T, 224)
             -(10*log10(clip(., amin)) - 10*log10(max(amin, ref)))
 
-The constants (window, DFT bases, mel matrix) are built in float64 numpy and
-cast, exactly as the JAX package builds them.
+``dft_impl`` picks the DFT, as in the JAX package: "conv" (above, the
+default), "direct" (frames times one (n_fft, 2F) matrix), "ct" (a two-stage
+Cooley-Tukey factorisation n_fft = P*Q as small products, its bins in their
+own order, which the mel matrix absorbs; "direct" where n_fft has no such
+factorisation) and "rfft" (``torch.fft.rfft``, cuFFT on the card, exact
+f32, no precision setting). The constants (window, DFT bases, mel matrix)
+are built in float64 numpy and cast, exactly as the JAX package builds them.
 
 ``precision`` selects the arithmetic of the DFT and mel products, per op:
 "highest" is true f32 (TF32 off for cuBLAS and cuDNN), "high" is TF32 (the
@@ -118,13 +123,89 @@ def _dft_bases(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
     n = np.arange(n_fft, dtype=np.float64)[:, None]
     k = np.arange(n_freqs, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * n * k / n_fft
-    window = hann_window_periodic(win_length)
-    if win_length < n_fft:  # center-pad window to n_fft (librosa pad_center)
-        lpad = (n_fft - win_length) // 2
-        window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    window = _padded_window(n_fft, win_length)
     cos_b = np.cos(ang) * window[:, None]
     sin_b = -np.sin(ang) * window[:, None]
     return cos_b.astype(np.float32), sin_b.astype(np.float32)
+
+
+def _padded_window(n_fft: int, win_length: int) -> np.ndarray:
+    """The periodic Hann window, center-padded to n_fft (float64)."""
+    window = hann_window_periodic(win_length)
+    if win_length < n_fft:  # librosa pad_center
+        lpad = (n_fft - win_length) // 2
+        window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    return window
+
+
+def _ct_factors(n_fft: int) -> Optional[Tuple[int, int]]:
+    """n_fft = P*Q with P even and as square as possible (1024 -> 32*32,
+    512 -> 16*32); None when there is no such split."""
+    best = None
+    p = 2
+    while p * p <= n_fft:
+        if n_fft % p == 0 and p % 2 == 0:
+            best = (p, n_fft // p)
+        p += 1
+    return best
+
+
+@lru_cache(maxsize=8)
+def _ct_bases(n_fft: int, win_length: int):
+    """Constants of the two-stage DFT (float64, rounded to float32).
+
+    With n = P*n2 + n1 (n1 < P, n2 < Q) and k = Q*q + r (r < Q, q <= P/2):
+        I[n1, r]  = sum_n2 x[P n2 + n1] W_Q^{n2 r}          (inner product)
+        J[r, n1]  = W_N^{n1 r} I[n1, r]                      (twiddle)
+        X[Qq + r] = sum_n1 J[r, n1] W_P^{n1 q}               (outer product)
+    Returns (P, Q, window, CQ, SQ, TR, TI, CP, SP): inner bases (Q, Q),
+    twiddles (Q, P) indexed [r, n1], outer bases (P, P//2+1).
+    """
+    pq = _ct_factors(n_fft)
+    if pq is None:
+        raise ValueError(f"n_fft={n_fft} has no even factor P with P*P <= n_fft")
+    P, Q = pq
+    n2 = np.arange(Q, dtype=np.float64)
+    r = np.arange(Q, dtype=np.float64)
+    ang_q = 2.0 * np.pi * n2[:, None] * r[None, :] / Q
+    n1 = np.arange(P, dtype=np.float64)
+    ang_t = 2.0 * np.pi * r[:, None] * n1[None, :] / n_fft
+    q = np.arange(P // 2 + 1, dtype=np.float64)
+    ang_p = 2.0 * np.pi * n1[:, None] * q[None, :] / P
+    f32 = np.float32
+    return (P, Q, _padded_window(n_fft, win_length).astype(f32),
+            np.cos(ang_q).astype(f32), (-np.sin(ang_q)).astype(f32),
+            np.cos(ang_t).astype(f32), (-np.sin(ang_t)).astype(f32),
+            np.cos(ang_p).astype(f32), (-np.sin(ang_p)).astype(f32))
+
+
+def ct_bin_to_k(n_fft: int) -> np.ndarray:
+    """The "ct" power's column order: flat index r*(P//2+1)+q holds bin
+    k = Q*q + r; columns with k > n_fft//2 duplicate bins of the one-sided
+    spectrum and map to -1 (their mel weight is zero)."""
+    P, Q = _ct_factors(n_fft)
+    nq = P // 2 + 1
+    out = np.full(Q * nq, -1, np.int64)
+    for rr in range(Q):
+        for qq in range(nq):
+            k = Q * qq + rr
+            if k <= n_fft // 2:
+                out[rr * nq + qq] = k
+    return out
+
+
+def _uses_ct(cfg: FrontendConfig) -> bool:
+    return cfg.dft_impl == "ct" and _ct_factors(cfg.n_fft) is not None
+
+
+def mel_matrix(cfg: FrontendConfig) -> np.ndarray:
+    """(n_mels, bins) f32 mel weights in the column order of ``cfg``'s power
+    spectrum: the Slaney filterbank, with "ct"'s bin order folded in."""
+    mel = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
+    if _uses_ct(cfg):
+        k_of = ct_bin_to_k(cfg.n_fft)
+        mel = np.where(k_of[None, :] >= 0, mel[:, np.clip(k_of, 0, None)], 0.0)
+    return mel.astype(np.float32)
 
 
 @lru_cache(maxsize=8)
@@ -157,12 +238,39 @@ def direct_dft_weight(cfg: FrontendConfig, device=None) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([cos_b, sin_b], axis=1)).to(device)
 
 
+def ct_dft_weight(cfg: FrontendConfig, device=None) -> torch.Tensor:
+    """"ct"'s constants packed into one flat f32 tensor (``_ct_unpack``
+    slices it): the window (n_fft,), [CQ | SQ] (Q, 2Q), [TR, TI] (2, Q, P)
+    and [CP | SP] (P, 2(P//2+1)). ``direct_dft_weight`` where n_fft has no
+    factorisation."""
+    if not _uses_ct(cfg):
+        return direct_dft_weight(cfg, device)
+    _, _, window, cq, sq, tr, ti, cp, sp = _ct_bases(cfg.n_fft, cfg.win_length)
+    parts = (window, np.concatenate([cq, sq], 1), np.stack([tr, ti]), np.concatenate([cp, sp], 1))
+    return torch.from_numpy(np.concatenate([a.ravel() for a in parts])).to(device)
+
+
+def _ct_unpack(weight: torch.Tensor, n_fft: int) -> Tuple[torch.Tensor, ...]:
+    """``ct_dft_weight``'s four constants, as views of ``weight``."""
+    P, Q = _ct_factors(n_fft)
+    shapes = ((n_fft,), (Q, 2 * Q), (2, Q, P), (P, 2 * (P // 2 + 1)))
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    return tuple(t.view(sh) for t, sh in zip(torch.split(weight, sizes), shapes))
+
+
+def rfft_window(cfg: FrontendConfig, device=None) -> torch.Tensor:
+    """"rfft"'s one constant: the window, center-padded to n_fft, in f32."""
+    return torch.from_numpy(_padded_window(cfg.n_fft, cfg.win_length).astype(np.float32)).to(device)
+
+
 # ---------------------------------------------------------------------------
 # Device-side pipeline
 # ---------------------------------------------------------------------------
 
 
-_DFT_WEIGHTS = {"conv": conv_dft_weight, "direct": direct_dft_weight}
+# dft_impl -> its constants, one tensor
+_DFT_WEIGHTS = {"conv": conv_dft_weight, "direct": direct_dft_weight, "ct": ct_dft_weight,
+                "rfft": rfft_window}
 
 
 def _check_precision(precision: str) -> None:
@@ -171,9 +279,6 @@ def _check_precision(precision: str) -> None:
 
 
 def _check_dft_impl(dft_impl: str) -> None:
-    if dft_impl in ("ct", "rfft"):
-        raise NotImplementedError(
-            f"dft_impl={dft_impl!r} is not ported to PyTorch yet (ROADMAP.md, queue 1)")
     if dft_impl not in _DFT_WEIGHTS:
         raise ValueError(f"unknown dft_impl {dft_impl!r}")
 
@@ -251,21 +356,67 @@ def power_spectrogram(
     """Power spectrum (B, T, F) by framing and one (n_fft, 2F) product
     (``dft_impl="direct"``); torchlibrosa's Spectrogram(power=2.0)."""
     _check_precision(cfg.precision)
-    if waveform.ndim == 1:
-        waveform = waveform[None, :]
-    n = waveform.shape[1]
-    num_frames = cfg.num_frames(n)
-    pad = cfg.n_fft // 2
-    x = waveform.float()
-    if cfg.center:
-        x = _center_pad(x, pad, pad, cfg.pad_mode)
-    frames = frame_signal(x, cfg.n_fft, cfg.hop_length, num_frames)
+    frames = _centered_frames(waveform, cfg)
     if weight is None:
         weight = direct_dft_weight(cfg, waveform.device)
     y = _matmul(frames, weight, cfg.precision)
     n_freqs = cfg.n_fft // 2 + 1
     re, im = y[..., :n_freqs], y[..., n_freqs:]
     return re * re + im * im
+
+
+def _centered_frames(waveform: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """(B, T, n_fft) f32 frames of the centered (B, N) waveform."""
+    if waveform.ndim == 1:
+        waveform = waveform[None, :]
+    n = waveform.shape[1]
+    x = waveform.float()
+    if cfg.center:
+        x = _center_pad(x, cfg.n_fft // 2, cfg.n_fft // 2, cfg.pad_mode)
+    return frame_signal(x, cfg.n_fft, cfg.hop_length, cfg.num_frames(n))
+
+
+def power_spectrogram_ct(
+    waveform: torch.Tensor, cfg: FrontendConfig,
+    weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Two-stage Cooley-Tukey power spectrum (``dft_impl="ct"``), (B, T,
+    Q*(P//2+1)) in "ct" bin order (``ct_bin_to_k``; ``mel_matrix`` folds
+    the order into the mel product). The JAX package's six einsums as three
+    products, each output element the same sum: [ir | ii] = x . [CQ | SQ],
+    then jr . [CP | SP] and ji . [SP | CP] (as slices of [CP | SP]); each at
+    ``cfg.precision`` (``_matmul``). ``weight``: ``ct_dft_weight``."""
+    _check_precision(cfg.precision)
+    if weight is None:
+        weight = ct_dft_weight(cfg, waveform.device)
+    window, inner, twiddle, outer = _ct_unpack(weight, cfg.n_fft)
+    P, Q = _ct_factors(cfg.n_fft)
+    nq = P // 2 + 1
+    frames = _centered_frames(waveform, cfg)
+    b, t = frames.shape[:2]
+    x = (frames * window).reshape(b, t, Q, P).transpose(2, 3)  # [n1, n2]
+    i = _matmul(x, inner, cfg.precision).transpose(2, 3)  # (B, T, 2Q, P): [r, n1]
+    ir, ii = i[:, :, :Q], i[:, :, Q:]
+    tr, ti = twiddle[0], twiddle[1]
+    jr = ir * tr - ii * ti
+    ji = ir * ti + ii * tr
+    a = _matmul(jr, outer, cfg.precision)  # [jr.CP | jr.SP]
+    c = _matmul(ji, outer, cfg.precision)  # [ji.CP | ji.SP]
+    xr = a[..., :nq] - c[..., nq:]
+    xi = a[..., nq:] + c[..., :nq]
+    return (xr * xr + xi * xi).reshape(b, t, Q * nq)
+
+
+def power_spectrogram_rfft(
+    waveform: torch.Tensor, cfg: FrontendConfig, window: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Power spectrum (B, T, F) by ``torch.fft.rfft`` of the windowed
+    frames (``dft_impl="rfft"``): an f32 FFT (cuFFT on the card), as the
+    JAX package's is XLA's; no precision setting applies."""
+    if window is None:
+        window = rfft_window(cfg, waveform.device)
+    spec = torch.fft.rfft(_centered_frames(waveform, cfg) * window)
+    return spec.real * spec.real + spec.imag * spec.imag
 
 
 def power_to_db(
@@ -290,17 +441,21 @@ def log_mel_spectrogram(
 
     ``affine=(a, b)`` applies a per-mel-bin ``a*x + b`` in f32 after the
     log: the eval-mode bn0 fold (reference convnext.py:304-306).
-    ``dft_weight`` is the precomputed kernel of ``cfg.dft_impl``.
+    ``mel_weights`` is ``mel_matrix(cfg)`` (for "ct", in its bin order) and
+    ``dft_weight`` the precomputed constants of ``cfg.dft_impl``
+    (``_DFT_WEIGHTS``); each is built when not given.
     """
     _check_precision(cfg.precision)
     _check_dft_impl(cfg.dft_impl)
     if mel_weights is None:
-        mel_weights = torch.from_numpy(
-            mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
-        ).to(waveform.device)
+        mel_weights = torch.from_numpy(mel_matrix(cfg)).to(waveform.device)
     if cfg.dft_impl == "conv":
         power = power_spectrogram_conv(waveform, cfg, dft_weight)
-    else:
+    elif cfg.dft_impl == "rfft":
+        power = power_spectrogram_rfft(waveform, cfg, dft_weight)
+    elif _uses_ct(cfg):
+        power = power_spectrogram_ct(waveform, cfg, dft_weight)
+    else:  # "direct", and "ct" where n_fft has no factorisation
         power = power_spectrogram(waveform, cfg, dft_weight)
     mel_power = _matmul(power, mel_weights.t(), cfg.precision)
     logmel = power_to_db(mel_power, cfg.amin, cfg.ref, cfg.top_db)
@@ -312,15 +467,16 @@ def log_mel_spectrogram(
 
 class LogMelFrontend(nn.Module):
     """Frontend module holding its constants as non-persistent buffers, so
-    they follow ``.to(device)`` but never enter the state dict."""
+    they follow ``.to(device)`` but never enter the state dict: the mel
+    matrix (``mel_matrix``) and the DFT's constants (``dft_weight``)."""
 
     def __init__(self, cfg: FrontendConfig = FrontendConfig(), device=None):
         super().__init__()
         _check_dft_impl(cfg.dft_impl)
         _check_precision(cfg.precision)
         self.cfg = cfg
-        mel = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
-        self.register_buffer("mel_weights", torch.from_numpy(mel).to(device), persistent=False)
+        self.register_buffer("mel_weights", torch.from_numpy(mel_matrix(cfg)).to(device),
+                             persistent=False)
         self.register_buffer("dft_weight", _DFT_WEIGHTS[cfg.dft_impl](cfg, device),
                              persistent=False)
 

@@ -15,9 +15,13 @@ scale ``s`` (B,), which multiplies the branch after gamma and before the
 residual, and also returns ``d``, the dwconv output as rounded before the
 LN, for the fused backward (``ops/fused_block_bwd.py``).
 
-On a CUDA tensor it launches ``csrc/fused_block.cu`` (built at first use by
-``ops/_build.py``) or raises; on a CPU tensor it runs
-``fused_block_reference``, the same function in plain PyTorch. The kernel
+The kernel is two ``torch.library`` custom ops, ``fused_block`` (serving)
+and ``fused_block_save`` (training), in the namespace ``OPS``, each with a
+shape ("fake") implementation, so that ``torch.export`` and
+``torch.compile`` see one node per block. On a CUDA tensor an op launches
+``csrc/fused_block.cu`` (built at first use by ``ops/_build.py``) or
+raises; on a CPU tensor it runs ``fused_block_reference``, the same
+function in plain PyTorch. The kernel
 source says what bounds it on the card and what its design does about it.
 ``launch_plan`` chooses the launch (pixels per thread block, channel
 padding of the bf16 tiles, shared memory) from (C, dtype, pixel count); the
@@ -202,25 +206,73 @@ def fused_block(
 ):
     """One ConvNeXt block on NHWC ``x``; weights in the reference layouts.
     With ``s`` (B,) the branch is scaled per sample; with ``save_dwconv``
-    the call returns (y, d). CUDA tensors launch the kernel
-    (``fused_block.launches`` counts each launch); CPU tensors run the plain
-    version."""
+    the call returns (y, d). It calls the custom op ``fused_block`` (serving
+    mode) or ``fused_block_save`` (either argument given): CUDA tensors
+    launch the kernel (``fused_block.launches`` counts each launch); CPU
+    tensors run the plain version."""
     _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s)
-    if x.device.type == "cpu":
-        return fused_block_reference(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
-                                     s, save_dwconv)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block runs on cuda or cpu tensors, got {x.device}")
+    if s is None and not save_dwconv:
+        return _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps))
+    if s is None:  # the kernel's save mode takes a scale: ones
+        s = torch.ones(x.shape[0], device=x.device)
+    y, d = _save_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps), s)
+    return (y, d) if save_dwconv else y
+
+
+# The kernel as two torch.library custom ops, so that a traced program
+# (torch.export, torch.compile) sees one node per block. The CPU
+# implementation is the plain version; the CUDA one chooses the launch plan,
+# tiles the weights and launches the kernel, all at run time, never traced.
+OPS = "audioset_convnext_inf_torch"  # namespace of the port's custom ops
+_ARGS = ("Tensor x, Tensor dw_w, Tensor dw_b, Tensor ln_w, Tensor ln_b, Tensor w1, "
+         "Tensor b1, Tensor w2, Tensor b2, Tensor? gamma, float eps")
+
+
+@torch.library.custom_op(f"{OPS}::fused_block", mutates_args=(), device_types="cpu",
+                         schema=f"({_ARGS}) -> Tensor")
+def _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
+    return fused_block_reference(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+
+
+@_serving_op.register_kernel("cuda")
+def _serving_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
     b, h, w, c = x.shape
-    plan = launch_plan(c, x.dtype, b * h * w)
-    return _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s,
-                         save_dwconv, plan)
+    return _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, None, False,
+                         launch_plan(c, x.dtype, b * h * w))
 
 
-def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save_dwconv,
+@_serving_op.register_fake
+def _serving_fake(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op(f"{OPS}::fused_block_save", mutates_args=(), device_types="cpu",
+                         schema=f"({_ARGS}, Tensor s) -> (Tensor, Tensor)")
+def _save_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s):
+    return fused_block_reference(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, True)
+
+
+@_save_op.register_kernel("cuda")
+def _save_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s):
+    b, h, w, c = x.shape
+    return _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, True,
+                         launch_plan(c, x.dtype, b * h * w))
+
+
+@_save_op.register_fake
+def _save_fake(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save: bool,
                   plan: LaunchPlan, defines: Tuple[str, ...] = ()):
     """One launch of the kernel under ``plan`` (checked arguments, CUDA x),
-    from the library built with ``defines``."""
+    from the library built with ``defines``: serving mode (``s`` None) ->
+    y, or save mode (``s`` (B,) given) -> (y, d)."""
+    if save == (s is None):
+        raise ValueError("the kernel's save mode takes s, and serving mode none")
     lib = _lib(defines)
     b, h, w, c = x.shape
     dt = x.dtype
@@ -234,23 +286,21 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
     b1c, b2c = f32(b1), f32(b2)
     g = f32(gamma) if gamma is not None else None
     out = torch.empty_like(x)
-    train = s is not None or save_dwconv
-    # the kernel's save mode takes both: a scale of ones, or a d it drops
-    sc = (f32(s) if s is not None else torch.ones(b, device=x.device)) if train else None
-    d = torch.empty_like(x) if train else None
+    sc = f32(s) if save else None
+    d = torch.empty_like(x) if save else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_block_forward(
             x.data_ptr(), out.data_ptr(), dww.data_ptr(), *(t.data_ptr() for t in args),
             w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(),
             g.data_ptr() if g is not None else None,
-            sc.data_ptr() if train else None, d.data_ptr() if train else None,
+            sc.data_ptr() if save else None, d.data_ptr() if save else None,
             b, h, w, c, float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: cudaError {err}")
     fused_block.launches += 1
-    fused_block.save_launches += int(train)
-    return (out, d) if save_dwconv else out
+    fused_block.save_launches += int(save)
+    return (out, d) if save else out
 
 
 fused_block.launches = 0  # every launch

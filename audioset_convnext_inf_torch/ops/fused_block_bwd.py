@@ -10,9 +10,11 @@ from the block input ``x``, the dwconv output ``d`` that the forward's save
 mode stored (``ops/fused_block.py``) and the upstream gradient ``dy``, all
 NHWC (B, H, W, C). It replaces the JAX package's
 ``ops/pallas_fused_block_bwd.py::_bwd_kernel``, with its rounding points
-(see ``fused_block_bwd_reference``). On a CUDA tensor it launches
-``csrc/fused_block_bwd.cu`` (built at first use by ``ops/_build.py``) or
-raises; on a CPU tensor it runs ``fused_block_bwd_reference``. The kernel
+(see ``fused_block_bwd_reference``). It is the custom op
+``fused_block_bwd`` (as ``ops/fused_block.py``'s two): on a CUDA tensor it
+launches ``csrc/fused_block_bwd.cu`` (built at first use by
+``ops/_build.py``) or raises; on a CPU tensor it runs
+``fused_block_bwd_reference``. The kernel
 source says what bounds it on the card and how its launches divide the work.
 ``launch_plan`` chooses the launches (pixels per chain block, the split of
 the weight-gradient products over pixel ranges, shared memory) and the
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 
 from audioset_convnext_inf_torch.ops import _build
 from audioset_convnext_inf_torch.ops.fused_block import (
-    HLD, K, MAX_C, RING, _DTYPE_CODE, _check, bf16_tiling, tile_weights)
+    HLD, K, MAX_C, OPS, RING, _DTYPE_CODE, _check, bf16_tiling, tile_weights)
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
 
 _C0 = 0.7978845608028654  # sqrt(2/pi)
@@ -120,7 +122,8 @@ def _grads(dww: torch.Tensor, vec: torch.Tensor, m: torch.Tensor, dw1: torch.Ten
     dgamma come from m as in the JAX package (outside its kernel); dgamma
     takes W2 rounded to the activation dtype, as the kernel saw it."""
     c = dww.shape[1]
-    sdys, dlnb, dlns, dbdw, db1 = torch.split(vec, [c, c, c, c, 4 * c])
+    # copies, not views of vec: a custom op's outputs may not alias each other
+    sdys, dlnb, dlns, dbdw, db1 = (t.clone() for t in torch.split(vec, [c, c, c, c, 4 * c]))
     g = gamma.float()
     return {
         "dwconv.weight": dww.t().reshape(c, 1, K, K).contiguous(),
@@ -226,10 +229,10 @@ def fused_block_bwd(
     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     gamma: torch.Tensor, s: torch.Tensor, eps: float = 1e-6,
 ) -> Tuple[torch.Tensor, Grads]:
-    """dx and the block's weight gradients (see the module docstring).
-    CUDA tensors launch the kernel (``fused_block_bwd.launches`` counts each
-    call, which makes ``CUDA_LAUNCHES`` launches); CPU tensors run the plain
-    version."""
+    """dx and the block's weight gradients (see the module docstring),
+    through the custom op ``fused_block_bwd``. CUDA tensors launch the
+    kernel (``fused_block_bwd.launches`` counts each call, which makes
+    ``CUDA_LAUNCHES`` launches); CPU tensors run the plain version."""
     if gamma is None or s is None:
         raise ValueError("fused_block_bwd needs gamma (layer scale) and s")
     _check(x, dw_w, None, ln_w, ln_b, w1, b1, w2, b2, gamma, s)
@@ -238,14 +241,42 @@ def fused_block_bwd(
                 or not t.is_contiguous():
             raise ValueError(f"fused_block_bwd: {name} must be a contiguous {x.dtype} tensor "
                              f"of x's shape {tuple(x.shape)} on {x.device}")
-    if x.device.type == "cpu":
-        return fused_block_bwd_reference(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2,
-                                         gamma, s, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block_bwd runs on cuda or cpu tensors, got {x.device}")
+    dx, *grads = _bwd_op(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, float(eps))
+    return dx, dict(zip(GRAD_KEYS, grads))
+
+
+# The kernel as a torch.library custom op (see ops/fused_block.py): the
+# gradients come back as a fixed tuple in GRAD_KEYS' order, after dx.
+GRAD_KEYS = ("dwconv.weight", "dwconv.bias", "norm.weight", "norm.bias", "pwconv1.weight",
+             "pwconv1.bias", "pwconv2.weight", "pwconv2.bias", "gamma")
+_SCHEMA = ("(Tensor x, Tensor d, Tensor dy, Tensor dw_w, Tensor ln_w, Tensor ln_b, Tensor w1, "
+           "Tensor b1, Tensor w2, Tensor b2, Tensor gamma, Tensor s, float eps) -> ("
+           + ", ".join(["Tensor"] * (1 + len(GRAD_KEYS))) + ")")
+
+
+@torch.library.custom_op(f"{OPS}::fused_block_bwd", mutates_args=(), device_types="cpu",
+                         schema=_SCHEMA)
+def _bwd_op(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
+    dx, g = fused_block_bwd_reference(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps)
+    return (dx, *(g[k] for k in GRAD_KEYS))
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
     b, h, w, c = x.shape
-    plan = launch_plan(c, x.dtype, b * h * w)
-    return _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps, plan)
+    dx, g = _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
+                           launch_plan(c, x.dtype, b * h * w))
+    return (dx, *(g[k] for k in GRAD_KEYS))
+
+
+@_bwd_op.register_fake
+def _bwd_fake(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
+    c = x.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    shapes = ((c, 1, K, K), (c,), (c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,), (c,))
+    return (torch.empty_like(x), *(torch.empty(sh, **f32) for sh in shapes))
 
 
 def _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,

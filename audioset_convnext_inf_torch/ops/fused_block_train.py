@@ -1,5 +1,6 @@
 """Trainable fused ConvNeXt block: the forward kernel's save mode and the
-fused backward kernel as one ``torch.autograd.Function``.
+fused backward kernel (the custom ops ``fused_block_save`` and
+``fused_block_bwd``) as one ``torch.autograd.Function``.
 
 The counterpart of the JAX package's ``fused_block_train`` custom VJP:
 
@@ -16,10 +17,7 @@ from __future__ import annotations
 import torch
 
 from audioset_convnext_inf_torch.ops.fused_block import fused_block
-from audioset_convnext_inf_torch.ops.fused_block_bwd import fused_block_bwd
-
-_PARAMS = ("dwconv.weight", "dwconv.bias", "norm.weight", "norm.bias", "pwconv1.weight",
-           "pwconv1.bias", "pwconv2.weight", "pwconv2.bias", "gamma")
+from audioset_convnext_inf_torch.ops.fused_block_bwd import GRAD_KEYS, fused_block_bwd
 
 
 class FusedBlockTrain(torch.autograd.Function):
@@ -33,9 +31,9 @@ class FusedBlockTrain(torch.autograd.Function):
     def forward(ctx, x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
         if gamma is None:
             raise ValueError("FusedBlockTrain needs gamma (layer scale)")
-        if s is None:  # no drop path on this block
+        if s is None:  # no drop path on this block; the backward takes s as well
             s = torch.ones(x.shape[0], device=x.device)
-        y, d =fused_block(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+        y, d = fused_block(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
                            s=s, save_dwconv=True)
         ctx.save_for_backward(x, d, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s)
         ctx.eps = eps
@@ -47,4 +45,4 @@ class FusedBlockTrain(torch.autograd.Function):
         dx, g = fused_block_bwd(x, d, dy.to(x.dtype).contiguous(), dw_w, ln_w, ln_b,
                                 w1, b1, w2, b2, gamma, s, ctx.eps)
         params = (dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma)
-        return (dx, *(g[k].to(p.dtype) for k, p in zip(_PARAMS, params)), None, None)
+        return (dx, *(g[k].to(p.dtype) for k, p in zip(GRAD_KEYS, params)), None, None)

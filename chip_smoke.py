@@ -82,7 +82,20 @@ run (non-zero exit) on any error or mismatch:
     two replicas on the one card against one replica (SHARDED_EVAL_TOL),
     clips/s beside phase 7's; (d) cli/serve.py --mesh with the phase-4
     model for SERVE_MESH_SECONDS of phase 8's traffic, every answer within
-    SERVICE_TOL, K1 12 times per replica batch.
+    SERVICE_TOL, K1 12 times per replica batch;
+11. AOT serving bundles (engine/aot_export.py) of the phase-4 model, int16
+    in: forward at buckets 1 and 16, scene and frame at 16, shared weights
+    at 16, one dynamic program, and the f32 parity config at 16, each
+    exported (seconds per program, size on disk), loaded (seconds, first
+    call) and held against the live model within BUNDLE_TOL (B=16, B=3
+    padded, B=1, the dynamic program at 2 and 5): 12 K1 launches per bf16
+    call, none in f32; the forward bundle in a fresh process that cannot
+    import the port's models or checkpoint packages, bit-equal; its steady
+    clips/s beside the live forward's; cli/serve.py --bundle with phase 8's
+    traffic for SERVE_BUNDLE_SECONDS, each answer equal to the bundle's own
+    forward in a batch of 16; then the frontend alone (each dft_impl at
+    both serving precisions, CUDA events) and ct and rfft on the card
+    against the CPU (FRONTEND_DB_TOL).
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -1291,7 +1304,8 @@ def _load_report(label, service, before, lat, diff, wall, card, replicas: int = 
 
 
 def run_service(serve, card):
-    """Phase 8. Returns the K1 launches of the service's runs."""
+    """Phase 8. Returns (the K1 launches of the service's runs, HTTP
+    requests/s)."""
     from audioset_convnext_inf_torch.cli import serve as serve_cli
     from audioset_convnext_inf_torch.engine.infer import sliding_windows
 
@@ -1319,12 +1333,14 @@ def run_service(serve, card):
                 raise AssertionError(f"batcher clip {i}: off by {diff:.3e}")
             return diff
 
+        rates = {}
         for label, call in (("HTTP /tag", http_tag), ("batcher alone", batcher_tag)):
             _zero_counts()
             before = service.counters()
             lat, diff, wall = _closed_loop(call, pool, ref, SERVE_SECONDS)
             torch.cuda.synchronize()
             total += _load_report(label, service, before, lat, diff, wall, card)
+            rates[label] = len(lat) / wall
 
         sig = np.tile(pool[0], 3)[:800000]  # 25 s: 3 windows
         windows, n = sliding_windows(sig)
@@ -1374,7 +1390,7 @@ def run_service(serve, card):
         server.server_close()
         service.stop()
         thread.join(timeout=30)
-    return total
+    return total, rates["HTTP /tag"]
 
 
 # ---------------------------------------------------------------------------
@@ -1843,6 +1859,280 @@ def run_service_mesh(serve, card):
         thread.join(timeout=30)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: AOT serving bundles
+# ---------------------------------------------------------------------------
+
+# A bundle's program against the live model on the same card: the same ops
+# in the same order with the same launch plans, so bit-equal is expected;
+# allowed is the JAX package's export-vs-live tolerance on probabilities.
+BUNDLE_TOL = 1e-6
+SERVE_BUNDLE_SECONDS = 5.0
+BUNDLE_DIR = WORK / "bundles"
+# The frontend timed alone: each DFT at both serving precisions.
+FRONTEND_IMPLS = ("conv", "direct", "ct", "rfft")
+# ct and rfft on the card against the port's CPU frontend, "highest": the
+# CPU tests' tolerances against the JAX package (tests/test_torch_frontend.py),
+# dB on all bins and on bins above -40 dB.
+FRONTEND_DB_TOL = (0.15, 2e-3)
+
+
+def _bundle_check(label, got, want, launches, expect):
+    """Max abs diff of every output of ``got`` against ``want`` (dicts or
+    tensors) within BUNDLE_TOL, and K1 launches equal to ``expect``."""
+    pairs = ([(got[k], want[k]) for k in sorted(want)] if isinstance(want, dict)
+             else [(got, want)])
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    bits = all(torch.equal(a, b) for a, b in pairs)
+    log(f"  bundle {label}: max diff vs live {diff:.3e} (tol {BUNDLE_TOL}; bit-equal {bits}), "
+        f"K1 launches {launches} (expect {expect})")
+    if not diff <= BUNDLE_TOL or launches != expect:
+        raise AssertionError(f"bundle {label}: diff {diff:.3e}, K1 launches {launches}")
+    return launches
+
+
+def _dir_mb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.iterdir()) / 2**20
+
+
+def export_bundles(serve, parity):
+    """The phase's bundles, each timed: export (trace and save) seconds per
+    program and the bundle's size. Returns {name: directory}."""
+    from audioset_convnext_inf_torch.engine.aot_export import save_bundle
+
+    specs = {
+        "forward": (serve, dict(batch_sizes=(1, BATCH), kinds=("forward",))),
+        "kinds": (serve, dict(batch_sizes=(BATCH,), kinds=("scene", "frame"))),
+        "shared": (serve, dict(batch_sizes=(BATCH,), weights="shared")),
+        "dynamic": (serve, dict(batch_sizes=("dynamic",))),
+        "f32": (parity, dict(batch_sizes=(BATCH,))),
+    }
+    dirs = {}
+    for name, (model, kw) in specs.items():
+        path = BUNDLE_DIR / name
+        t0 = time.perf_counter()
+        manifest = save_bundle(model, str(path), pcm=True, **kw)
+        dt = time.perf_counter() - t0
+        n = len(manifest["entries"])
+        log(f"  export {name}: {n} program(s) {sorted(manifest['entries'])}, "
+            f"{dt / n:.2f} s per program (trace and save), {_dir_mb(path):.1f} MiB on disk, "
+            f"kernel library {manifest['kernel_library']}")
+        dirs[name] = path
+    baked = (BUNDLE_DIR / "forward" / f"forward_b{BATCH}.pt2").stat().st_size / 2**20
+    shared = (BUNDLE_DIR / "shared" / f"forward_b{BATCH}.pt2").stat().st_size / 2**20
+    params = (BUNDLE_DIR / "shared" / "params.npz").stat().st_size / 2**20
+    log(f"  bundle size, one program at B={BATCH}: baked {baked:.1f} MiB; shared {shared:.1f} MiB "
+        f"+ params.npz {params:.1f} MiB once")
+    return dirs
+
+
+def _timed_rate(fn, batch: int, iters: int = 10):
+    """(clips/s of ``iters`` calls after one, K1 launches of all of them)."""
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
+
+    fused_block.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return batch * iters / (time.perf_counter() - t0), fused_block.launches
+
+
+def check_bundles(serve, parity, dirs, card):
+    """Load each bundle and hold it against the live model. Returns (the
+    forward bundle, its K1 launches in all)."""
+    from audioset_convnext_inf_torch.engine.aot_export import load_bundle
+
+    per = sum(K1_MAIN_PATH.values())
+    pcm = fixture_batch(BATCH, SEED + 61)
+    bundles = {}
+    for name, path in dirs.items():
+        t0 = time.perf_counter()
+        bundles[name] = load_bundle(str(path))
+        load_s = time.perf_counter() - t0
+        kind = "forward" if "forward" in bundles[name].manifest["kinds"] else "scene"
+        t0 = time.perf_counter()
+        bundles[name](pcm, kind=kind)
+        torch.cuda.synchronize()
+        log(f"  load {name}: {load_s:.2f} s; first call (B={BATCH}, {kind}) "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    # the live model and the bundles must run one K1 library, the package's
+    # build, with nothing pinned: else the comparisons below hold the
+    # bundles against a live model that runs the bundle's library
+    from audioset_convnext_inf_torch.ops import _build
+
+    live_lib = _build.library("fused_block").name
+    libs = {name: b.manifest["kernel_library"] for name, b in bundles.items()}
+    log(f"  K1 library: live model {live_lib}; bundles {libs}; pinned "
+        f"{ {k: v.name for k, v in _build._PINNED.items()} }")
+    if _build._PINNED or set(libs.values()) - {live_lib, None}:
+        raise AssertionError(f"K1 libraries differ: live {live_lib}, bundles {libs}, "
+                             f"pinned {_build._PINNED}")
+    total = 0
+    padded = np.zeros_like(pcm)
+    padded[:3] = pcm[:3]
+    live = {"B=16": serve.forward(pcm), "padded": serve.forward(padded),
+            "B=1": serve.forward(pcm[:1])}
+    cases = [
+        ("forward B=16", lambda: bundles["forward"](pcm), live["B=16"], per),
+        ("forward B=3 (bucket 16) vs live forward of the same 16 rows",
+         lambda: bundles["forward"](pcm[:3]), {k: v[:3] for k, v in live["padded"].items()}, per),
+        ("forward B=1 (bucket 1)", lambda: bundles["forward"](pcm[:1]), live["B=1"], per),
+        ("scene B=16", lambda: bundles["kinds"](pcm, kind="scene"),
+         serve.forward_scene_embeddings(pcm), per),
+        ("frame B=16", lambda: bundles["kinds"](pcm, kind="frame"),
+         serve.forward_frame_embeddings(pcm), per),
+        ("shared weights B=16", lambda: bundles["shared"](pcm), live["B=16"], per),
+        ("dynamic B=2", lambda: bundles["dynamic"](pcm[:2]), serve.forward(pcm[:2]), per),
+        ("dynamic B=5", lambda: bundles["dynamic"](pcm[:5]), serve.forward(pcm[:5]), per),
+        ("f32 parity B=16", lambda: bundles["f32"](pcm), parity.forward(pcm), 0),
+    ]
+    for label, fn, want, expect in cases:
+        out, n = _k1_count(fn)
+        total += _bundle_check(label, out, want, n, expect)
+    live3 = serve.forward(pcm[:3])["clipwise_output"]
+    log(f"  (forward B=3 in bucket 16 vs live forward at B=3: max diff "
+        f"{(bundles['forward'](pcm[:3])['clipwise_output'] - live3).abs().max().item():.3e}; "
+        f"cuBLAS picks its kernels by row count)")
+    # what the bundle's precision setting is for: the f32 program with
+    # cuDNN's default (TF32 on)
+    program = bundles["f32"]._programs[f"forward:{BATCH}"]
+    with torch.inference_mode():
+        tf32 = program(torch.from_numpy(pcm).to(serve.device))["clipwise_output"]
+    log(f"  f32 parity program without fp32_precision('highest') (cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}): max diff "
+        f"vs live {(tf32 - parity.forward(pcm)['clipwise_output']).abs().max().item():.3e}")
+    live_rate, _ = _timed_rate(lambda: serve.forward(pcm), BATCH)
+    bundle_rate, n = _timed_rate(lambda: bundles["forward"](pcm), BATCH)
+    _expect_launches("bundle forward, 11 timed calls", n, 11 * per)
+    log(f"  steady B={BATCH} (host int16 in, sync out): bundle {bundle_rate:.1f} clips/s, live "
+        f"forward {live_rate:.1f} clips/s [{card}]")
+    return bundles["forward"], total + n
+
+
+def check_bundle_subprocess(bundle_dir: Path, want: np.ndarray, pcm: np.ndarray):
+    """Load the forward bundle in a fresh process that cannot import the
+    port's models or checkpoint packages; its B=16 answer must be bit-equal
+    to this process's, with 12 K1 launches."""
+    npy = BUNDLE_DIR / "pcm.npy"
+    np.save(npy, pcm)
+    code = (
+        "import sys, time\n"
+        "for name in ('audioset_convnext_inf_torch.models', "
+        "'audioset_convnext_inf_torch.checkpoint'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "t0 = time.perf_counter()\n"
+        "from audioset_convnext_inf_torch.engine.aot_export import load_bundle\n"
+        "from audioset_convnext_inf_torch.ops.fused_block import fused_block\n"
+        f"b = load_bundle({str(bundle_dir)!r})\n"
+        "t1 = time.perf_counter()\n"
+        f"out = b(np.load({str(npy)!r}))['clipwise_output'].float().cpu()\n"
+        f"np.save({str(BUNDLE_DIR / 'out.npy')!r}, out.numpy())\n"
+        "print(fused_block.launches, round(t1 - t0, 2), round(time.perf_counter() - t1, 3))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"bundle in a process without model code: {proc.stderr[-3000:]}")
+    launches, load_s, call_s = proc.stdout.split()[-3:]
+    got = np.load(BUNDLE_DIR / "out.npy")
+    diff = float(np.abs(got - want).max())
+    log(f"  process without model code: load {load_s} s, first call {float(call_s) * 1e3:.1f} ms, "
+        f"K1 launches {launches}, max diff vs this process {diff:.3e}")
+    if diff != 0.0 or int(launches) != sum(K1_MAIN_PATH.values()):
+        raise AssertionError(f"bundle without model code: diff {diff}, launches {launches}")
+
+
+def run_serve_bundle(bundle, bundle_dir: Path, card, http_rate):
+    """cli/serve.py --bundle: phase 8's HTTP traffic for SERVE_BUNDLE_SECONDS;
+    each answer must equal the bundle's own forward of that clip in a batch
+    of 16, and each batch must launch K1 12 times. Returns the launches."""
+    from audioset_convnext_inf_torch.cli import serve as serve_cli
+    from audioset_convnext_inf_torch.engine.aot_export import BundleModel
+
+    pool = fixture_batch(SERVE_POOL, SEED + 21)
+    ref = np.concatenate([bundle(pool[i:i + BATCH])["clipwise_output"].cpu().numpy()
+                          for i in range(0, SERVE_POOL, BATCH)])
+    server, service = serve_cli.make_server(
+        ["--port", "0", "--bundle", str(bundle_dir), "--batch-size", "64", "--max-wait-ms", "20"])
+    if not isinstance(service.model, BundleModel) or service.batch_size != BATCH:
+        raise AssertionError(f"serve --bundle: model {type(service.model).__name__}, batch "
+                             f"{service.batch_size} (the largest bucket is {BATCH})")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        def http_tag(i):
+            return _check_top(_post(url + "/tag", pool[i].astype("<i2").tobytes(),
+                                     "application/pcm-int16"), ref[i], f"/tag clip {i}")
+
+        _zero_counts()
+        before = service.counters()
+        lat, diff, wall = _closed_loop(http_tag, pool, ref, SERVE_BUNDLE_SECONDS)
+        torch.cuda.synchronize()
+        n = _load_report("HTTP /tag, serve --bundle", service, before, lat, diff, wall, card)
+        log(f"  serve --bundle {len(lat) / wall:.1f} requests/s beside phase 8's "
+            f"{http_rate:.1f} (batch-size 64 asked, clamped to {BATCH})")
+        return n
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        thread.join(timeout=30)
+
+
+def time_frontend(device, card):
+    """Each DFT of the frontend alone, B=16 10-s clips on the card (CUDA
+    events), at "highest" and "default"; then ct and rfft on the card
+    against the port's CPU frontend ("highest", FRONTEND_DB_TOL)."""
+    import dataclasses
+
+    from audioset_convnext_inf_torch.config import FrontendConfig
+    from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
+    from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
+
+    pcm = fixture_batch(BATCH, SEED)
+    x = decode_pcm_if_int16(torch.from_numpy(pcm).to(device))
+    for precision in ("highest", "default"):
+        times = []
+        for impl in FRONTEND_IMPLS:
+            fe = LogMelFrontend(FrontendConfig(dft_impl=impl, precision=precision), device=device)
+            with torch.inference_mode():
+                times.append(f"{impl} {cuda_ms(lambda: fe(x), iters=20):.3f}")
+        log(f"  frontend alone, B={BATCH} 10-s clips, precision {precision!r}: "
+            f"{', '.join(times)} ms [{card}]")
+    clips = torch.from_numpy(pcm[:2]).float() * (1.0 / 32767.0)
+    for impl in ("ct", "rfft"):
+        cfg = dataclasses.replace(FrontendConfig(), dft_impl=impl)
+        with torch.inference_mode():
+            got = LogMelFrontend(cfg, device=device)(clips.to(device)).cpu()
+            want = LogMelFrontend(cfg)(clips)
+        err = (got - want).abs()
+        loud = err[want > -40.0].max().item()
+        log(f"  frontend {impl} card vs CPU (highest, 2 clips): max {err.max().item():.3e} dB, "
+            f"above -40 dB {loud:.3e} dB (tol {FRONTEND_DB_TOL})")
+        if not (err.max().item() <= FRONTEND_DB_TOL[0] and loud <= FRONTEND_DB_TOL[1]):
+            raise AssertionError(f"frontend {impl} on the card disagrees with the CPU")
+
+
+def run_bundle_phase(serve, device, card, http_rate):
+    """Phase 11. Returns the K1 launches of its bundle paths."""
+    BUNDLE_DIR.mkdir(parents=True, exist_ok=True)
+    parity = build_model(device, torch.float32)
+    dirs = export_bundles(serve, parity)
+    forward, launches = check_bundles(serve, parity, dirs, card)
+    pcm = fixture_batch(BATCH, SEED + 61)
+    out, n = _k1_count(lambda: forward(pcm))
+    want = out["clipwise_output"].float().cpu().numpy()
+    launches += n
+    check_bundle_subprocess(dirs["forward"], want, pcm)
+    launches += run_serve_bundle(forward, dirs["forward"], card, http_rate)
+    time_frontend(device, card)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -1889,27 +2179,27 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    phase(f"[1/10] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    phase(f"[1/11] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    phase("[2/10] build")
+    phase("[2/11] build")
     build_kernels(["fused_block", "fused_block_bwd"])
 
-    phase("[3/10] kernels against their plain versions")
+    phase("[3/11] kernels against their plain versions")
     k1_results = check_k1(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
-    phase("[4/10] serving path: convnext_tiny, B=16 x 10-s clips")
+    phase("[4/11] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
     check_row_independence(serve)
 
-    phase(f"[5/10] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+    phase(f"[5/11] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
     trainer, batch, train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    phase(f"[6/10] times on {card}")
+    phase(f"[6/11] times on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
@@ -1918,7 +2208,7 @@ def main() -> int:
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
-    phase("[7/10] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
+    phase("[7/11] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
     WORK.mkdir(parents=True, exist_ok=True)
     surface_launches = check_checkpoint_round_trip(serve, device, fixture_batch(BATCH, SEED))
     pcm, target = eval_data(SEED + 9)
@@ -1932,15 +2222,15 @@ def main() -> int:
     one_rate = time_evaluator(serve, ev, pcm, target, card)
     del ev
 
-    phase(f"[8/10] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
-    service_launches = run_service(serve, card)
+    phase(f"[8/11] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
+    service_launches, http_rate = run_service(serve, card)
     torch.cuda.empty_cache()
 
-    phase("[9/10] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
+    phase("[9/11] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
     runner = CliRunner()
     cli_launches, three = run_train_cli(runner, card)
 
-    phase("[10/10] data parallelism on the one card")
+    phase("[10/11] data parallelism on the one card")
     torch.cuda.empty_cache()
     log("  (a) cli/train.py under torchrun's environment, world size 1, NCCL")
     nccl_launches = run_nccl_world_1(runner, three, card)
@@ -1952,6 +2242,9 @@ def main() -> int:
     sharded_eval_launches = check_sharded_evaluator(serve, device, pcm, target, one_rate, card)
     log("  (d) cli/serve.py --mesh")
     mesh_launches = run_service_mesh(serve, card)
+
+    phase("[11/11] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
+    bundle_launches = run_bundle_phase(serve, device, card, http_rate)
     del serve
     shutil.rmtree(WORK)
     phase("done")
@@ -1959,8 +2252,9 @@ def main() -> int:
     kernels = [
         _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
                launches + surface_launches + service_launches + cli_launches[0]
-               + sharded_eval_launches + mesh_launches, k1_results, per_shape,
-               "serving forward (phases 4, 7, 8, 10(c-d), and phase 9's evaluations in f32)",
+               + sharded_eval_launches + mesh_launches + bundle_launches, k1_results, per_shape,
+               "serving forward (phases 4, 7, 8, 10(c-d), 11's bundles, and phase 9's "
+               "evaluations in f32)",
                K1_MAIN_PATH, unfused, err_cases=K1_SERVING_CASES),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",

@@ -95,3 +95,77 @@ def test_defines_name_their_own_library(before, name):
     assert stencil != _build.library_path(name, ("MT_WIDE=16",))
     assert stencil == _build.library_path(name, ("ABLATE_STENCIL",))
     assert _build.library_path(name, ()) == before[name]
+
+
+def test_a_pinned_kernel_loads_its_file_and_keeps_it(monkeypatch, tmp_path, caplog):
+    """A serving bundle of another build pins K1 to its copy of the
+    library, and says so: the kernel then resolves to that file and builds
+    nothing; the same build from another directory is the same pin, another
+    build raises, and so does a missing file or a -D build of a pinned
+    kernel."""
+    monkeypatch.setattr(_build, "_PINNED", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "build", lambda *a: pytest.fail("a pinned kernel built"))
+    first, again = tmp_path / "a", tmp_path / "b"
+    for d in (first, again):
+        d.mkdir()
+        (d / "libfused_block_0000.so").write_bytes(b"")
+    (first / "libfused_block_1111.so").write_bytes(b"")
+    with pytest.raises(FileNotFoundError):
+        _build.use_library("fused_block", first / "libfused_block_2222.so")
+    assert _build.use_library("fused_block", first / "libfused_block_0000.so")
+    assert "libfused_block_0000.so" in caplog.text
+    assert _build.use_library("fused_block", again / "libfused_block_0000.so")
+    assert _build.library("fused_block") == first / "libfused_block_0000.so"
+    with pytest.raises(RuntimeError, match="pinned"):
+        _build.use_library("fused_block", first / "libfused_block_1111.so")
+    with pytest.raises(RuntimeError, match="no -D"):
+        _build.library("fused_block", ("ABLATE_STENCIL",))
+
+
+def test_a_bundle_of_this_build_pins_nothing(monkeypatch, tmp_path):
+    """A bundle whose library has the name of the package's own build (the
+    same sources and flags) runs that build: the bundle's copy is installed
+    as the build where none exists, an existing build is kept, nothing is
+    pinned, and -D builds stay open."""
+    monkeypatch.setattr(_build, "_PINNED", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    own = _build.library_path("fused_block")
+    copy = tmp_path / "bundle" / own.name
+    copy.parent.mkdir()
+    copy.write_bytes(b"bundle")
+    assert _build.use_library("fused_block", copy) is False
+    assert own.read_bytes() == b"bundle" and not _build._PINNED
+    own.write_bytes(b"built")
+    assert _build.use_library("fused_block", copy) is False
+    assert own.read_bytes() == b"built"
+    monkeypatch.setattr(_build, "build",
+                        lambda name, defines=(): _build.library_path(name, defines))
+    _build._build_once.cache_clear()
+    try:
+        assert _build.library("fused_block") == own
+        assert _build.library("fused_block", ("ABLATE_STENCIL",)) != own
+    finally:
+        _build._build_once.cache_clear()
+
+
+def test_a_launch_does_not_hash_the_sources_again(monkeypatch, tmp_path):
+    """Every kernel launch resolves its library (``load``): the build, and
+    so the hash of the sources, runs once per process and set of macros,
+    not at each launch."""
+    calls = []
+
+    def build(name, defines=()):
+        calls.append((name, tuple(defines)))
+        return tmp_path / f"lib{name}.so"
+
+    monkeypatch.setattr(_build, "_PINNED", {})
+    monkeypatch.setattr(_build, "build", build)
+    _build._build_once.cache_clear()
+    try:
+        for _ in range(3):
+            assert _build.library("fused_block") == tmp_path / "libfused_block.so"
+            _build.library("fused_block", ("ABLATE_STENCIL",))
+        assert calls == [("fused_block", ()), ("fused_block", ("ABLATE_STENCIL",))]
+    finally:
+        _build._build_once.cache_clear()

@@ -47,7 +47,7 @@ def test_imports_with_jax_blocked():
 SERVING_AND_TRAINING = (
     "cli/serve.py", "cli/train.py", "data/blacklist.py", "data/samplers.py",
     "engine/service.py", "engine/statistics.py", "engine/trainer.py", "checkpoint/io.py",
-    "labels.py", "utils/logging_utils.py",
+    "labels.py", "utils/logging_utils.py", "engine/aot_export.py", "cli/export_serving.py",
 )
 
 
@@ -70,8 +70,8 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 
 
 def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
-    from audioset_convnext_inf_torch.cli import (convert, demo, evaluate, extract_embeddings,
-                                                 serve, train)
+    from audioset_convnext_inf_torch.cli import (convert, demo, evaluate, export_serving,
+                                                 extract_embeddings, serve, train)
     from audioset_convnext_inf_torch.engine.evaluator import Evaluator
     from audioset_convnext_inf_torch.models import api
 
@@ -95,10 +95,17 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
                        ([wav, "--out", out + ".h5"], extract_embeddings.main),
                        (["c.safetensors", out], convert.main),
                        (["--port", "0"], serve.main),
+                       ([out], export_serving.main),
                        (["--train-indexes", "i.h5", "--workspace", out], train.main)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     assert not list(tmp_path.iterdir())  # nothing was written
+    from audioset_convnext_inf_torch.engine.aot_export import save_bundle
+
+    bundle = str(tmp_path / "cpu_bundle")  # a bundle exported for the CPU
+    save_bundle(model, bundle, batch_sizes=(1,), num_samples=16000)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--port", "0", "--bundle", bundle])
 
 
 def test_the_port_loads_no_native_library():

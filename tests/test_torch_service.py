@@ -374,3 +374,43 @@ def test_http_overload_is_429(monkeypatch, server):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(url + "/tag", np.zeros(100, np.float32).tobytes(), "application/octet-stream")
     assert e.value.code == 429
+
+
+def test_serve_bundle_answers_as_the_bundle(tmp_path):
+    """cli/serve.py --bundle serves an AOT bundle (10-s clips, int16 in)
+    with no live model: --batch-size is clamped to the largest bucket, each
+    /tag answer is the bundle's own forward, /embed its scene program;
+    --bundle with --mesh is an argument error, and a bundle does not serve
+    on another device type."""
+    from audioset_convnext_inf_torch.engine.aot_export import BundleModel, save_bundle
+
+    path = str(tmp_path / "bundle")
+    save_bundle(ConvNeXt(ConvNeXtConfig(**TINY), device="cpu"), path, batch_sizes=(2,),
+                kinds=("forward", "scene"), pcm=True)
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--bundle", path, "--mesh"])
+    with pytest.raises(ValueError, match="exported for cpu"):
+        serve.make_server(["--port", "0", "--bundle", path, "--device", "cuda"])
+    srv, service = serve.make_server(["--port", "0", "--bundle", path, "--batch-size", "8",
+                                      "--max-wait-ms", "5", "--device", "cpu"])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        assert isinstance(service.model, BundleModel) and service.batch_size == 2
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        pcm = np.clip(np.round(np.random.RandomState(8).randn(CLIP_SAMPLES) * 3000),
+                      -32768, 32767).astype("<i2")
+        bundle = service.model.bundle
+        want = bundle(pcm[None])["clipwise_output"][0].numpy()
+        out = _post(url + "/tag", pcm.tobytes(), "application/pcm-int16")
+        top = np.argsort(want)[::-1][:10]
+        assert out["indexes"] == [int(i) for i in top]
+        np.testing.assert_array_equal(np.float32(out["probs"]), want[top])
+        emb = _post(url + "/embed", pcm.tobytes(), "application/pcm-int16")["embedding"]
+        np.testing.assert_array_equal(np.float32(emb), bundle(pcm[None], kind="scene")[0].numpy())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.stop()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
