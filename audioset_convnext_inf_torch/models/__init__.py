@@ -1,4 +1,4 @@
-"""Model zoo: factories and the ConvNeXt module."""
+"""Model zoo: the ConvNeXt factories and module, and the PANN zoo."""
 
 from audioset_convnext_inf_torch.models.api import (
     MODEL_REGISTRY,
@@ -12,6 +12,12 @@ from audioset_convnext_inf_torch.models.api import (
     convnext_tiny,
     create_model,
 )
+from audioset_convnext_inf_torch.models.pann import (
+    PANN_REGISTRY,
+    PannConfig,
+    PannModel,
+    create_pann_model,
+)
 
 __all__ = [
     "ConvNeXt",
@@ -24,4 +30,8 @@ __all__ = [
     "convnext_base",
     "create_model",
     "MODEL_REGISTRY",
+    "PANN_REGISTRY",
+    "PannConfig",
+    "PannModel",
+    "create_pann_model",
 ]

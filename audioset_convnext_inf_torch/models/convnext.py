@@ -125,20 +125,15 @@ def init_params_(model: ConvNeXtModule, cfg: ConvNeXtConfig, gen: torch.Generato
     """The reference recipe (trunc_normal std=0.02 for conv/linear weights,
     zero biases); draws in the JAX package's key order. The numbers differ
     from the JAX package's: tests carry weights across instead."""
-
-    def fill(mod: nn.Module) -> None:
-        mod.weight.copy_(L.trunc_normal(mod.weight.shape, gen))
-        mod.bias.zero_()
-
-    fill(model.downsample_layers[0][0])
+    L.init_conv_(model.downsample_layers[0][0], gen)
     for i in range(1, 4):
-        fill(model.downsample_layers[i][1])
-    fill(model.head_audioset)
+        L.init_conv_(model.downsample_layers[i][1], gen)
+    L.init_linear_(model.head_audioset, gen)
     for stage in model.stages:
         for blk in stage:
-            fill(blk.dwconv)
-            fill(blk.pwconv1)
-            fill(blk.pwconv2)
+            L.init_conv_(blk.dwconv, gen)
+            L.init_linear_(blk.pwconv1, gen)
+            L.init_linear_(blk.pwconv2, gen)
     if cfg.head_init_scale != 1.0:
         model.head_audioset.weight.mul_(cfg.head_init_scale)
         model.head_audioset.bias.mul_(cfg.head_init_scale)

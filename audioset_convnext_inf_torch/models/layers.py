@@ -15,6 +15,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from audioset_convnext_inf_torch.ops.precision import fp32_precision, mm_f32acc
 
@@ -36,6 +37,39 @@ def trunc_normal(
     u = torch.empty(tuple(shape), dtype=torch.float32)
     u.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
     return torch.clamp(torch.erfinv(u) * (std * math.sqrt(2.0)) + mean, a, b)
+
+
+@torch.no_grad()
+def init_conv_(conv: nn.Module, generator: torch.Generator) -> None:
+    """In place: truncated-normal weight (std 0.02), zero bias where there
+    is one; the JAX package's ``init_conv`` and ``init_linear``."""
+    conv.weight.copy_(trunc_normal(conv.weight.shape, generator))
+    if conv.bias is not None:
+        conv.bias.zero_()
+
+
+init_linear_ = init_conv_
+
+
+@torch.no_grad()
+def init_layer_norm_(norm: nn.Module) -> None:
+    """In place: weight 1, bias 0 (the JAX package's ``init_layer_norm``)."""
+    norm.weight.fill_(1.0)
+    norm.bias.zero_()
+
+
+@torch.no_grad()
+def init_batch_norm_(norm: nn.Module) -> None:
+    """In place: weight 1, bias 0, running mean 0, running variance 1 (the
+    JAX package's ``init_batch_norm``)."""
+    init_layer_norm_(norm)
+    norm.running_mean.zero_()
+    norm.running_var.fill_(1.0)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, torch's ``nn.GELU()`` default."""
+    return F.gelu(x, approximate="none")
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

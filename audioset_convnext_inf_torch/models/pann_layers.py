@@ -1,0 +1,550 @@
+"""Building blocks of the PANN legacy model zoo, as modules.
+
+The same blocks as the JAX package's ``models/pann_layers.py``, which
+rebuilds the shared modules of the reference's pytorch/models.py
+(ConvBlock:1877, ConvBlock5x5:1977, ConvBlockSep:2181, AttBlock:2059,
+LeeNetConvBlock:4271/4362, DaiNetResBlock:4469, _Resnet*:3246-3435,
+_ResnetBasicBlockWav1d:4609, ConvPreWavBlock:4855, MobileNet blocks:4000+).
+
+Layouts are the reference's: 2-D maps NCHW (B, C, time, mel), 1-D maps NCL.
+Each module holds its parameters under the reference's names, so a
+reference state dict loads into the zoo's models as it is. BatchNorm runs
+in eval mode from its running statistics, folded to one scale and shift
+(``layers.batch_norm_apply``); the zoo's training forward is not ported.
+
+Initialization (``init_params_``) is the JAX package's recipe drawn from a
+``torch.Generator``: Glorot-uniform convs and linears with zero biases, BN
+at identity, and the JAX init's zeros: the last BN scale of every residual
+block and the deformable offset and modulator convs, so that at init a
+residual block is its identity path and a deformable conv a regular one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from audioset_convnext_inf_torch.models import layers as L
+from audioset_convnext_inf_torch.models.convnext import BatchNorm0, LayerNorm
+from audioset_convnext_inf_torch.ops.deform_conv import deform_conv2d
+
+# ---------------------------------------------------------------------------
+# Norms, pools, initialization
+# ---------------------------------------------------------------------------
+
+
+class BatchNorm(BatchNorm0):
+    """Eval-mode BatchNorm over one axis (the channels, axis 1, by
+    default): the reference's four entries, without ``num_batches_tracked``."""
+
+    def forward(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        return L.batch_norm_apply(x, self.weight, self.bias, self.running_mean,
+                                  self.running_var, axis=axis)
+
+
+class LayerNorm2d(LayerNorm):
+    """LayerNorm over axis 1 of an NCHW map (the reference's channels_first
+    LayerNorm)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def conv2d(in_ch: int, out_ch: int, k: int, padding: int = 0, stride: int = 1,
+           groups: int = 1, bias: bool = False) -> nn.Conv2d:
+    """An uninitialized Conv2d (``init_params_`` draws its weights)."""
+    return nn.utils.skip_init(nn.Conv2d, in_ch, out_ch, k, stride, padding, groups=groups,
+                              bias=bias)
+
+
+def conv1d(in_ch: int, out_ch: int, k: int, padding: int = 0, stride: int = 1,
+           dilation: int = 1, bias: bool = False) -> nn.Conv1d:
+    return nn.utils.skip_init(nn.Conv1d, in_ch, out_ch, k, stride, padding, dilation,
+                              bias=bias)
+
+
+def linear(in_dim: int, out_dim: int) -> nn.Linear:
+    return nn.utils.skip_init(nn.Linear, in_dim, out_dim)
+
+
+@torch.no_grad()
+def init_params_(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's PANN init, in module order: Glorot-uniform conv
+    and linear weights and zero biases, BN and LN at identity; then each
+    block's own zeros (``post_init_``)."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            nn.init.xavier_uniform_(mod.weight, generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            L.init_batch_norm_(mod)
+        elif isinstance(mod, LayerNorm):
+            L.init_layer_norm_(mod)
+    for mod in model.modules():
+        if hasattr(mod, "post_init_"):
+            mod.post_init_(generator)
+
+
+def pool2d(x: torch.Tensor, pool_size: Tuple[int, int], pool_type: str = "avg") -> torch.Tensor:
+    """NCHW pooling with kernel = stride, floor (torch's F.*_pool2d
+    defaults). "no", and avg or max at (1, 1), are the identity."""
+    pool_size = tuple(pool_size)
+    if pool_type == "no" or (pool_size == (1, 1) and pool_type in ("avg", "max")):
+        return x
+    if pool_type == "avg":
+        return F.avg_pool2d(x, pool_size)
+    if pool_type == "max":
+        return F.max_pool2d(x, pool_size)
+    if pool_type == "avg+max":
+        return F.avg_pool2d(x, pool_size) + F.max_pool2d(x, pool_size)
+    raise ValueError(f"Incorrect pool_type {pool_type!r}")
+
+
+def pool1d(x: torch.Tensor, kernel: int, stride: Optional[int] = None, padding: int = 0,
+           pool_type: str = "max") -> torch.Tensor:
+    """NCL pooling, stride = kernel by default: max pads with -inf, avg
+    counts the padding (torch's ``count_include_pad=True``)."""
+    stride = stride or kernel
+    if pool_type == "max":
+        return F.max_pool1d(x, kernel, stride, padding)
+    return F.avg_pool1d(x, kernel, stride, padding, count_include_pad=True)
+
+
+# ---------------------------------------------------------------------------
+# 2-D conv blocks
+# ---------------------------------------------------------------------------
+
+
+class ConvBlock(nn.Module):
+    """Two 3x3 convs, each with BN and ReLU, then a pool (models.py:1877)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv1 = conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv2 = conv2d(out_ch, out_ch, 3, padding=1)
+        self.bn1 = BatchNorm(out_ch)
+        self.bn2 = BatchNorm(out_ch)
+
+    def forward(self, x, pool_size=(2, 2), pool_type="avg"):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        return pool2d(x, pool_size, pool_type)
+
+
+class ConvBlock5x5(nn.Module):
+    """One 5x5 conv with BN and ReLU, then a pool (models.py:1977)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv1 = conv2d(in_ch, out_ch, 5, padding=2)
+        self.bn1 = BatchNorm(out_ch)
+
+    def forward(self, x, pool_size=(2, 2), pool_type="avg"):
+        return pool2d(F.relu(self.bn1(self.conv1(x))), pool_size, pool_type)
+
+
+class ConvBlockSep(nn.Module):
+    """A 3x3 conv then a 3x3 depthwise conv (models.py:2181)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv1 = conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv2 = conv2d(out_ch, out_ch, 3, padding=1, groups=out_ch)
+        self.bn1 = BatchNorm(out_ch)
+        self.bn2 = BatchNorm(out_ch)
+
+    def forward(self, x, pool_size=(2, 2), pool_type="avg"):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        return pool2d(x, pool_size, pool_type)
+
+
+class ConvBlockSepPW(ConvBlockSep):
+    """ConvBlockSep and a 2x-expansion pointwise MLP with erf GELU over the
+    channels, no norm or activation after it (models.py:2330-2399)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch)
+        self.pwconv1 = linear(out_ch, 2 * out_ch)
+        self.pwconv2 = linear(2 * out_ch, out_ch)
+
+    def forward(self, x, pool_size=(2, 2), pool_type="avg"):
+        x = super().forward(x, (1, 1), "no").permute(0, 2, 3, 1)
+        x = self.pwconv2(L.gelu(self.pwconv1(x))).permute(0, 3, 1, 2)
+        return pool2d(x, pool_size, pool_type)
+
+
+class DeformableConv2d(nn.Module):
+    """The reference's DeformableConv2d (models.py:202-265): offsets from a
+    conv, clamped to max(h, w)/4; modulator 2*sigmoid(conv); then
+    ``deform_conv2d`` with the regular conv's weight. The JAX init zeroes
+    the offset and modulator convs and draws the regular conv from a
+    truncated normal (std 0.02)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int):
+        super().__init__()
+        pad = k // 2
+        self.offset_conv = conv2d(in_ch, 2 * k * k, k, padding=pad, bias=True)
+        self.modulator_conv = conv2d(in_ch, k * k, k, padding=pad, bias=True)
+        self.regular_conv = conv2d(in_ch, out_ch, k, padding=pad)
+        self.k = k
+
+    @torch.no_grad()
+    def post_init_(self, generator: torch.Generator) -> None:
+        for conv in (self.offset_conv, self.modulator_conv):
+            conv.weight.zero_()
+            conv.bias.zero_()
+        L.init_conv_(self.regular_conv, generator)
+
+    def forward(self, x):
+        pad = self.k // 2
+        max_offset = max(x.shape[2], x.shape[3]) / 4.0
+        offset = torch.clamp(self.offset_conv(x), -max_offset, max_offset)
+        modulator = 2.0 * torch.sigmoid(self.modulator_conv(x))
+        return deform_conv2d(x, offset, self.regular_conv.weight, mask=modulator,
+                             padding=(pad, pad))
+
+
+class ConvBlockDeformable(nn.Module):
+    """ConvBlock (kernel 3: two convs) or ConvBlock5x5 (kernel 5: one) with
+    deformable convs (models.py:1877-1929 with deformable=True)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3):
+        super().__init__()
+        self.conv1 = DeformableConv2d(in_ch, out_ch, kernel)
+        self.bn1 = BatchNorm(out_ch)
+        if kernel == 3:
+            self.conv2 = DeformableConv2d(out_ch, out_ch, kernel)
+            self.bn2 = BatchNorm(out_ch)
+
+    def forward(self, x, pool_size=(2, 2), pool_type="avg"):
+        x = F.relu(self.bn1(self.conv1(x)))
+        if hasattr(self, "conv2"):
+            x = F.relu(self.bn2(self.conv2(x)))
+        return pool2d(x, pool_size, pool_type)
+
+
+# ---------------------------------------------------------------------------
+# Attention pooling (models.py AttBlock:2059-2088)
+# ---------------------------------------------------------------------------
+
+
+class AttBlock(nn.Module):
+    """Decision-level attention over time: x (B, n_in, T) -> (clipwise
+    (B, n_out), norm_att, cla (B, n_out, T)); softmax over time of the
+    attention logits clamped to [-10, 10], sigmoid classes (the only
+    activation the zoo uses)."""
+
+    def __init__(self, n_in: int, n_out: int):
+        super().__init__()
+        self.att = conv1d(n_in, n_out, 1, bias=True)
+        self.cla = conv1d(n_in, n_out, 1, bias=True)
+
+    def forward(self, x):
+        norm_att = torch.softmax(torch.clamp(self.att(x), -10, 10), dim=-1)
+        cla = torch.sigmoid(self.cla(x))
+        return torch.sum(norm_att * cla, dim=-1), norm_att, cla
+
+
+# ---------------------------------------------------------------------------
+# 1-D waveform blocks
+# ---------------------------------------------------------------------------
+
+
+class LeeBlock(nn.Module):
+    """Conv1d (stride at construction) with BN and ReLU, then a max pool
+    padded by pool_size//2 (models.py:4271)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int):
+        super().__init__()
+        self.conv1 = conv1d(in_ch, out_ch, kernel, padding=kernel // 2, stride=stride)
+        self.bn1 = BatchNorm(out_ch)
+
+    def forward(self, x, pool_size: int = 1):
+        x = F.relu(self.bn1(self.conv1(x)))
+        if pool_size != 1:
+            x = pool1d(x, pool_size, padding=pool_size // 2)
+        return x
+
+
+class LeeBlock2(LeeBlock):
+    """LeeBlock with a second (stride-1) conv, BN and ReLU (models.py:4362)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int):
+        super().__init__(in_ch, out_ch, kernel, stride)
+        self.conv2 = conv1d(out_ch, out_ch, kernel, padding=kernel // 2)
+        self.bn2 = BatchNorm(out_ch)
+
+    def forward(self, x, pool_size: int = 1):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        if pool_size != 1:
+            x = pool1d(x, pool_size, padding=pool_size // 2)
+        return x
+
+
+class DaiBlock(nn.Module):
+    """DaiNet's residual block (models.py:4469): four convs with BN (ReLU
+    after the first three), the identity or a 1x1 conv and BN, ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int):
+        super().__init__()
+        for i in range(4):
+            setattr(self, f"conv{i + 1}",
+                    conv1d(out_ch if i else in_ch, out_ch, kernel, padding=kernel // 2))
+        self.downsample = conv1d(in_ch, out_ch, 1)
+        for i in range(4):
+            setattr(self, f"bn{i + 1}", BatchNorm(out_ch))
+        self.bn_downsample = BatchNorm(out_ch)
+
+    @torch.no_grad()
+    def post_init_(self, generator: torch.Generator) -> None:
+        self.bn4.weight.zero_()
+
+    def forward(self, x, pool_size: int = 1):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = F.relu(self.bn3(self.conv3(out)))
+        out = self.bn4(self.conv4(out))
+        if x.shape == out.shape:
+            out = F.relu(out + x)
+        else:
+            out = F.relu(out + self.bn_downsample(self.downsample(x)))
+        if pool_size != 1:
+            out = pool1d(out, pool_size, padding=pool_size // 2)
+        return out
+
+
+class PreWavBlock(nn.Module):
+    """The wavegram's pre-block: conv, dilated conv (each with BN and
+    ReLU), max pool (models.py:4855-4890)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv1 = conv1d(in_ch, out_ch, 3, padding=1)
+        self.conv2 = conv1d(out_ch, out_ch, 3, padding=2, dilation=2)
+        self.bn1 = BatchNorm(out_ch)
+        self.bn2 = BatchNorm(out_ch)
+
+    def forward(self, x, pool_size: int):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        return pool1d(x, pool_size)
+
+
+# ---------------------------------------------------------------------------
+# ResNet 2-D (models.py:3246-3435) and 1-D (4609-4744)
+# ---------------------------------------------------------------------------
+
+
+def _downsample(stage: int, stride: int, conv: nn.Module, out_ch: int, pool) -> nn.Sequential:
+    """The reference's downsample Sequential: [conv, bn] at stage 0, [avg
+    pool, conv, bn] after it (so its keys are .0/.1, then .1/.2)."""
+    if stage == 0:
+        return nn.Sequential(conv, BatchNorm(out_ch))
+    return nn.Sequential(pool(stride), conv, BatchNorm(out_ch))
+
+
+class ResnetBasicBlock(nn.Module):
+    """Basic block; stride 2 is an avg pool before conv1 (and in the
+    downsample). The JAX init zeroes bn2's scale."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int, stage: int, downsample: bool):
+        super().__init__()
+        self.conv1 = conv2d(inplanes, planes, 3, padding=1)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = conv2d(planes, planes, 3, padding=1)
+        self.bn2 = BatchNorm(planes)
+        self.stride = stride
+        if downsample:
+            self.downsample = _downsample(stage, stride, conv2d(inplanes, planes, 1), planes,
+                                          nn.AvgPool2d)
+
+    @torch.no_grad()
+    def post_init_(self, generator: torch.Generator) -> None:
+        self.bn2.weight.zero_()
+
+    def forward(self, x):
+        out = pool2d(x, (2, 2), "avg") if self.stride == 2 else x
+        out = F.relu(self.bn1(self.conv1(out)))
+        out = self.bn2(self.conv2(out))
+        identity = self.downsample(x) if hasattr(self, "downsample") else x
+        return F.relu(out + identity)
+
+
+class ResnetBottleneck(nn.Module):
+    """Bottleneck block (1x1, 3x3, 1x1 to 4x planes); stride 2 pools the
+    input first. The JAX init zeroes bn3's scale."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int, stage: int, downsample: bool):
+        super().__init__()
+        self.conv1 = conv2d(inplanes, planes, 1)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = conv2d(planes, planes, 3, padding=1)
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = conv2d(planes, planes * 4, 1)
+        self.bn3 = BatchNorm(planes * 4)
+        self.stride = stride
+        if downsample:
+            self.downsample = _downsample(stage, stride, conv2d(inplanes, planes * 4, 1),
+                                          planes * 4, nn.AvgPool2d)
+
+    @torch.no_grad()
+    def post_init_(self, generator: torch.Generator) -> None:
+        self.bn3.weight.zero_()
+
+    def forward(self, x):
+        out = pool2d(x, (2, 2), "avg") if self.stride == 2 else x
+        out = F.relu(self.bn1(self.conv1(out)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = self.downsample(x) if hasattr(self, "downsample") else x
+        return F.relu(out + identity)
+
+
+class Resnet(nn.Module):
+    """The 2-D trunk: ``layer1..4`` of basic or bottleneck blocks over
+    64-512 planes, stride 2 from the second stage."""
+
+    def __init__(self, block_type: str, layers: Sequence[int]):
+        super().__init__()
+        block = ResnetBasicBlock if block_type == "basic" else ResnetBottleneck
+        inplanes = 64
+        for si, (planes, n) in enumerate(zip((64, 128, 256, 512), layers)):
+            blocks = []
+            for b in range(n):
+                s = (1 if si == 0 else 2) if b == 0 else 1
+                ds = b == 0 and (s != 1 or inplanes != planes * block.expansion)
+                blocks.append(block(inplanes, planes, s, si, ds))
+                inplanes = planes * block.expansion
+            setattr(self, f"layer{si + 1}", nn.Sequential(*blocks))
+        self.num_layers = len(layers)
+
+    def forward(self, x):
+        for si in range(self.num_layers):
+            x = getattr(self, f"layer{si + 1}")(x)
+        return x
+
+
+class Res1dBlock(nn.Module):
+    """1-D basic block (models.py:4609): the main branch max-pools by the
+    stride, the downsample avg-pools; the second conv has dilation 2. The
+    JAX init zeroes bn2's scale."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int, stage: int, downsample: bool):
+        super().__init__()
+        self.conv1 = conv1d(inplanes, planes, 3, padding=1)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = conv1d(planes, planes, 3, padding=2, dilation=2)
+        self.bn2 = BatchNorm(planes)
+        self.stride = stride
+        if downsample:
+            self.downsample = _downsample(stage, stride, conv1d(inplanes, planes, 1), planes,
+                                          nn.AvgPool1d)
+
+    @torch.no_grad()
+    def post_init_(self, generator: torch.Generator) -> None:
+        self.bn2.weight.zero_()
+
+    def forward(self, x):
+        out = pool1d(x, self.stride) if self.stride != 1 else x
+        out = F.relu(self.bn1(self.conv1(out)))
+        out = self.bn2(self.conv2(out))
+        identity = self.downsample(x) if hasattr(self, "downsample") else x
+        return F.relu(out + identity)
+
+
+_RES1D_PLANES = (64, 128, 256, 512, 1024, 1024, 2048)
+
+
+class Res1dNet(nn.Module):
+    """The 1-D trunk: ``layer1..7`` over _RES1D_PLANES, stride 4 from the
+    second stage."""
+
+    def __init__(self, layers: Sequence[int]):
+        super().__init__()
+        inplanes = 64
+        for si, (planes, n) in enumerate(zip(_RES1D_PLANES, layers)):
+            blocks = []
+            for b in range(n):
+                s = (1 if si == 0 else 4) if b == 0 else 1
+                ds = b == 0 and (s != 1 or inplanes != planes)
+                blocks.append(Res1dBlock(inplanes, planes, s, si, ds))
+                inplanes = planes
+            setattr(self, f"layer{si + 1}", nn.Sequential(*blocks))
+        self.num_layers = min(len(layers), len(_RES1D_PLANES))
+
+    def forward(self, x):
+        for si in range(self.num_layers):
+            x = getattr(self, f"layer{si + 1}")(x)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# MobileNet blocks (models.py:4000-4141); stride is an avg pool after the
+# conv, at the reference's Sequential index
+# ---------------------------------------------------------------------------
+
+
+def _stride_pool(stride: int) -> nn.Module:
+    return nn.AvgPool2d(stride) if stride > 1 else nn.Identity()
+
+
+def mb_conv_bn(inp: int, oup: int, stride: int) -> nn.Sequential:
+    """[3x3 conv, pool, BN, ReLU]."""
+    return nn.Sequential(conv2d(inp, oup, 3, padding=1), _stride_pool(stride), BatchNorm(oup),
+                         nn.ReLU())
+
+
+def mb_conv_dw(inp: int, oup: int, stride: int) -> nn.Sequential:
+    """[3x3 depthwise, pool, BN, ReLU, 1x1, BN, ReLU]."""
+    return nn.Sequential(conv2d(inp, inp, 3, padding=1, groups=inp), _stride_pool(stride),
+                         BatchNorm(inp), nn.ReLU(), conv2d(inp, oup, 1), BatchNorm(oup),
+                         nn.ReLU())
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV2's block: ``conv`` is [dw, pool, BN, ReLU6, 1x1, BN] at
+    expand ratio 1, else [1x1 expand, BN, ReLU6, dw, pool, BN, ReLU6, 1x1,
+    BN]; the input is added where stride is 1 and the widths agree."""
+
+    def __init__(self, inp: int, oup: int, stride: int, expand_ratio: int):
+        super().__init__()
+        hidden = round(inp * expand_ratio)
+        tail = [conv2d(hidden, hidden, 3, padding=1, groups=hidden), _stride_pool(stride),
+                BatchNorm(hidden), nn.ReLU6(), conv2d(hidden, oup, 1), BatchNorm(oup)]
+        head = [] if expand_ratio == 1 else [conv2d(inp, hidden, 1), BatchNorm(hidden),
+                                             nn.ReLU6()]
+        self.conv = nn.Sequential(*head, *tail)
+        self.use_res = stride == 1 and inp == oup
+
+    def forward(self, x):
+        return x + self.conv(x) if self.use_res else self.conv(x)
+
+
+# ---------------------------------------------------------------------------
+# SED helpers (pytorch_utils.py:140-177)
+# ---------------------------------------------------------------------------
+
+
+def interpolate_time(x: torch.Tensor, ratio: int) -> torch.Tensor:
+    """(B, T, C) -> (B, T*ratio, C), each frame repeated ``ratio`` times."""
+    return torch.repeat_interleave(x, ratio, dim=1)
+
+
+def pad_framewise_output(framewise: torch.Tensor, frames_num: int) -> torch.Tensor:
+    """(B, T, C) to ``frames_num`` frames: truncated, or padded with the
+    last frame."""
+    t = framewise.shape[1]
+    if t >= frames_num:
+        return framewise[:, :frames_num]
+    pad = framewise[:, -1:].expand(-1, frames_num - t, -1)
+    return torch.cat([framewise, pad], dim=1)

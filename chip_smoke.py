@@ -95,10 +95,23 @@ run (non-zero exit) on any error or mismatch:
     traffic for SERVE_BUNDLE_SECONDS, each answer equal to the bundle's own
     forward in a batch of 16; then the frontend alone (each dft_impl at
     both serving precisions, CUDA events) and ct and rfft on the card
-    against the CPU (FRONTEND_DB_TOL).
+    against the CPU (FRONTEND_DB_TOL);
+12. the PANN zoo (models/pann.py, f32 under fp32_precision("highest")): (a)
+    all 49 registry models built on the card from their seed, each
+    forwarding B=2 10-s clips at its own sample rate (the fixture and a
+    seeded clip), outputs finite, shaped and in [0, 1]; (b) one model per
+    family (PANN_PARITY), every weight and BN statistic perturbed, against
+    the port's CPU forward of the same weights within PANN_PROB_TOL, with
+    Cnn14 also run with TF32 on; (c) clips/s of Cnn14 at B=16 and 64 and of
+    Cnn14_DecisionLevelMax and Res1dNet31 at B=16 by CUDA events, beside
+    the f32 bound, peak memory, one trace of Cnn14 at B=16; (d)
+    cli/inference.py audio_tagging and sound_event_detection --out-csv on
+    the fixture with a reference-keyed checkpoint written here, their top-k
+    equal to model.forward's. No PANN forward may launch K1.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. The whole of standard output also goes to
+chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -134,6 +147,7 @@ EVAL_CLIPS = 200  # the last of 4 batches is padded from 8 clips to 64
 EVAL_BATCH = 64
 LONG_BATCH = 32  # tag_long_audio / embed_long_audio pad their windows to it
 WORK = ROOT / "build" / "chip_smoke"  # files phases 7-9 write (the checkout's build/)
+LOG = ROOT / "chiprun_out" / "chip_smoke.log"  # the run's whole stdout
 
 SERVE_CLIENTS = 8  # client threads, each in a closed loop
 SERVE_SECONDS = 15.0
@@ -2133,6 +2147,242 @@ def run_bundle_phase(serve, device, card, http_rate):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the PANN zoo
+# ---------------------------------------------------------------------------
+
+PANN_BATCH = 2  # (a), (b): the fixture and one seeded clip, 10 s each
+# (b): one model per family, perturbed, the card against the port's CPU
+# forward of the same weights
+PANN_PARITY = ["Cnn14", "Cnn14Deformable", "Cnn14_DecisionLevelAtt", "Cnn10Next", "ResNet38",
+               "MobileNetV1", "MobileNetV2", "LeeNet24", "DaiNet19", "Res1dNet31",
+               "Wavegram_Logmel_Cnn14"]
+# card vs CPU, probabilities: the f32 parity bound of phase 4
+PANN_PROB_TOL = F32_LOGIT_TOL
+PANN_TIMED = [("Cnn14", 16), ("Cnn14", 64), ("Cnn14_DecisionLevelMax", 16), ("Res1dNet31", 16)]
+PANN_TOP_K = 5
+
+
+def pann_clips(sample_rate: int, batch: int = PANN_BATCH) -> np.ndarray:
+    """(batch, 10 s) f32 at ``sample_rate``: the fixture recording, then
+    seeded noise at about -20 dBFS."""
+    from audioset_convnext_inf_torch.data.audio_io import read_wav
+
+    wav, _ = read_wav(str(FIXTURE), target_sr=sample_rate)
+    rng = np.random.RandomState(SEED + sample_rate)
+    n = 10 * sample_rate
+    rows = [wav[:n]] + [rng.randn(n) * 0.1 for _ in range(batch - 1)]
+    return np.stack(rows).astype(np.float32)
+
+
+@torch.no_grad()
+def perturb_pann(model, seed: int):
+    """Seeded values for every weight and BN statistic (so no residual
+    branch or deformable offset stays at its init zero): weights +0.02
+    N(0, 1), biases 0.05 N(0, 1), norm scales 1 + 0.1 N(0, 1), running
+    means 0.1 N(0, 1) and variances U(0.5, 2); bn0 over log-mel dB gets a
+    mean of -40 + 5 N(0, 1) and a variance in U(100, 400)."""
+    g = torch.Generator().manual_seed(seed)
+    for name, t in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        db = name.startswith("bn0.") and not hasattr(model, "conv0")
+        noise = torch.randn(t.shape, generator=g)
+        if leaf == "running_mean":
+            v = noise * 5.0 - 40.0 if db else noise * 0.1
+        elif leaf == "running_var":
+            u = torch.rand(t.shape, generator=g)
+            v = u * 300.0 + 100.0 if db else u * 1.5 + 0.5
+        elif leaf == "bias":
+            v = t.cpu() + noise * 0.05
+        elif t.ndim == 1:
+            v = 1.0 + noise * 0.1
+        else:
+            v = t.cpu() + noise * 0.02
+        t.copy_(v)
+    return model
+
+
+def _pann_zoo_forwards(device):
+    """(a) Every registry model on the card, B=2 10-s clips at its rate:
+    finite, shaped, in [0, 1], and no K1 launch."""
+    from audioset_convnext_inf_torch.models import PANN_REGISTRY, create_pann_model
+
+    clips = {}
+    t0 = time.perf_counter()
+    for name in sorted(PANN_REGISTRY):
+        model = create_pann_model(name, seed=SEED, device=device)
+        sr = model.cfg.frontend.sample_rate
+        x = clips.setdefault(sr, pann_clips(sr))
+        out, n = _k1_count(lambda: model.forward(x))
+        probs = out["clipwise_output"]
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        ok = (probs.shape == (PANN_BATCH, 527) and bool(torch.isfinite(probs).all())
+              and float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0 and n == 0)
+        if "framewise_output" in out:
+            ok = ok and out["framewise_output"].shape == (
+                PANN_BATCH, model.cfg.frontend.num_frames(x.shape[1]), 527)
+        log(f"  (a) {name}: {model.count_parameters()} params, {sr} Hz, outputs {shapes}, "
+            f"probs [{float(probs.min()):.4f}, {float(probs.max()):.4f}], K1 launches {n}")
+        if not ok:
+            raise AssertionError(f"PANN {name}: bad outputs or K1 launched ({n})")
+        del model, out
+    torch.cuda.empty_cache()
+    log(f"  (a) all {len(PANN_REGISTRY)} models built and forwarded on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _pann_card_vs_cpu(device):
+    """(b) One model per family, perturbed, on the card against the port's
+    CPU forward of the same weights; Cnn14 also with TF32 on."""
+    from audioset_convnext_inf_torch.models.pann import PANN_REGISTRY, build_pann_model
+    from audioset_convnext_inf_torch.ops.precision import fp32_precision
+
+    for name in PANN_PARITY:
+        cfg = PANN_REGISTRY[name]
+        card = perturb_pann(build_pann_model(cfg, seed=SEED, device=device), SEED + 3)
+        cpu = build_pann_model(cfg, seed=SEED, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        x = pann_clips(cfg.frontend.sample_rate)
+        offsets = []
+        if cfg.deformable_blocks:
+            first = getattr(card, f"conv_block{cfg.deformable_blocks[0]}")
+            hook = first.conv1.offset_conv.register_forward_hook(
+                lambda m, i, o: offsets.append(o.abs().max().item()))
+        got, n = _k1_count(lambda: card.forward(x))
+        if cfg.deformable_blocks:
+            hook.remove()
+        want = cpu.forward(x)
+        key = "clipwise_logits" if "clipwise_logits" in want else "segmentwise_output"
+        prob = (got["clipwise_output"].cpu() - want["clipwise_output"]).abs().max().item()
+        other = (got[key].cpu() - want[key]).abs().max().item()
+        line = (f"  (b) {name} card vs CPU, B={PANN_BATCH} 10-s clips: probs max diff "
+                f"{prob:.3e} (tol {PANN_PROB_TOL}), {key} {other:.3e}, K1 launches {n}")
+        if offsets:
+            line += f", deformable offsets max |{offsets[0]:.3f}| (non-zero)"
+        if name == "Cnn14":
+            with torch.inference_mode(), fp32_precision("high"):
+                tf32 = card.compute(torch.from_numpy(x).to(device))
+            line += (f"; with TF32 on: probs {(tf32['clipwise_output'].cpu() - want['clipwise_output']).abs().max().item():.3e}, "
+                     f"logits {(tf32['clipwise_logits'].cpu() - want['clipwise_logits']).abs().max().item():.3e}")
+        log(line)
+        if not (prob <= PANN_PROB_TOL and n == 0 and (offsets[0] > 0 if offsets else True)):
+            raise AssertionError(f"PANN {name}: the card disagrees with the CPU ({prob:.3e})")
+        del card, cpu
+    torch.cuda.empty_cache()
+
+
+def _pann_flops(model, x) -> float:
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        model.forward(x)
+    return float(counter.get_total_flops())
+
+
+def _pann_times(device, card):
+    """(c) clips/s by CUDA events after warm-up (device tensors in), beside
+    the least time the card could take in f32 outside the tensor cores;
+    each model's peak memory: its own weights, input and forward, above
+    what was allocated before it was built (one model on the card at a
+    time); one trace of Cnn14 at B=16."""
+    from audioset_convnext_inf_torch.models import create_pann_model
+
+    model = None
+    for name, batch in PANN_TIMED:
+        if model is None or model.cfg.name != name:
+            model = None
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()  # what earlier phases still hold
+            model = create_pann_model(name, seed=SEED, device=device)
+        x = torch.from_numpy(pann_clips(model.cfg.frontend.sample_rate, batch)).to(device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, n = _k1_count(lambda: model.forward(x))
+        ms = cuda_ms(lambda: model.forward(x), iters=10)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        flops = _pann_flops(model, x)
+        nbytes = 4 * (sum(t.numel() for t in model.state_dict().values()) + x.numel()
+                      + batch * 527)
+        bound = max(flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES) * 1e3
+        log(f"  (c) {name} f32 forward B={batch} 10-s clips: {ms:.3f} ms, "
+            f"{batch / ms * 1e3:.1f} clips/s; bound {bound:.3f} ms ({flops / 1e9:.1f} GFLOP "
+            f"over 67 TFLOP/s; {bound / ms:.3f} of it); peak memory {peak:.2f} GiB; "
+            f"K1 launches {n} [{card}]")
+        if n:
+            raise AssertionError(f"PANN {name} launched K1")
+        if (name, batch) == ("Cnn14", 16):
+            profile_run(lambda: model.forward(x), "Cnn14 f32 forward B=16", top=10)
+        del x
+    del model
+    torch.cuda.empty_cache()
+
+
+def _pann_clis():
+    """(d) cli/inference.py on the fixture with its default device (the
+    card) and a reference-keyed checkpoint written here: both modes' top-k
+    equal model.forward's."""
+    import contextlib
+    import csv
+    import io
+
+    from audioset_convnext_inf_torch.checkpoint.pann_convert import load_pann_state_dict
+    from audioset_convnext_inf_torch.cli import inference
+    from audioset_convnext_inf_torch.data.audio_io import read_wav
+    from audioset_convnext_inf_torch.labels import read_audioset_label_tags
+    from audioset_convnext_inf_torch.models import create_pann_model
+
+    source = perturb_pann(create_pann_model("Cnn14", seed=SEED, device="cpu"), SEED + 5)
+    sd = dict(source.state_dict())
+    sd["spectrogram_extractor.stft.conv_real.weight"] = torch.zeros(513, 1, 1024)
+    sd["logmel_extractor.melW"] = torch.zeros(513, 64)
+    sd["bn0.num_batches_tracked"] = torch.tensor(100)
+    ckpt = WORK / "Cnn14_reference_keys.pth"
+    torch.save(sd, ckpt)
+    lm = read_audioset_label_tags()
+    wav, _ = read_wav(str(FIXTURE), target_sr=32000)
+    csv_path = WORK / "sed.csv"
+    for mode, name in (("audio_tagging", "Cnn14"),
+                       ("sound_event_detection", "Cnn14_DecisionLevelMax")):
+        argv = [mode, "--audio-path", str(FIXTURE), "--model-type", name, "--checkpoint",
+                str(ckpt), "--top-k", str(PANN_TOP_K)]
+        if mode == "sound_event_detection":
+            argv += ["--out-csv", str(csv_path)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, n = _k1_count(lambda: inference.main(argv))
+        lines = buf.getvalue().splitlines()
+        model = load_pann_state_dict(create_pann_model(name), torch.load(ckpt, weights_only=True))
+        out = model.forward(wav[None, :])
+        if mode == "audio_tagging":
+            probs = out["clipwise_output"][0].cpu().numpy()
+            top = np.argsort(probs)[::-1][:PANN_TOP_K]
+            want = [lm.ix_to_lb[int(i)] for i in top]
+            got = [ln.rsplit(": ", 1)[0] for ln in lines]
+            printed = np.array([float(ln.rsplit(" ", 1)[1]) for ln in lines])
+            if np.abs(printed - probs[top]).max() > 1e-3:  # the 3-decimal print
+                raise AssertionError(f"cli.inference printed {printed}, forward {probs[top]}")
+        else:
+            framewise = out["framewise_output"][0].cpu().numpy()
+            top = np.argsort(framewise.max(axis=0))[::-1][:PANN_TOP_K]
+            want = [lm.ix_to_lb[int(i)] for i in top]
+            with open(csv_path) as f:
+                got = [row[2] for row in list(csv.reader(f))[1:]]
+        log(f"  (d) cli.inference {mode} --model-type {name} (card, reference-keyed "
+            f"checkpoint): exit {rc}, K1 launches {n}; top-{PANN_TOP_K}: {got}")
+        if rc != 0 or n or got != want:
+            raise AssertionError(f"cli.inference {mode}: {got} != model.forward's {want}")
+        del model
+
+
+def run_pann_phase(device, card):
+    """Phase 12. The PANN path launches no kernel of the port: K1 is
+    counted on every forward and must stay at 0."""
+    _pann_zoo_forwards(device)
+    _pann_card_vs_cpu(device)
+    _pann_times(device, card)
+    _pann_clis()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2164,10 +2414,38 @@ def _entry(name, source, replaces, launches, results, per_shape, mode, per_call,
             "unfused_ms": unfused_ms, "cases": len(results), "ok": True}
 
 
+class Tee:
+    """A stdout that also writes to a file."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for stream in self.streams:
+            stream.flush()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # the whole output also goes to a file, for runs whose console keeps
+    # only the end of it
+    LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(LOG, "w") as f:
+        sys.stdout = Tee(sys.__stdout__, f)
+        try:
+            return run_phases()
+        finally:
+            sys.stdout = sys.__stdout__
+
+
+def run_phases() -> int:
     # the training CLI's metric log uses wandb where it imports, and wandb
     # reports to outside hosts; this run stays on the machine (JSONL)
     os.environ["WANDB_MODE"] = "disabled"
@@ -2179,27 +2457,27 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    phase(f"[1/11] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    phase(f"[1/12] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    phase("[2/11] build")
+    phase("[2/12] build")
     build_kernels(["fused_block", "fused_block_bwd"])
 
-    phase("[3/11] kernels against their plain versions")
+    phase("[3/12] kernels against their plain versions")
     k1_results = check_k1(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
-    phase("[4/11] serving path: convnext_tiny, B=16 x 10-s clips")
+    phase("[4/12] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
     check_row_independence(serve)
 
-    phase(f"[5/11] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+    phase(f"[5/12] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
     trainer, batch, train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    phase(f"[6/11] times on {card}")
+    phase(f"[6/12] times on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
@@ -2208,7 +2486,7 @@ def main() -> int:
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
-    phase("[7/11] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
+    phase("[7/12] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
     WORK.mkdir(parents=True, exist_ok=True)
     surface_launches = check_checkpoint_round_trip(serve, device, fixture_batch(BATCH, SEED))
     pcm, target = eval_data(SEED + 9)
@@ -2222,15 +2500,15 @@ def main() -> int:
     one_rate = time_evaluator(serve, ev, pcm, target, card)
     del ev
 
-    phase(f"[8/11] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
+    phase(f"[8/12] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
     service_launches, http_rate = run_service(serve, card)
     torch.cuda.empty_cache()
 
-    phase("[9/11] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
+    phase("[9/12] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
     runner = CliRunner()
     cli_launches, three = run_train_cli(runner, card)
 
-    phase("[10/11] data parallelism on the one card")
+    phase("[10/12] data parallelism on the one card")
     torch.cuda.empty_cache()
     log("  (a) cli/train.py under torchrun's environment, world size 1, NCCL")
     nccl_launches = run_nccl_world_1(runner, three, card)
@@ -2243,9 +2521,13 @@ def main() -> int:
     log("  (d) cli/serve.py --mesh")
     mesh_launches = run_service_mesh(serve, card)
 
-    phase("[11/11] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
+    phase("[11/12] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
     bundle_launches = run_bundle_phase(serve, device, card, http_rate)
     del serve
+    torch.cuda.empty_cache()
+
+    phase("[12/12] PANN zoo: 49 models, f32 under fp32_precision(\"highest\"), 10-s clips")
+    run_pann_phase(device, card)
     shutil.rmtree(WORK)
     phase("done")
 

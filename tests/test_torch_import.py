@@ -71,7 +71,7 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 
 def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
     from audioset_convnext_inf_torch.cli import (convert, demo, evaluate, export_serving,
-                                                 extract_embeddings, serve, train)
+                                                 extract_embeddings, inference, serve, train)
     from audioset_convnext_inf_torch.engine.evaluator import Evaluator
     from audioset_convnext_inf_torch.models import api
 
@@ -80,6 +80,11 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
         api.convnext_tiny()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.create_model("convnext_atto")
+    from audioset_convnext_inf_torch.models import create_pann_model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_pann_model("Cnn6")
+    assert create_pann_model("LeeNet11", device="cpu").device == torch.device("cpu")
     assert api.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.ConvNeXt.from_pretrained(str(tmp_path / "ckpt.safetensors"))
@@ -96,7 +101,11 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
                        (["c.safetensors", out], convert.main),
                        (["--port", "0"], serve.main),
                        ([out], export_serving.main),
-                       (["--train-indexes", "i.h5", "--workspace", out], train.main)):
+                       (["--train-indexes", "i.h5", "--workspace", out], train.main),
+                       (["audio_tagging", "--audio-path", wav], inference.main),
+                       (["sound_event_detection", "--audio-path", wav, "--out-csv",
+                         out + ".csv", "--model-type", "Cnn14_DecisionLevelMax"],
+                        inference.main)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     assert not list(tmp_path.iterdir())  # nothing was written
