@@ -36,7 +36,7 @@ import os
 import pickle
 import re
 import struct
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -47,11 +47,13 @@ from audioset_convnext_inf_torch.checkpoint.convert import (
     load_reference_state_dict,
     state_dict_from_jax_params,
 )
+from audioset_convnext_inf_torch.checkpoint.pann_convert import pann_state_dict_to_params
 from audioset_convnext_inf_torch.config import (
     ConvNeXtConfig,
     config_to_json,
     convnext_config_from_json,
 )
+from audioset_convnext_inf_torch.models.pann import PannConfig
 
 # ---------------------------------------------------------------------------
 # safetensors: an 8-byte little-endian header length, a JSON header
@@ -252,7 +254,7 @@ class _OptaxPickler(pickle._Pickler):
 def save_checkpoint(
     directory: str,
     state_dict: Dict[str, Any],
-    cfg: Optional[ConvNeXtConfig] = None,
+    cfg: Union[ConvNeXtConfig, PannConfig, None] = None,
     opt_state: Optional[Dict[str, Any]] = None,
     sampler_state: Any = None,
     iteration: Optional[int] = None,
@@ -262,10 +264,15 @@ def save_checkpoint(
     ``load_checkpoint`` reads and its ``Trainer.restore`` resumes: the
     parameters in its pytree layout, and ``opt_state``, the port's
     ``Optimizer.state_dict()``, as the optax state of its structure
-    (:func:`optimizer_state_to_optax`). Returns the directory."""
+    (:func:`optimizer_state_to_optax`). With a ``PannConfig`` as ``cfg``,
+    ``state_dict`` is a zoo model's and goes into the JAX package's PANN
+    pytree (``pann_state_dict_to_params``), with no ``config.json``, as
+    the JAX fine-tuning CLI saves it. Returns the directory."""
     os.makedirs(directory, exist_ok=True)
+    pann = isinstance(cfg, PannConfig)
     state = {
-        "params": jax_params_from_state_dict(state_dict),
+        "params": (pann_state_dict_to_params(state_dict, cfg) if pann
+                   else jax_params_from_state_dict(state_dict)),
         "opt_state": None if opt_state is None else optimizer_state_to_optax(opt_state),
         "bn_stats": None,
         "sampler_state": sampler_state,
@@ -276,7 +283,7 @@ def save_checkpoint(
     with open(tmp, "wb") as f:
         _OptaxPickler(f, protocol=4).dump(state)
     os.replace(tmp, os.path.join(directory, "state.pkl"))
-    if cfg is not None:
+    if cfg is not None and not pann:
         with open(os.path.join(directory, "config.json"), "w") as f:
             f.write(config_to_json(cfg))
     return directory

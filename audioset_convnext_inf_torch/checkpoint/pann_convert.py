@@ -9,10 +9,14 @@ renames the reference's uneven block labels (``conv_block11``,
 ``conv_block12``, ``conv_block21``, ...) to ``conv_block1..n`` in their
 sorted order, as the JAX package's converter ranks them.
 
-``pann_state_dict_from_params`` is the inverse of the JAX package's
-``checkpoint/pann_convert.py::pann_state_dict_to_params``: the JAX
-package's parameter pytree (nested dicts and lists of arrays) to the
-reference-keyed numpy state dict, undoing its layouts:
+``pann_state_dict_to_params`` is the port's copy of the JAX package's
+``checkpoint/pann_convert.py:175``: a reference-keyed state dict to the JAX
+package's parameter pytree (nested dicts and lists of numpy arrays), which
+``checkpoint/io.py::save_checkpoint`` writes for a PANN model so that the
+JAX package's ``load_checkpoint`` reads it; ``bn_path`` names a BatchNorm
+module by its dotted path in that pytree, the key of a training forward's
+``bn_updates``. ``pann_state_dict_from_params`` is its inverse, undoing the
+layouts:
 
  - conv2d ``w`` HWIO (kH, kW, I, O) -> ``weight`` (O, I, kH, kW)
  - conv1d ``w`` WIO (K, I, O)       -> ``weight`` (O, I, K)
@@ -132,3 +136,135 @@ def pann_state_dict_from_params(params: Params, cfg: Union[str, PannConfig]
         key = ".".join(str(p) for p in _module_path(cfg, list(module)) + [_LEAF[leaf]])
         out[key] = _layout(leaf, np.asarray(value))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Reference state dict -> the JAX package's pytree (its pann_convert.py:175)
+# ---------------------------------------------------------------------------
+
+_BN_MAP = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+_DEFORM_MAP = {v: k for k, v in _DEFORM.items()}
+
+
+def _transform(key: str, v: np.ndarray, is_bn: bool) -> Tuple[str, np.ndarray]:
+    """A reference leaf (suffix, array) -> (the pytree's leaf name, its layout)."""
+    leaf = key.rsplit(".", 1)[-1]
+    if is_bn:
+        return _BN_MAP[leaf], v
+    if leaf == "weight":
+        if v.ndim == 4:
+            return "w", np.transpose(v, (2, 3, 1, 0))
+        if v.ndim == 3:
+            return "w", np.transpose(v, (2, 1, 0))
+        if v.ndim == 2:
+            return "w", np.ascontiguousarray(v.T)
+        return "w", v
+    if leaf == "bias":
+        return "b", v
+    return leaf, v
+
+
+def _set(tree: Params, path: List, leaf: str, value: np.ndarray) -> None:
+    """tree[path...][leaf] = value, making dicts, and lists where the next
+    key is an index."""
+    node = tree
+    for i, p in enumerate(path):
+        next_is_int = i + 1 < len(path) and isinstance(path[i + 1], int)
+        if isinstance(p, int):
+            while len(node) <= p:
+                node.append([] if next_is_int else {})
+            node = node[p]
+        else:
+            node = node.setdefault(p, [] if next_is_int else {})
+    node[leaf] = np.asarray(value)
+
+
+def _resnet_path(parts: List[str]) -> List:
+    """resnet.layerL.B.xxx -> resnet.stages.(L-1).B.xxx; the downsample
+    Sequential is [conv, bn] at stage 0 and [pool, conv, bn] after it."""
+    stage = int(re.match(r"layer(\d+)$", parts[1]).group(1)) - 1
+    block = int(parts[2])
+    rest = parts[3:]
+    if rest and rest[0] == "downsample":
+        idx = int(rest[1])
+        name = {0: "conv", 1: "bn"}[idx] if stage == 0 else {1: "conv", 2: "bn"}[idx]
+        return ["resnet", "stages", stage, block, "downsample", name]
+    return ["resnet", "stages", stage, block] + rest
+
+
+def _rewrite_path(cfg: PannConfig, key: str, block_rank=None) -> List:
+    """A reference key's module path -> the pytree path (str and int parts);
+    the inverse of ``_module_path``."""
+    parts = key.split(".")[:-1]
+    fam = cfg.family
+    if fam in ("leenet", "dainet"):
+        m = re.match(r"conv_block(\d+)$", parts[0])
+        return ["blocks", int(m.group(1)) - 1] + parts[1:] if m else parts
+    if fam in ("res1dnet", "resnet"):
+        return _resnet_path(parts) if parts[0] == "resnet" else parts
+    if fam == "mobilenet_v1" and parts[0] == "features":
+        fi, li = int(parts[1]), int(parts[2])
+        if fi == 0:
+            return ["conv_bn", {0: "conv", 2: "bn"}[li]]
+        return ["blocks", fi - 1, {0: "dw", 2: "bn1", 4: "pw", 5: "bn2"}[li]]
+    if fam == "mobilenet_v2" and parts[0] == "features":
+        fi = int(parts[1])
+        meta = mbv2_block_meta()
+        if fi == 0:
+            return ["conv_bn", {0: "conv", 2: "bn"}[int(parts[2])]]
+        if fi == len(meta) + 1:  # the trailing 1x1 conv and BN
+            return [{0: "conv_1x1", 1: "bn_1x1"}[int(parts[-1])]]
+        li = int(parts[3])
+        if meta[fi - 1][0] == 1:  # expand ratio 1: [dw, pool, bn, relu6, pw, bn]
+            name = {0: "dw", 2: "bn_dw", 4: "project", 5: "bn_project"}[li]
+        else:
+            name = {0: "expand", 1: "bn_expand", 3: "dw", 5: "bn_dw", 7: "project",
+                    8: "bn_project"}[li]
+        return ["blocks", fi - 1, name]
+    if fam == "cnn_next":
+        if parts[0] == "stem":
+            return ["stem", {"0": "conv", "1": "norm"}[parts[1]]]
+        m = re.match(r"conv_block(\d+)$", parts[0])
+        if m:
+            rest = parts[1:]
+            if rest and rest[0] == "downsample_layer":
+                rest = ["downsample", {"0": "norm", "1": "conv"}[rest[1]]]
+            # the reference's uneven labels (conv_block11, 12, 21, ...) sort
+            # in forward order
+            label = int(m.group(1))
+            return ["blocks", block_rank[label] if block_rank else label - 1] + rest
+        return parts
+    # cnn / sed / wavegram: one to one, but for the deformable conv's names
+    return [_DEFORM_MAP.get(p, p) for p in parts]
+
+
+def bn_path(cfg: PannConfig, module_name: str) -> str:
+    """The dotted pytree path of the BatchNorm module ``module_name`` (a
+    key of the training forward's ``bn_updates``)."""
+    return ".".join(str(p) for p in _rewrite_path(cfg, module_name + ".weight"))
+
+
+def pann_state_dict_to_params(state_dict: Dict[str, Any], cfg: Union[str, PannConfig]) -> Params:
+    """A reference-keyed state dict (tensors or arrays) -> the JAX
+    package's PANN parameter pytree, in numpy."""
+    cfg = PANN_REGISTRY[cfg] if isinstance(cfg, str) else cfg
+    bn_prefixes = {k[: -len(".running_mean")] for k in state_dict if k.endswith(".running_mean")}
+    block_rank = None
+    if cfg.family == "cnn_next":
+        labels = sorted({int(m.group(1)) for k in state_dict
+                         if (m := re.match(r"conv_block(\d+)\.", k))})
+        block_rank = {lbl: i for i, lbl in enumerate(labels)}
+    params: Params = {}
+    for key, raw in state_dict.items():
+        if any(s in key for s in SKIP):
+            continue
+        v = raw.detach().cpu().numpy() if isinstance(raw, torch.Tensor) else np.asarray(raw)
+        is_bn = key.rsplit(".", 1)[0] in bn_prefixes
+        leaf, value = _transform(key, v, is_bn)
+        path = _rewrite_path(cfg, key, block_rank)
+        # cnn_next's LayerNorms take scale/bias leaves
+        if cfg.family == "cnn_next" and path and path[-1] == "norm" and not is_bn:
+            leaf = _BN_MAP[key.rsplit(".", 1)[-1]]
+        _set(params, [int(p) if isinstance(p, str) and p.isdigit() else p for p in path],
+             leaf, value)
+    return params

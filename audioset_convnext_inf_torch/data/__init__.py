@@ -1,11 +1,14 @@
-"""Data plane: audio I/O, the AudioSet HDF5 dataset, the train and
-evaluation samplers, the blacklist, and the prefetching loader. h5py is
-imported only where an HDF5 file is opened."""
+"""Data plane: audio I/O (WAV, and FLAC through the port's decoder), the
+AudioSet HDF5 dataset, the train and evaluation samplers, the blacklist, the
+prefetching loader, and the AudioCaps dataset (``data/audiocaps.py``). h5py
+is imported only where an HDF5 file is opened."""
 
 from audioset_convnext_inf_torch.data.audio_io import (
     float32_to_int16,
     int16_to_float32,
     pad_or_truncate,
+    read_audio,
+    read_flac,
     read_wav,
     resample_poly,
 )
@@ -33,7 +36,9 @@ __all__ = [
     "int16_to_float32",
     "load_index",
     "pad_or_truncate",
+    "read_audio",
     "read_black_list",
+    "read_flac",
     "read_wav",
     "resample_poly",
     "write_black_list",

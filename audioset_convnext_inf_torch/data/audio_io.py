@@ -6,8 +6,8 @@ reading through ``scipy.io.wavfile``, polyphase resampling through
 reference's scaling (utilities.py:220-227). The int16 decode multiplies by
 the f32 constant ``np.float32(INT16_SCALE)``: bit-identical to the JAX
 package's native and numpy decodes, and to the card's (``ops/pcm.py``).
-FLAC (``read_flac`` / ``read_audio``) needs the JAX package's native
-decoder and is not ported yet (ROADMAP.md).
+FLAC (``read_flac``, and ``read_audio`` for either format) decodes through
+the port's own build of the FLAC decoder (``data/flac.py``).
 """
 
 from __future__ import annotations
@@ -100,3 +100,35 @@ def read_wav(path: str, target_sr: int | None = None, mono: bool = True) -> Tupl
         x = resample_poly(x, sr, target_sr)
         sr = target_sr
     return x, sr
+
+
+def read_flac(path: str, target_sr: int | None = None, mono: bool = True) -> Tuple[np.ndarray, int]:
+    """A FLAC file -> (float32 waveform in [-1, 1), sample rate), optionally
+    resampled to ``target_sr`` (the JAX package's ``data/audio_io.py:131``).
+    The reference reads AudioSet and AudioCaps clips through libsndfile
+    (utils/dataset.py:202); here the port's decoder (``data/flac.py``)
+    reads them, and raises on a malformed stream."""
+    from audioset_convnext_inf_torch.data.flac import decode_flac_bytes
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    try:
+        x, sr = decode_flac_bytes(raw, mono=mono)
+    except ValueError as e:
+        raise ValueError(f"cannot decode FLAC {path!r}: {e}") from e
+    if target_sr is not None and sr != target_sr:
+        x = resample_poly(x, sr, target_sr)
+        sr = target_sr
+    return x, sr
+
+
+def read_audio(path: str, target_sr: int | None = None, mono: bool = True) -> Tuple[np.ndarray, int]:
+    """WAV or FLAC by the file's magic (the JAX package's
+    ``data/audio_io.py:157``): ``fLaC`` reads as FLAC, ``RIFF`` as WAV, and
+    a file with neither goes by its extension (``.flac`` as FLAC, which then
+    raises; anything else as WAV)."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"fLaC" or (magic != b"RIFF" and path.lower().endswith(".flac")):
+        return read_flac(path, target_sr=target_sr, mono=mono)
+    return read_wav(path, target_sr=target_sr, mono=mono)

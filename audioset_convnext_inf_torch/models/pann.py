@@ -1,4 +1,4 @@
-"""The PANN legacy model zoo (reference pytorch/models.py), inference path.
+"""The PANN legacy model zoo (reference pytorch/models.py).
 
 The same zoo as the JAX package's ``models/pann.py``: one module class per
 *family*, with the reference's per-class differences (channel ladders,
@@ -21,15 +21,19 @@ reference labels its blocks unevenly; here they are ``conv_block1..n``.
 ``PannModel.forward`` runs eval-mode inference in true f32: under
 ``fp32_precision("highest")`` on the card, so no TF32 switch of the process
 changes its answer. There is no bf16 or TF32 PANN path: the JAX package's
-PANN forward is f32 whatever ``compute_dtype`` it is given. The training
-forward (dropout, SpecAugment, mixup, train-mode BN) is not
-ported yet.
+PANN forward is f32 whatever ``compute_dtype`` it is given.
+``PannModel.forward_train`` is the JAX package's ``forward_train``
+(models/pann.py:838) for every family: batch-statistic BN whose new running
+statistics come back as ``bn_updates`` (the module's buffers stay as they
+were), dropout, SpecAugment and mixup on the spectrogram or the waveform,
+with the draws taken from a ``torch.Generator`` or handed in, in the JAX
+key stream's order (``pann_layers.TrainCtx``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +45,7 @@ from audioset_convnext_inf_torch.models import layers as L
 from audioset_convnext_inf_torch.models import pann_layers as P
 from audioset_convnext_inf_torch.models.convnext import LayerNorm
 from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
+from audioset_convnext_inf_torch.ops.mixup import do_mixup
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
 
 # PANN frontend: 64 mels, fmin 50, fmax 14000 on 32 kHz (models.py:2104-2115);
@@ -113,14 +118,22 @@ class PannModel(nn.Module):
         self.build(cfg)
         P.init_params_(self, torch.Generator().manual_seed(seed))
         self.frontend = LogMelFrontend(cfg.frontend)
+        # imported here: the converter imports this module
+        from audioset_convnext_inf_torch.checkpoint.pann_convert import bn_path
+
+        for name, mod in self.named_modules():  # each BN's key in bn_updates
+            if isinstance(mod, P.BatchNorm):
+                mod.path = bn_path(cfg, name)
         self.to(device)
         self.eval()
 
     def build(self, cfg: PannConfig) -> None:
         raise NotImplementedError
 
-    def compute(self, waveform: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(B, samples) f32 on the model's device -> the outputs."""
+    def compute(self, waveform: torch.Tensor,
+                mixup_lambda: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """(B, samples) f32 on the model's device -> the outputs; in a
+        training forward, ``mixup_lambda`` (B,) mixes pairs of clips."""
         raise NotImplementedError
 
     @torch.inference_mode()
@@ -131,23 +144,57 @@ class PannModel(nn.Module):
         with fp32_precision("highest"):
             return self.compute(x)
 
+    def forward_train(self, waveform, generator: Optional[torch.Generator],
+                      mixup_lambda=None, draws: Optional[Sequence] = None
+                      ) -> Dict[str, object]:
+        """The training forward (the JAX package's ``forward_train``,
+        models/pann.py:838), in true f32, differentiable: the outputs and
+        ``bn_updates`` ({dotted path: {"mean", "var", "scale", "bias"}}, the
+        running statistics after this batch). The module's buffers stay as
+        they were (``engine.transfer.merge_bn_stats`` writes them). Draws
+        come from ``generator`` (on its device) unless ``draws`` hands them
+        in (``pann_layers.TrainCtx``); with ``mixup_lambda`` (2B,) the 2B
+        clips mix in pairs into B."""
+        x = torch.as_tensor(waveform).to(self.device, torch.float32)
+        lam = None if mixup_lambda is None else torch.as_tensor(mixup_lambda).to(self.device)
+        ctx = P.TrainCtx(generator, draws)
+        with P.training(ctx), fp32_precision("highest"):
+            out = self.compute(x, lam)
+        ctx.finish()
+        out["bn_updates"] = ctx.updates
+        return out
+
     def count_parameters(self) -> int:
         """Parameters without the BN running statistics (buffers here), as
         the JAX package counts them."""
         return sum(p.numel() for p in self.parameters())
 
-    def logmel_bn0(self, waveform: torch.Tensor) -> Tuple[torch.Tensor, int]:
-        """Log-mel (B, 1, T, M) with bn0 over the mel axis, and T."""
+    def logmel_bn0(self, waveform: torch.Tensor,
+                   mixup_lambda: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, int]:
+        """Log-mel (B, 1, T, M) with bn0 over the mel axis, and T; in a
+        training forward then SpecAugment and mixup (unless the config mixes
+        the waveform) (the JAX package's ``_frontend_bn0``, :107-124)."""
         spec = self.frontend(waveform)
-        return self.bn0(spec, axis=3), spec.shape[2]
+        x = self.bn0(spec, axis=3)
+        ctx = P.train_ctx()
+        if ctx is not None:
+            if self.cfg.use_spec_augment:
+                x = ctx.spec_augment(x, 2, 3, self.cfg.spec_augment)
+            if mixup_lambda is not None and not self.cfg.mixup_on_waveform:
+                x = do_mixup(x, mixup_lambda)
+        return x, spec.shape[2]
 
     def head(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(B, C) pooled features -> relu(fc1) (the embedding) -> logits."""
+        """(B, C) pooled features -> dropout -> relu(fc1) -> logits; the
+        embedding is relu(fc1) after a second dropout, which the logits do
+        not see (models.py:2170-2177)."""
+        x = P.dropout(x, self.cfg.head_dropout)
         if hasattr(self, "fc1"):
             x = F.relu(self.fc1(x))
+        embedding = P.dropout(x, self.cfg.head_dropout)
         logits = self.fc_audioset(x)
         return {"clipwise_output": torch.sigmoid(logits), "clipwise_logits": logits,
-                "embedding": x}
+                "embedding": embedding}
 
     def pool_head(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, C, T, F): freq mean, time max + mean, ``head``
@@ -184,19 +231,25 @@ class Cnn(PannModel):
     def build_classifier(self, cfg: PannConfig, dim: int) -> None:
         self.fc_audioset = P.linear(dim, cfg.classes_num)
 
-    def trunk(self, waveform: torch.Tensor) -> Tuple[torch.Tensor, int]:
-        """The conv blocks over the log-mel: (B, C, T', F') and T. Cnn14
-        pools (2, 2) after blocks 1-5 and not after block 6; the 4-block
-        Cnn6/Cnn10 pool after every block (models.py:2154-2165, 2836-2844)."""
-        x, frames_num = self.logmel_bn0(waveform)
+    def trunk(self, waveform: torch.Tensor,
+              mixup_lambda: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, int]:
+        """The conv blocks over the log-mel, each followed by dropout:
+        (B, C, T', F') and T. Cnn14 pools (2, 2) after blocks 1-5 and not
+        after block 6; the 4-block Cnn6/Cnn10 pool after every block
+        (models.py:2154-2165, 2836-2844). Cnn14_mixup_time_domain mixes the
+        waveform (models.py:5402)."""
+        if P.train_ctx() is not None and self.cfg.mixup_on_waveform and mixup_lambda is not None:
+            waveform = do_mixup(waveform, mixup_lambda)
+        x, frames_num = self.logmel_bn0(waveform, mixup_lambda)
         n = len(self.cfg.channels)
         for i in range(n):
             pool = (1, 1) if (n == 6 and i == n - 1) else (2, 2)
             x = getattr(self, f"conv_block{i + 1}")(x, pool, "avg")
+            x = P.dropout(x, self.cfg.block_dropout)
         return x, frames_num
 
-    def compute(self, waveform):
-        return self.pool_head(self.trunk(waveform)[0])
+    def compute(self, waveform, mixup_lambda=None):
+        return self.pool_head(self.trunk(waveform, mixup_lambda)[0])
 
 
 class Sed(Cnn):
@@ -210,12 +263,13 @@ class Sed(Cnn):
         else:
             super().build_classifier(cfg, dim)
 
-    def compute(self, waveform):
-        x, frames_num = self.trunk(waveform)
+    def compute(self, waveform, mixup_lambda=None):
+        x, frames_num = self.trunk(waveform, mixup_lambda)
         x = torch.mean(x, dim=3)  # (B, C, T')
         # local smoothing over time: max + avg pool, k3 s1 p1
         x = P.pool1d(x, 3, 1, 1, "max") + P.pool1d(x, 3, 1, 1, "avg")
-        x = F.relu(self.fc1(x.transpose(1, 2)))  # (B, T', fc1)
+        x = F.relu(self.fc1(P.dropout(x, 0.5).transpose(1, 2)))  # (B, T', fc1)
+        x = P.dropout(x, 0.5, channel_dim=2)
         if self.cfg.sed_head == "att":
             clipwise, _, cla = self.att_block(x.transpose(1, 2))
             segmentwise = cla.transpose(1, 2)
@@ -275,12 +329,12 @@ class CnnNext(PannModel):
             feat = cfg.fc1_out or feat
         self.fc_audioset = P.linear(feat, cfg.classes_num)
 
-    def compute(self, waveform):
-        x, _ = self.logmel_bn0(waveform)
+    def compute(self, waveform, mixup_lambda=None):
+        x, _ = self.logmel_bn0(waveform, mixup_lambda)
         if self.cfg.next_stem:
             x = self.stem(x)
         for i in range(len(self.cfg.next_blocks)):
-            x = getattr(self, f"conv_block{i + 1}")(x)
+            x = P.dropout(getattr(self, f"conv_block{i + 1}")(x), self.cfg.block_dropout)
         return self.pool_head(x)
 
 
@@ -297,11 +351,12 @@ class ResNet(PannModel):
         self.fc1 = P.linear(2048, 2048)
         self.fc_audioset = P.linear(2048, cfg.classes_num)
 
-    def compute(self, waveform):
-        x, _ = self.logmel_bn0(waveform)
-        x = self.conv_block1(x, (2, 2), "avg")
-        x = P.pool2d(self.resnet(x), (2, 2), "avg")
-        return self.pool_head(self.conv_block_after1(x, (1, 1), "avg"))
+    def compute(self, waveform, mixup_lambda=None):
+        x, _ = self.logmel_bn0(waveform, mixup_lambda)
+        x = P.dropout(self.conv_block1(x, (2, 2), "avg"), 0.2)
+        x = P.dropout(P.pool2d(self.resnet(x), (2, 2), "avg"), 0.2)
+        x = P.dropout(self.conv_block_after1(x, (1, 1), "avg"), 0.2)
+        return self.pool_head(x)
 
 
 # MobileNet V1/V2 (models.py:3971-4268)
@@ -327,8 +382,8 @@ class MobileNetV1(PannModel):
         self.fc1 = P.linear(1024, 1024)
         self.fc_audioset = P.linear(1024, cfg.classes_num)
 
-    def compute(self, waveform):
-        return self.pool_head(self.features(self.logmel_bn0(waveform)[0]))
+    def compute(self, waveform, mixup_lambda=None):
+        return self.pool_head(self.features(self.logmel_bn0(waveform, mixup_lambda)[0]))
 
 
 class MobileNetV2(PannModel):
@@ -345,8 +400,16 @@ class MobileNetV2(PannModel):
         self.fc1 = P.linear(1280, 1024)
         self.fc_audioset = P.linear(1024, cfg.classes_num)
 
-    def compute(self, waveform):
-        return self.pool_head(self.features(self.logmel_bn0(waveform)[0]))
+    def compute(self, waveform, mixup_lambda=None):
+        return self.pool_head(self.features(self.logmel_bn0(waveform, mixup_lambda)[0]))
+
+
+def _mix_input(x: torch.Tensor, mixup_lambda: Optional[torch.Tensor]) -> torch.Tensor:
+    """A raw-waveform family's input (B, 1, samples), mixed in a training
+    forward (models.py:4330, the JAX package's :513, :550, :578)."""
+    if P.train_ctx() is not None and mixup_lambda is not None:
+        return do_mixup(x, mixup_lambda)
+    return x
 
 
 # Raw-waveform 1-D families
@@ -362,12 +425,15 @@ class LeeNet(PannModel):
         self.fc1 = P.linear(in_ch, cfg.fc1_out or in_ch)
         self.fc_audioset = P.linear(cfg.fc1_out or in_ch, cfg.classes_num)
 
-    def compute(self, waveform):
-        x = waveform[:, None, :]
+    def compute(self, waveform, mixup_lambda=None):
+        x = _mix_input(waveform[:, None, :], mixup_lambda)
         last = len(self.cfg.lee_channels) - 1
         for i in range(last + 1):
             pool = 1 if i == 0 or (self.cfg.lee_double and i == last) else 3
             x = getattr(self, f"conv_block{i + 1}")(x, pool)
+            # LeeNet24 drops between blocks, not after the last (models.py:4406-4442)
+            if self.cfg.lee_double and i < last:
+                x = P.dropout(x, 0.1)
         return self.pool_head_1d(x)
 
 
@@ -383,8 +449,8 @@ class DaiNet(PannModel):
         self.fc1 = P.linear(512, 512)
         self.fc_audioset = P.linear(512, cfg.classes_num)
 
-    def compute(self, waveform):
-        x = self.bn0(self.conv0(waveform[:, None, :]))
+    def compute(self, waveform, mixup_lambda=None):
+        x = self.bn0(self.conv0(_mix_input(waveform[:, None, :], mixup_lambda)))
         # the reference pools between blocks 1-4 (padding 0), not after the
         # last (models.py:4560-4570)
         for i in range(len(_DAI_LADDER)):
@@ -402,8 +468,8 @@ class Res1dNet(PannModel):
         self.fc1 = P.linear(2048, 2048)
         self.fc_audioset = P.linear(2048, cfg.classes_num)
 
-    def compute(self, waveform):
-        x = self.bn0(self.conv0(waveform[:, None, :]))
+    def compute(self, waveform, mixup_lambda=None):
+        x = self.bn0(self.conv0(_mix_input(waveform[:, None, :], mixup_lambda)))
         return self.pool_head_1d(self.resnet(x))
 
 
@@ -449,15 +515,20 @@ class Wavegram(PannModel):
         a = a.reshape(b, c // g, g, t).transpose(2, 3)  # freq = the group axis
         return self.pre_block4(a, (2, 1), "avg")
 
-    def compute(self, waveform):
+    def compute(self, waveform, mixup_lambda=None):
         x = self.wavegram(waveform)
+        if P.train_ctx() is not None and mixup_lambda is not None:
+            x = do_mixup(x, mixup_lambda)  # beside the log-mel's mixup
         if self.cfg.wavegram_logmel:
-            spec = self.conv_block1(self.logmel_bn0(waveform)[0], (2, 2), "avg")
+            spec, _ = self.logmel_bn0(waveform, mixup_lambda)
+            spec = self.conv_block1(spec, (2, 2), "avg")
             # the shorter time axis; the wavegram's freq axis cut to the log-mel's
             t = min(spec.shape[2], x.shape[2])
             x = torch.cat([spec[:, :, :t], x[:, :, :t, : spec.shape[3]]], dim=1)
+        x = P.dropout(x, 0.2)
         for i in range(2, 7):
             x = getattr(self, f"conv_block{i}")(x, (2, 2) if i < 6 else (1, 1), "avg")
+            x = P.dropout(x, 0.2)
         return self.pool_head(x)
 
 

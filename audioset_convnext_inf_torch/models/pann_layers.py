@@ -10,7 +10,12 @@ Layouts are the reference's: 2-D maps NCHW (B, C, time, mel), 1-D maps NCL.
 Each module holds its parameters under the reference's names, so a
 reference state dict loads into the zoo's models as it is. BatchNorm runs
 in eval mode from its running statistics, folded to one scale and shift
-(``layers.batch_norm_apply``); the zoo's training forward is not ported.
+(``layers.batch_norm_apply``). Inside a training forward (``TrainCtx``,
+the JAX package's ``BnCtx`` and ``KeyStream``, pann_layers.py:66-101) it
+normalizes with the batch's statistics and reports the new running
+statistics by the JAX package's dotted parameter path, leaving its own
+buffers as they were; ``dropout`` and SpecAugment draw there, or take the
+draws a caller hands in.
 
 Initialization (``init_params_``) is the JAX package's recipe drawn from a
 ``torch.Generator``: Glorot-uniform convs and linears with zero biases, BN
@@ -21,15 +26,118 @@ residual block is its identity path and a deformable conv a regular one.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from contextvars import ContextVar
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audioset_convnext_inf_torch.config import SpecAugmentConfig
 from audioset_convnext_inf_torch.models import layers as L
 from audioset_convnext_inf_torch.models.convnext import BatchNorm0, LayerNorm
+from audioset_convnext_inf_torch.ops import specaugment as S
 from audioset_convnext_inf_torch.ops.deform_conv import deform_conv2d
+
+# ---------------------------------------------------------------------------
+# Training mode: batch-statistic BN, dropout, SpecAugment draws
+# ---------------------------------------------------------------------------
+
+
+class TrainCtx:
+    """One training forward (the JAX package's ``BnCtx`` with its
+    ``KeyStream``, pann_layers.py:66-101).
+
+    ``updates`` collects each BatchNorm's new running statistics by its
+    dotted path in the JAX package's parameter pytree (``bn_path``), with
+    its scale and bias, as the JAX ``bn_updates``. Random draws come from
+    ``generator`` (on its device), or from ``draws``: one entry for each
+    key the JAX function takes from its ``KeyStream``, in that order: a
+    SpecAugment draw ((time stripes, frequency stripes), as
+    ``ops/specaugment.py`` draws them) or a dropout keep mask in the JAX
+    layout, channels last ((B, C), (B, L, C) or (B, T, F, C); None where
+    the rate is 0 and JAX draws a key but no mask)."""
+
+    def __init__(self, generator: Optional[torch.Generator], draws=None):
+        self.generator = generator
+        self._draws: Optional[Iterator[Any]] = None if draws is None else iter(draws)
+        self.updates: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def draw(self, make: Callable[[], Any]) -> Any:
+        """The next handed-in draw, else ``make()``."""
+        if self._draws is None:
+            return make()
+        try:
+            return next(self._draws)
+        except StopIteration:
+            raise ValueError("the training forward took more draws than were handed in") from None
+
+    def finish(self) -> None:
+        if self._draws is not None and next(self._draws, StopIteration) is not StopIteration:
+            raise ValueError("the training forward took fewer draws than were handed in")
+
+    def batch_norm(self, bn: "BatchNorm", x: torch.Tensor, axis: int) -> torch.Tensor:
+        """Batch statistics over every axis but ``axis``; the running update
+        (momentum 0.1, unbiased variance) goes to ``updates``, not to ``bn``."""
+        mean, var = bn.running_mean.clone(), bn.running_var.clone()
+        y = L.batch_norm_train(x, bn.weight, bn.bias, mean, var, axis=axis)
+        self.updates[bn.path] = {"mean": mean, "var": var, "scale": bn.weight, "bias": bn.bias}
+        return y
+
+    def drop(self, x: torch.Tensor, rate: float, channel_dim: int) -> torch.Tensor:
+        """x * mask / keep, mask ~ Bernoulli(keep = 1 - rate)."""
+        keep = 1.0 - rate
+
+        def make():
+            if rate == 0.0:
+                return None
+            shape = list(x.shape)
+            shape.append(shape.pop(channel_dim))
+            g = self.generator
+            return torch.rand(shape, generator=g, device=g.device) < keep
+
+        mask = self.draw(make)
+        if mask is None or rate == 0.0:
+            return x
+        mask = torch.as_tensor(mask).to(device=x.device, dtype=x.dtype).movedim(-1, channel_dim)
+        return x * mask / keep
+
+    def spec_augment(self, x: torch.Tensor, time_axis: int, freq_axis: int,
+                     cfg: SpecAugmentConfig) -> torch.Tensor:
+        def make():
+            b, g = x.shape[0], self.generator
+            return (S.draw_stripes(g, b, cfg.time_drop_width, cfg.time_stripes_num),
+                    S.draw_stripes(g, b, cfg.freq_drop_width, cfg.freq_stripes_num))
+
+        return S.spec_augment(x, time_axis, freq_axis, cfg, draws=self.draw(make))
+
+
+_TRAIN: ContextVar[Optional[TrainCtx]] = ContextVar("pann_train", default=None)
+
+
+def train_ctx() -> Optional[TrainCtx]:
+    """The training forward running in this context, or None (eval)."""
+    return _TRAIN.get()
+
+
+@contextlib.contextmanager
+def training(ctx: TrainCtx) -> Iterator[TrainCtx]:
+    token = _TRAIN.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _TRAIN.reset(token)
+
+
+def dropout(x: torch.Tensor, rate: float, channel_dim: int = 1) -> torch.Tensor:
+    """The JAX package's ``dropout`` (pann_layers.py:86): keep with
+    probability 1 - rate, scale by 1/keep; the identity outside a training
+    forward. ``channel_dim``: x's channel axis (its mask is drawn channels
+    last)."""
+    ctx = _TRAIN.get()
+    return x if ctx is None else ctx.drop(x, rate, channel_dim)
+
 
 # ---------------------------------------------------------------------------
 # Norms, pools, initialization
@@ -37,10 +145,18 @@ from audioset_convnext_inf_torch.ops.deform_conv import deform_conv2d
 
 
 class BatchNorm(BatchNorm0):
-    """Eval-mode BatchNorm over one axis (the channels, axis 1, by
-    default): the reference's four entries, without ``num_batches_tracked``."""
+    """BatchNorm over one axis (the channels, axis 1, by default): the
+    reference's four entries, without ``num_batches_tracked``. Eval mode
+    folds the running statistics; in a training forward the batch's own
+    statistics (``TrainCtx.batch_norm``). ``path`` is its dotted path in the
+    JAX package's pytree, set by the model."""
+
+    path = ""
 
     def forward(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        ctx = _TRAIN.get()
+        if ctx is not None:
+            return ctx.batch_norm(self, x, axis)
         return L.batch_norm_apply(x, self.weight, self.bias, self.running_mean,
                                   self.running_var, axis=axis)
 
@@ -351,7 +467,8 @@ def _downsample(stage: int, stride: int, conv: nn.Module, out_ch: int, pool) -> 
 
 class ResnetBasicBlock(nn.Module):
     """Basic block; stride 2 is an avg pool before conv1 (and in the
-    downsample). The JAX init zeroes bn2's scale."""
+    downsample); dropout 0.1 after the first ReLU in training. The JAX init
+    zeroes bn2's scale."""
 
     expansion = 1
 
@@ -372,7 +489,7 @@ class ResnetBasicBlock(nn.Module):
 
     def forward(self, x):
         out = pool2d(x, (2, 2), "avg") if self.stride == 2 else x
-        out = F.relu(self.bn1(self.conv1(out)))
+        out = dropout(F.relu(self.bn1(self.conv1(out))), 0.1)
         out = self.bn2(self.conv2(out))
         identity = self.downsample(x) if hasattr(self, "downsample") else x
         return F.relu(out + identity)
@@ -380,7 +497,8 @@ class ResnetBasicBlock(nn.Module):
 
 class ResnetBottleneck(nn.Module):
     """Bottleneck block (1x1, 3x3, 1x1 to 4x planes); stride 2 pools the
-    input first. The JAX init zeroes bn3's scale."""
+    input first; dropout 0.1 after the second ReLU in training. The JAX
+    init zeroes bn3's scale."""
 
     expansion = 4
 
@@ -404,7 +522,7 @@ class ResnetBottleneck(nn.Module):
     def forward(self, x):
         out = pool2d(x, (2, 2), "avg") if self.stride == 2 else x
         out = F.relu(self.bn1(self.conv1(out)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = dropout(F.relu(self.bn2(self.conv2(out))), 0.1)
         out = self.bn3(self.conv3(out))
         identity = self.downsample(x) if hasattr(self, "downsample") else x
         return F.relu(out + identity)
@@ -436,8 +554,9 @@ class Resnet(nn.Module):
 
 class Res1dBlock(nn.Module):
     """1-D basic block (models.py:4609): the main branch max-pools by the
-    stride, the downsample avg-pools; the second conv has dilation 2. The
-    JAX init zeroes bn2's scale."""
+    stride, the downsample avg-pools; the second conv has dilation 2;
+    dropout 0.1 after the first ReLU in training. The JAX init zeroes bn2's
+    scale."""
 
     def __init__(self, inplanes: int, planes: int, stride: int, stage: int, downsample: bool):
         super().__init__()
@@ -456,7 +575,7 @@ class Res1dBlock(nn.Module):
 
     def forward(self, x):
         out = pool1d(x, self.stride) if self.stride != 1 else x
-        out = F.relu(self.bn1(self.conv1(out)))
+        out = dropout(F.relu(self.bn1(self.conv1(out))), 0.1)
         out = self.bn2(self.conv2(out))
         identity = self.downsample(x) if hasattr(self, "downsample") else x
         return F.relu(out + identity)

@@ -22,8 +22,10 @@ Stripes = Tuple[torch.Tensor, torch.Tensor]  # widths (B, n) int, u (B, n) f32
 
 def draw_stripes(generator: torch.Generator, batch: int, drop_width: int,
                  stripes_num: int) -> Stripes:
-    widths = torch.randint(0, drop_width, (batch, stripes_num), generator=generator)
-    u = torch.rand(batch, stripes_num, generator=generator)
+    """(widths, u) for ``batch`` samples, on the generator's device."""
+    dev = generator.device
+    widths = torch.randint(0, drop_width, (batch, stripes_num), generator=generator, device=dev)
+    u = torch.rand(batch, stripes_num, generator=generator, device=dev)
     return widths, u
 
 

@@ -108,6 +108,24 @@ run (non-zero exit) on any error or mismatch:
     cli/inference.py audio_tagging and sound_event_detection --out-csv on
     the fixture with a reference-keyed checkpoint written here, their top-k
     equal to model.forward's. No PANN forward may launch K1.
+13. PANN transfer learning (models/pann.py forward_train, engine/transfer.py,
+    data/audiocaps.py and data/flac.py, cli/finetune_audiocaps.py), f32:
+    (a) a synthetic AudioCaps root (64 train, 16 val, 16 test 10-s 32 kHz
+    FLAC clips from AC_DISTINCT encoded ones, captions and tags CSVs); the
+    port builds its FLAC library with the host compiler; every clip decodes
+    to its encoder's integers exactly; AudioCaps and BasicCollate give the
+    expected lengths and one-hots; decode ms per clip; (b) the published
+    Cnn14, perturbed, forward_train on the card against the port's CPU
+    forward_train (B=4, dropout off, the same SpecAugment draws):
+    probabilities within PANN_PROB_TOL, logits and every bn_updates entry
+    within TRANSFER_REL_TOL of scale; one TransferTrainer.step each side:
+    head gradients within TRANSFER_REL_TOL (the TF32 pin holds over the
+    backward); (c) TransferTrainer.step at B=64, ms/step, clips/s, peak
+    memory, a two-step trace; (d) cli/finetune_audiocaps.py for one epoch
+    at batch 64 from a reference-keyed checkpoint: exit 0, base weights
+    bit-equal, head and every BN statistic moved, the checkpoint read back,
+    the epoch's wall time split into decode, H2D, steps and evaluation. No
+    transfer-path call may launch K1 or K2.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The whole of standard output also goes to
@@ -2383,6 +2401,353 @@ def run_pann_phase(device, card):
     _pann_clis()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: PANN transfer learning and AudioCaps fine-tuning
+# ---------------------------------------------------------------------------
+
+AC_CLIPS = {"train": 64, "val": 16, "test": 16}  # the synthetic AudioCaps root
+AC_CAPTIONS = {"train": 1, "val": 5, "test": 5}
+AC_DISTINCT = 8  # clips encoded (about 3 s each); the others are copies under other names
+AC_SAMPLES = 320000  # 10 s at 32 kHz; clips 4-7 are shorter (pad-to-longest batches)
+TRANSFER_CHECK_BATCH = 4  # (b): card vs CPU
+TRANSFER_BATCH = 64  # (c): the CLI's default batch
+# card vs CPU, f32 on both (cuDNN's and oneDNN's convs sum in other
+# orders): probabilities by phase 12's bound; logits, BN statistics and
+# gradients within TRANSFER_REL_TOL of their largest magnitude
+TRANSFER_REL_TOL = 1e-4
+
+
+def _ac_clip(i: int) -> np.ndarray:
+    """Distinct clip i as int16-range integers: the fixture, rolled and
+    scaled, plus seeded noise; clips 4-7 cut by 2000 * (i - 3) samples."""
+    from scipy.io import wavfile
+
+    _, fix = wavfile.read(str(FIXTURE))
+    rng = np.random.RandomState(SEED + 100 + i)
+    x = np.roll(fix[:AC_SAMPLES].astype(np.float64), 40000 * i) * (0.3 + 0.1 * i)
+    x += rng.randn(AC_SAMPLES) * 300
+    n = AC_SAMPLES - (2000 * (i - 3) if i >= 4 else 0)
+    return np.clip(np.round(x[:n]), -32767, 32767).astype(np.int64)
+
+
+def _ac_encode(i: int):
+    """Clip i and its FLAC stream, by tests/flac_encoder.py (loaded from its
+    file: a package named ``tests`` elsewhere on the path would shadow the
+    checkout's, which has no __init__.py)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("flac_encoder",
+                                                  ROOT / "tests" / "flac_encoder.py")
+    encoder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(encoder)
+    x = _ac_clip(i)
+    return x, encoder.encode_flac(x, 32000, kind="fixed", order=2, blocksize=4096)
+
+
+def make_audiocaps_root(root: Path):
+    """<root>/AUDIOCAPS_32000Hz: CSVs of captions and tags, FLAC under
+    audio/<subset>/; clip k of a subset is distinct clip k % 8 (val and
+    test use the shorter clips 4-7 only). Returns {(subset, k): ints} and
+    {(subset, k): tag indexes}."""
+    import multiprocessing
+
+    from audioset_convnext_inf_torch.labels import read_audioset_label_tags
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(AC_DISTINCT) as pool:
+        encoded = pool.map(_ac_encode, range(AC_DISTINCT))
+    log(f"  (a) {AC_DISTINCT} distinct 10-s clips FLAC-encoded (tests/flac_encoder.py, "
+        f"FIXED order 2) in {time.perf_counter() - t0:.1f} s, {AC_DISTINCT} processes")
+    ids = read_audioset_label_tags().ids
+    rng = np.random.RandomState(SEED + 13)
+    data = root / "AUDIOCAPS_32000Hz"
+    ints, tags = {}, {}
+    for subset, n in AC_CLIPS.items():
+        (data / "audio" / subset).mkdir(parents=True)
+        caps = ["audiocap_id,youtube_id,start_time,caption\n"]
+        tag_rows = ["youtube_id,mids\n"]
+        for k in range(n):
+            src = k % AC_DISTINCT if subset == "train" else 4 + k % 4
+            ytid = f"{subset}{k:04d}"
+            caps += [f"{k * 10 + c},{ytid},30,clip {k} caption {c}\n"
+                     for c in range(AC_CAPTIONS[subset])]
+            tags[(subset, k)] = sorted(rng.choice(527, rng.randint(1, 4), replace=False).tolist())
+            tag_rows.append(f"{ytid},{';'.join(ids[t] for t in tags[(subset, k)])}\n")
+            (data / "audio" / subset / f"{ytid}_30.flac").write_bytes(encoded[src][1])
+            ints[(subset, k)] = encoded[src][0]
+        (data / f"{subset}.csv").write_text("".join(caps))
+        (data / f"{subset}_tags.csv").write_text("".join(tag_rows))
+    return ints, tags
+
+
+def check_audiocaps(root: Path, ints, tags):
+    """(a) The port builds its FLAC library here; every clip of every
+    subset decodes to its integers / 32768 exactly; AudioCaps and
+    BasicCollate give the expected lengths, captions and one-hots. Returns
+    the decode's ms per clip."""
+    from audioset_convnext_inf_torch.data import flac
+    from audioset_convnext_inf_torch.data.audiocaps import AudioCaps, BasicCollate
+
+    t0 = time.perf_counter()
+    lib = flac.build()
+    log(f"  (a) FLAC decoder built with the host C++ compiler in "
+        f"{time.perf_counter() - t0:.2f} s: {lib.relative_to(ROOT)}")
+    decode_s, n_clips = 0.0, 0
+    collate = BasicCollate(with_tags=True)
+    for subset, n in AC_CLIPS.items():
+        ds = AudioCaps(root=str(root), subset=subset, with_tags=True)
+        if len(ds) != n or len(ds.at(0, "captions")) != AC_CAPTIONS[subset]:
+            raise AssertionError(f"AudioCaps {subset}: {len(ds)} clips, not {n}")
+        items = []
+        for k in range(n):
+            t0 = time.perf_counter()
+            audio = ds.at(k, "audio")
+            decode_s += time.perf_counter() - t0
+            n_clips += 1
+            want = ints[(subset, k)].astype(np.float32) * np.float32(1 / 32768)
+            if audio.dtype != np.float32 or not np.array_equal(audio, want):
+                raise AssertionError(f"AudioCaps {subset} clip {k} does not decode exactly")
+            items.append({"audio": audio, "captions": ds.at(k, "captions"),
+                          "tags": ds.at(k, "tags")})
+        batch = collate(items)
+        longest = max(len(ints[(subset, k)]) for k in range(n))
+        onehot = np.zeros((n, 527), np.float32)
+        for k in range(n):
+            onehot[k, tags[(subset, k)]] = 1.0
+        if batch["audio"].shape != (n, longest) or not np.array_equal(batch["tags"], onehot):
+            raise AssertionError(f"BasicCollate {subset}: {batch['audio'].shape}")
+        log(f"  (a) {subset}: {n} clips, {AC_CAPTIONS[subset]} caption(s) each, collated to "
+            f"{batch['audio'].shape} with one-hot tags {batch['tags'].shape}: exact")
+    ms = decode_s / n_clips * 1e3
+    log(f"  (a) decode (read + FLAC decode, host): {ms:.2f} ms per 10-s clip over {n_clips} clips")
+    return ms
+
+
+def _transfer_cfg(**kw):
+    import dataclasses
+
+    from audioset_convnext_inf_torch.models.pann import PANN_REGISTRY
+
+    return dataclasses.replace(PANN_REGISTRY["Cnn14"], **kw)
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def check_transfer_card_vs_cpu(device, clips):
+    """(b) forward_train of the published-width Cnn14 (perturbed weights
+    and statistics) on the card against the port's CPU forward_train,
+    B=4 10-s clips, dropout off, the same SpecAugment draws; then one
+    TransferTrainer.step each side (SpecAugment off too), whose head
+    gradients and updated head hold the TF32 pin over the whole step."""
+    from audioset_convnext_inf_torch.engine.transfer import TransferTrainer
+    from audioset_convnext_inf_torch.models.pann import build_pann_model
+    from audioset_convnext_inf_torch.ops.specaugment import draw_stripes
+
+    cfg = _transfer_cfg(block_dropout=0.0, head_dropout=0.0)
+    card = perturb_pann(build_pann_model(cfg, seed=SEED, device=device), SEED + 7)
+    cpu = build_pann_model(cfg, seed=SEED, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    x = clips[:TRANSFER_CHECK_BATCH]
+    g = torch.Generator().manual_seed(SEED + 8)
+    sa = cfg.spec_augment
+    draws = [(draw_stripes(g, len(x), sa.time_drop_width, sa.time_stripes_num),
+              draw_stripes(g, len(x), sa.freq_drop_width, sa.freq_stripes_num))] + [None] * 8
+    _zero_counts()
+    got = card.forward_train(x, None, draws=draws)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = cpu.forward_train(x, None, draws=draws)
+    prob = (got["clipwise_output"].detach().cpu() - want["clipwise_output"]).abs().max().item()
+    logit = _rel_err(got["clipwise_logits"], want["clipwise_logits"])
+    bn = max(_rel_err(got["bn_updates"][p][s], want["bn_updates"][p][s])
+             for p in want["bn_updates"] for s in ("mean", "var"))
+    same_paths = set(got["bn_updates"]) == set(want["bn_updates"])
+    log(f"  (b) forward_train card vs CPU, Cnn14 B={len(x)} 10-s clips, dropout off, the same "
+        f"SpecAugment draws: probs max diff {prob:.3e} (tol {PANN_PROB_TOL}), logits "
+        f"{logit:.3e} of scale, {len(want['bn_updates'])} bn_updates (mean, var) "
+        f"{bn:.3e} of scale (tol {TRANSFER_REL_TOL}); K1/K1 save/K2 launches {launches}")
+    if not (prob <= PANN_PROB_TOL and logit <= TRANSFER_REL_TOL and bn <= TRANSFER_REL_TOL
+            and same_paths and launches == (0, 0, 0)):
+        raise AssertionError("forward_train: the card disagrees with the CPU")
+    del got, want
+    # one step each side; SpecAugment off, so neither side draws
+    cfg = _transfer_cfg(block_dropout=0.0, head_dropout=0.0, use_spec_augment=False)
+    for m in (card, cpu):  # the same weights under the config without SpecAugment
+        m.cfg = cfg
+    grads = {}
+    trainers = {"card": TransferTrainer(card), "cpu": TransferTrainer(cpu)}
+    rng = np.random.RandomState(SEED + 9)
+    tags = (rng.rand(len(x), 527) < 0.01).astype(np.float32)
+    tags[:, 0] = 1.0
+    for side, tr in trainers.items():
+        step = tr.opt.step
+        tr.opt.step = lambda gs, side=side, step=step: (grads.__setitem__(side, gs), step(gs))[1]
+        _zero_counts()
+        loss = tr.step(x, tags)
+        grads[side + " loss"] = loss
+        if side == "card":
+            launches = _counts()
+    gerr = max(_rel_err(a, b) for a, b in zip(grads["card"], grads["cpu"]))
+    sd_card, sd_cpu = card.state_dict(), cpu.state_dict()
+    head = [k for k in sd_cpu if k.split(".")[0] in ("fc1", "fc_audioset")]
+    perr = max((sd_card[k].cpu() - sd_cpu[k]).abs().max().item() for k in head)
+    moved = sum(int((sd_card[k].cpu() - sd_cpu[k]).abs().gt(1e-6).sum()) for k in head)
+    lr = trainers["cpu"].opt.lr
+    log(f"  (b) TransferTrainer.step card vs CPU: loss {grads['card loss']:.6f} vs "
+        f"{grads['cpu loss']:.6f}; fc1/fc_audioset gradients {gerr:.3e} of scale (tol "
+        f"{TRANSFER_REL_TOL}); updated head max diff {perr:.3e} ({moved} of "
+        f"{sum(sd_cpu[k].numel() for k in head)} elements over 1e-6: AMSGrad's first step "
+        f"is lr * sign(g), so a gradient at rounding level may step the other way, 2 * lr = "
+        f"{2 * lr:.0e}); launches {launches}")
+    if not (gerr <= TRANSFER_REL_TOL and perr <= 2 * lr + 1e-6 and launches == (0, 0, 0)
+            and abs(grads["card loss"] - grads["cpu loss"]) <= 1e-5):
+        raise AssertionError("TransferTrainer.step: the card disagrees with the CPU")
+    del trainers, card, cpu
+    torch.cuda.empty_cache()
+
+
+def time_transfer_step(device, clips, card):
+    """(c) TransferTrainer.step at B=64 on 10-s clips already on the card,
+    the CLI's recipe (Cnn14 with its dropout and SpecAugment): CUDA events
+    over 10 steps after 3; peak memory above what was allocated before the
+    model; one trace of two steps; launches of K1 and K2."""
+    from audioset_convnext_inf_torch.engine.transfer import TransferTrainer
+    from audioset_convnext_inf_torch.models.pann import create_pann_model
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = perturb_pann(create_pann_model("Cnn14", seed=SEED, device=device), SEED + 11)
+    trainer = TransferTrainer(model)
+    reps = -(-TRANSFER_BATCH // len(clips))
+    audio = torch.from_numpy(np.concatenate([clips] * reps)[:TRANSFER_BATCH]).to(device)
+    rng = np.random.RandomState(SEED + 12)
+    tags = torch.from_numpy((rng.rand(TRANSFER_BATCH, 527) < 0.01).astype(np.float32)).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    ms = cuda_ms(lambda: trainer.step_on_device(audio, tags), iters=10, warmup=3)
+    launches = _counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    loss = float(trainer.step_on_device(audio, tags))
+    log(f"  (c) TransferTrainer.step Cnn14 B={TRANSFER_BATCH} 10-s clips (dropout, "
+        f"SpecAugment, train-mode BN, head-only AMSGrad, f32): {ms:.3f} ms/step, "
+        f"{TRANSFER_BATCH / ms * 1e3:.1f} clips/s; peak memory {peak:.2f} GiB; loss {loss:.5f}; "
+        f"K1/K1 save/K2 launches {launches} over 13 steps [{card}]")
+    if launches != (0, 0, 0) or not math.isfinite(loss):
+        raise AssertionError(f"transfer step: launches {launches}, loss {loss}")
+    profile_run(lambda: [trainer.step_on_device(audio, tags) for _ in range(2)],
+                f"TransferTrainer.step x2, Cnn14 B={TRANSFER_BATCH}", top=8)
+    del trainer, model, audio
+    torch.cuda.empty_cache()
+    return ms
+
+
+class _Timer:
+    """Seconds spent in a wrapped function, the card synchronised after it
+    where ``sync``."""
+
+    def __init__(self, owner, name: str, sync: bool):
+        self.owner, self.name, self.fn, self.sync = owner, name, getattr(owner, name), sync
+        self.seconds, self.calls = 0.0, 0
+        setattr(owner, name, self)
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        if self.sync:
+            torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+    def __get__(self, obj, objtype=None):  # as a method of a class
+        return self if obj is None else (lambda *a, **k: self(obj, *a, **k))
+
+    def restore(self):
+        setattr(self.owner, self.name, self.fn)
+
+
+def run_finetune_cli(root: Path, step_ms: float, card):
+    """(d) cli/finetune_audiocaps.py --epochs 1 --batch-size 64 over the
+    root, on the card (its default), from a reference-keyed Cnn14
+    checkpoint written here; the epoch's wall time split into decode
+    (AudioCaps.at of the audio column), H2D, train steps and eval
+    forwards."""
+    from audioset_convnext_inf_torch.checkpoint import (load_checkpoint, load_pann_state_dict,
+                                                        pann_state_dict_from_params)
+    from audioset_convnext_inf_torch.cli import finetune_audiocaps
+    from audioset_convnext_inf_torch.data import audiocaps
+    from audioset_convnext_inf_torch.engine.transfer import TransferTrainer
+    from audioset_convnext_inf_torch.models.pann import PannModel, create_pann_model
+
+    source = perturb_pann(create_pann_model("Cnn14", seed=SEED, device="cpu"), SEED + 15)
+    sd = {k: v.clone() for k, v in source.state_dict().items()}
+    ckpt = WORK / "Cnn14_pretrained.pth"
+    torch.save({"model": dict(sd, **{"bn0.num_batches_tracked": torch.tensor(5)})}, ckpt)
+    out_dir = WORK / "finetune_out"
+    timers = [_Timer(audiocaps, "read_audio", False),
+              _Timer(TransferTrainer, "to_device", True),
+              _Timer(TransferTrainer, "step_on_device", True),
+              _Timer(PannModel, "forward", True)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = finetune_audiocaps.main(["--root", str(root), "--checkpoint", str(ckpt),
+                                      "--epochs", "1", "--batch-size", str(TRANSFER_BATCH),
+                                      "--out-dir", str(out_dir)])
+        torch.cuda.synchronize()
+    finally:
+        for t in timers:
+            t.restore()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    decode, h2d, step, evals = timers
+    other = wall - decode.seconds - h2d.seconds - step.seconds - evals.seconds
+    (name,) = os.listdir(out_dir)
+    state = load_checkpoint(str(out_dir / name))
+    got = pann_state_dict_from_params(state["params"], "Cnn14")
+    base_equal = all(np.array_equal(got[k], v.numpy()) for k, v in sd.items()
+                     if k.split(".")[0] not in ("fc1", "fc_audioset")
+                     and not k.endswith(("running_mean", "running_var")))
+    stats = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    moved = sum(not np.array_equal(got[k], sd[k].numpy()) for k in stats)
+    head_moved = all(not np.array_equal(got[k], sd[k].numpy())
+                     for k in sd if k.split(".")[0] in ("fc1", "fc_audioset"))
+    back = load_pann_state_dict(create_pann_model("Cnn14", device="cpu"), got)
+    probs = back.forward(np.zeros((1, 32000), np.float32))["clipwise_output"]
+    log(f"  (d) cli.finetune_audiocaps --epochs 1 --batch-size {TRANSFER_BATCH} (card, "
+        f"reference-keyed checkpoint): exit {rc}, wrote {name}; base weights bit-equal "
+        f"{base_equal}, head moved {head_moved}, BN running statistics moved {moved} of "
+        f"{len(stats)}; read back by the port, finite {bool(torch.isfinite(probs).all())}; "
+        f"K1/K1 save/K2 launches {launches}")
+    log(f"  (d) the epoch's wall {wall:.2f} s: decode {decode.seconds:.2f} s "
+        f"({decode.calls} clips, {decode.seconds / decode.calls * 1e3:.1f} ms each), H2D "
+        f"{h2d.seconds * 1e3:.1f} ms ({h2d.calls} batches), train steps "
+        f"{step.seconds * 1e3:.1f} ms ({step.calls}; (c) timed one at {step_ms:.1f} ms), "
+        f"eval forwards {evals.seconds * 1e3:.1f} ms ({evals.calls}), "
+        f"the rest (model build, checkpoint load and save, collate) {other:.2f} s; decode per "
+        f"train batch / step alone: {decode.seconds / decode.calls * TRANSFER_BATCH * 1e3 / step_ms:.1f}x "
+        f"[{card}]")
+    if not (rc == 0 and base_equal and head_moved and moved == len(stats)
+            and launches == (0, 0, 0) and bool(torch.isfinite(probs).all())):
+        raise AssertionError("cli.finetune_audiocaps: see the lines above")
+
+
+def run_transfer_phase(device, card):
+    """Phase 13. The transfer path launches no kernel of the port: K1 and
+    K2 are counted over (b)-(d) and must stay at 0."""
+    root = WORK / "audiocaps"
+    ints, tags = make_audiocaps_root(root)
+    check_audiocaps(root, ints, tags)
+    clips = np.stack([ints[("train", k)] for k in range(4)]).astype(np.float32) / 32768
+    check_transfer_card_vs_cpu(device, clips.astype(np.float32))
+    step_ms = time_transfer_step(device, clips.astype(np.float32), card)
+    run_finetune_cli(root, step_ms, card)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2457,27 +2822,27 @@ def run_phases() -> int:
 
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    phase(f"[1/12] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    phase(f"[1/13] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    phase("[2/12] build")
+    phase("[2/13] build")
     build_kernels(["fused_block", "fused_block_bwd"])
 
-    phase("[3/12] kernels against their plain versions")
+    phase("[3/13] kernels against their plain versions")
     k1_results = check_k1(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
-    phase("[4/12] serving path: convnext_tiny, B=16 x 10-s clips")
+    phase("[4/13] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
     check_row_independence(serve)
 
-    phase(f"[5/12] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+    phase(f"[5/13] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
     trainer, batch, train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    phase(f"[6/12] times on {card}")
+    phase(f"[6/13] times on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
@@ -2486,7 +2851,7 @@ def run_phases() -> int:
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
-    phase("[7/12] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
+    phase("[7/13] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
     WORK.mkdir(parents=True, exist_ok=True)
     surface_launches = check_checkpoint_round_trip(serve, device, fixture_batch(BATCH, SEED))
     pcm, target = eval_data(SEED + 9)
@@ -2500,15 +2865,15 @@ def run_phases() -> int:
     one_rate = time_evaluator(serve, ev, pcm, target, card)
     del ev
 
-    phase(f"[8/12] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
+    phase(f"[8/13] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
     service_launches, http_rate = run_service(serve, card)
     torch.cuda.empty_cache()
 
-    phase("[9/12] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
+    phase("[9/13] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
     runner = CliRunner()
     cli_launches, three = run_train_cli(runner, card)
 
-    phase("[10/12] data parallelism on the one card")
+    phase("[10/13] data parallelism on the one card")
     torch.cuda.empty_cache()
     log("  (a) cli/train.py under torchrun's environment, world size 1, NCCL")
     nccl_launches = run_nccl_world_1(runner, three, card)
@@ -2521,13 +2886,17 @@ def run_phases() -> int:
     log("  (d) cli/serve.py --mesh")
     mesh_launches = run_service_mesh(serve, card)
 
-    phase("[11/12] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
+    phase("[11/13] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
     bundle_launches = run_bundle_phase(serve, device, card, http_rate)
     del serve
     torch.cuda.empty_cache()
 
-    phase("[12/12] PANN zoo: 49 models, f32 under fp32_precision(\"highest\"), 10-s clips")
+    phase("[12/13] PANN zoo: 49 models, f32 under fp32_precision(\"highest\"), 10-s clips")
     run_pann_phase(device, card)
+
+    phase("[13/13] PANN transfer: AudioCaps FLAC root, forward_train, TransferTrainer, "
+          "cli/finetune_audiocaps.py; Cnn14 f32, 10-s clips")
+    run_transfer_phase(device, card)
     shutil.rmtree(WORK)
     phase("done")
 

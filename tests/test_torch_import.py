@@ -48,13 +48,14 @@ SERVING_AND_TRAINING = (
     "cli/serve.py", "cli/train.py", "data/blacklist.py", "data/samplers.py",
     "engine/service.py", "engine/statistics.py", "engine/trainer.py", "checkpoint/io.py",
     "labels.py", "utils/logging_utils.py", "engine/aot_export.py", "cli/export_serving.py",
+    "data/audiocaps.py", "data/flac.py", "engine/transfer.py", "cli/finetune_audiocaps.py",
 )
 
 
 def test_sources_name_neither_jax_nor_the_jax_package():
-    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cpp"))
     assert len(files) >= 10
-    assert {PKG / m for m in SERVING_AND_TRAINING} <= set(files)
+    assert {PKG / m for m in SERVING_AND_TRAINING} | {PKG / "csrc" / "flac_decode.cpp"} <= set(files)
     for f in files:
         text = f.read_text()
         assert "audioset_convnext_inf_tpu" not in text, f
@@ -71,7 +72,8 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 
 def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
     from audioset_convnext_inf_torch.cli import (convert, demo, evaluate, export_serving,
-                                                 extract_embeddings, inference, serve, train)
+                                                 extract_embeddings, finetune_audiocaps,
+                                                 inference, serve, train)
     from audioset_convnext_inf_torch.engine.evaluator import Evaluator
     from audioset_convnext_inf_torch.models import api
 
@@ -103,6 +105,7 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
                        ([out], export_serving.main),
                        (["--train-indexes", "i.h5", "--workspace", out], train.main),
                        (["audio_tagging", "--audio-path", wav], inference.main),
+                       (["--root", out, "--out-dir", out], finetune_audiocaps.main),
                        (["sound_event_detection", "--audio-path", wav, "--out-csv",
                          out + ".csv", "--model-type", "Cnn14_DecisionLevelMax"],
                         inference.main)):
@@ -119,7 +122,8 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
 
 def test_the_port_loads_no_native_library():
     """The JAX package's native data plane (``native/libaudiohost.so``) is
-    built on demand by ``make``; the port reads audio with numpy and scipy."""
+    built on demand by ``make``; the port reads audio with numpy and scipy,
+    and FLAC through its own build of ``csrc/flac_decode.cpp``."""
     for f in sorted(PKG.rglob("*.py")):
         text = f.read_text()
         assert "libaudiohost" not in text and "audio_host" not in text, f
@@ -153,3 +157,18 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build("fused_block")
     name = _build.library_path("fused_block").name
     assert name.startswith("libfused_block_") and name.endswith(".so")
+
+
+def test_flac_build_without_a_compiler_raises(monkeypatch, tmp_path):
+    from audioset_convnext_inf_torch.data import flac
+
+    monkeypatch.setattr(flac, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CXX", raising=False)
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        flac.build()
+    monkeypatch.setenv("CXX", sys.executable)  # a "compiler" that fails
+    monkeypatch.setenv("PATH", os.path.dirname(sys.executable))
+    with pytest.raises(RuntimeError, match="building the FLAC decoder failed"):
+        flac.build()
+    assert not list(tmp_path.glob("*.so"))

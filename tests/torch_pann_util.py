@@ -1,17 +1,21 @@
 """Shared helpers of the PANN zoo's port tests: perturbed weights drawn by
 the port's init and carried into the JAX package's layout by its own
 converter (``pann_state_dict_to_params``, the reference for the key
-names), and configs mirrored across the two packages."""
+names), configs mirrored across the two packages, and the JAX package's
+training forward with the random draws it made."""
 
 import dataclasses
 
+import jax
 import numpy as np
+import pytest
 import torch
 
 from audioset_convnext_inf_tpu.checkpoint.pann_convert import pann_state_dict_to_params
 from audioset_convnext_inf_tpu.config import FrontendConfig as JaxFrontendConfig
 from audioset_convnext_inf_tpu.config import SpecAugmentConfig as JaxSpecAugmentConfig
 from audioset_convnext_inf_tpu.models import pann as JP
+from audioset_convnext_inf_tpu.models import pann_layers as JPL
 
 from audioset_convnext_inf_torch.models import pann_layers as P
 from audioset_convnext_inf_torch.models.pann import build_pann_model
@@ -136,4 +140,87 @@ def close(got, want, tol=PROB_TOL, label=""):
     err = float(np.max(np.abs(got - want))) if got.size else 0.0
     assert err <= tol, f"{label}: max abs diff {err:.3e} > {tol:.0e}"
     return err
+
+
+# The training forward (tests/test_torch_pann_train*.py), f32 on the CPU.
+# BN in training normalizes by batch statistics, and over the few elements
+# a channel holds deep in a net (B <= 4, maps of a few bins) it amplifies
+# the f32 summation-order differences of the convolutions from layer to
+# layer (measured here: about 1e-7 after the first BN, up to 4e-5 on the
+# probabilities of the wavegram with dropout); the clips are long enough
+# to keep the deepest maps at several bins.
+TRAIN_PROB_TOL = 5e-5  # probabilities, absolute
+# logits, segmentwise and framewise outputs, embeddings: of their largest magnitude
+TRAIN_OUT_TOL = 1e-4
+TRAIN_BN_TOL = 3e-5  # every bn_updates mean and variance: of its largest magnitude
+
+
+def _stripes(key, b, width, n):
+    """The stripes JAX's ``_drop_stripes`` draws from ``key``."""
+    wkey, bkey = jax.random.split(key)
+    widths = jax.random.randint(wkey, (b, n), 0, width)
+    u = jax.random.uniform(bkey, (b, n))
+    return torch.from_numpy(np.array(widths, np.int64)), torch.from_numpy(np.array(u))
+
+
+def jax_forward_train(model, wave, seed, mixup_lambda=None):
+    """The JAX package's forward_train of ``model``'s weights and config
+    (op by op), and the draws it made, in its KeyStream's order: its
+    ``dropout`` and ``spec_augment`` are wrapped to record each mask and
+    stripe set as they draw it from its key."""
+    cfg = jax_config(model.cfg)
+    jm = JP.PannModel(cfg, pann_state_dict_to_params(state_dict(model), cfg))
+    draws = []
+    dropout, spec_augment = JPL.dropout, JP.spec_augment
+
+    def rec_dropout(x, rate, key):
+        draws.append(None if rate == 0.0 else
+                     torch.from_numpy(np.array(jax.random.bernoulli(key, 1.0 - rate, x.shape))))
+        return dropout(x, rate, key)
+
+    def rec_spec_augment(key, x, time_axis, freq_axis, cfg):
+        tkey, fkey = jax.random.split(key)
+        b = x.shape[0]
+        draws.append((_stripes(tkey, b, cfg.time_drop_width, cfg.time_stripes_num),
+                      _stripes(fkey, b, cfg.freq_drop_width, cfg.freq_stripes_num)))
+        return spec_augment(key, x, time_axis, freq_axis, cfg)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(JPL, "dropout", rec_dropout)
+        mp.setattr(JP, "spec_augment", rec_spec_augment)
+        lam = None if mixup_lambda is None else jax.numpy.asarray(mixup_lambda)
+        out = jm.forward_train(jax.numpy.asarray(wave), jax.random.PRNGKey(seed), lam)
+    finally:
+        mp.undo()
+    bn = {path: {k: np.asarray(v) for k, v in stats.items()}
+          for path, stats in out.pop("bn_updates").items()}
+    return {k: np.asarray(v) for k, v in out.items()}, bn, draws
+
+
+def _rel(got, want, tol, label):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == want.shape, (label, got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, f"{label}: max abs diff {err:.3e} > {tol:.0e} x {scale:.3e}"
+
+
+def compare_train(got, want, want_bn):
+    """Every output and ``bn_updates`` entry of the JAX training forward,
+    within the TRAIN_ tolerances, on the same dotted paths."""
+    bn = got.pop("bn_updates")
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    for key, w in want.items():
+        if key == "clipwise_output":
+            err = float(np.abs(got[key].detach().numpy() - w).max())
+            assert err <= TRAIN_PROB_TOL, f"{key}: {err:.3e}"
+        else:
+            _rel(got[key], w, TRAIN_OUT_TOL, key)
+    assert set(bn) == set(want_bn), sorted(set(bn) ^ set(want_bn))
+    for path, stats in want_bn.items():
+        assert set(bn[path]) == set(stats), path
+        for leaf in ("mean", "var"):
+            _rel(bn[path][leaf], stats[leaf], TRAIN_BN_TOL, f"{path}.{leaf}")
+
 
