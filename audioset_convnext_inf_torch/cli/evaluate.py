@@ -33,6 +33,10 @@ def main(argv=None) -> int:
                         help="default: the card; 'cpu' to ask for the CPU")
     args = parser.parse_args(argv)
 
+    from audioset_convnext_inf_torch.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
+
     import torch
 
     from audioset_convnext_inf_torch.data import AudioSetDataset, DataLoader, EvaluateSampler

@@ -26,6 +26,10 @@ def main(argv=None) -> int:
                         help="default: the card; 'cpu' to ask for the CPU")
     args = parser.parse_args(argv)
 
+    from audioset_convnext_inf_torch.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
+
     from audioset_convnext_inf_torch.engine.infer import extract_embeddings_to_hdf5
     from audioset_convnext_inf_torch.models import ConvNeXt, convnext_tiny
     from audioset_convnext_inf_torch.models.api import resolve_device

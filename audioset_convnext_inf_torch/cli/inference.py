@@ -58,6 +58,10 @@ def main(argv=None) -> int:
                        help="default: the card; 'cpu' to ask for the CPU")
     args = parser.parse_args(argv)
 
+    from audioset_convnext_inf_torch.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
+
     from audioset_convnext_inf_torch.data.audio_io import read_wav
     from audioset_convnext_inf_torch.device import resolve_device
     from audioset_convnext_inf_torch.labels import read_audioset_label_tags

@@ -102,6 +102,10 @@ def make_server(argv=None, model=None) -> Tuple[object, object]:
     ``server.serve_forever()`` serves; to stop, call ``server.shutdown()``,
     ``server.server_close()`` and ``service.stop()``."""
     args = parse_args(argv)
+
+    from audioset_convnext_inf_torch.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     import torch

@@ -150,7 +150,9 @@ def train(args: argparse.Namespace, train_index: dict, eval_indexes: Dict[str, d
     from audioset_convnext_inf_torch.models.api import resolve_device
     from audioset_convnext_inf_torch.parallel import get_mesh, initialize_distributed, is_primary
     from audioset_convnext_inf_torch.utils import MetricLogger, create_logging
+    from audioset_convnext_inf_torch.utils.cache import enable_compilation_cache
 
+    enable_compilation_cache()
     device = resolve_device(args.device)
     mesh = metrics_logger = None
     started = not torch.distributed.is_initialized()

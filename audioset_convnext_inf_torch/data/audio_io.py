@@ -1,37 +1,37 @@
-"""Host-side audio I/O and sample-format utilities, in numpy and scipy.
+"""Host-side audio I/O and sample-format utilities.
 
-The port's counterpart of the JAX package's ``data/audio_io.py``: WAV
-reading through ``scipy.io.wavfile``, polyphase resampling through
-``scipy.signal.resample_poly`` in f64, int16 <-> float32 with the
-reference's scaling (utilities.py:220-227). The int16 decode multiplies by
-the f32 constant ``np.float32(INT16_SCALE)``: bit-identical to the JAX
-package's native and numpy decodes, and to the card's (``ops/pcm.py``).
-FLAC (``read_flac``, and ``read_audio`` for either format) decodes through
-the port's own build of the FLAC decoder (``data/flac.py``).
+The port's counterpart of the JAX package's ``data/audio_io.py``. int16 <->
+float32 with the reference's scaling (utilities.py:220-227), WAV parsing
+and decode, and polyphase resampling (scipy.signal.resample_poly's Kaiser
+design, the upfirdn loop in C++) run in the port's host library
+(``utils/native.py`` over ``csrc/audio_host.cpp``); the int16 decode
+multiplies by the f32 constant ``np.float32(INT16_SCALE)``, bit-identical to
+the card's (``ops/pcm.py``). FLAC (``read_flac``, and ``read_audio`` for
+either format) decodes through the port's FLAC library (``data/flac.py``).
+Nothing falls back to numpy or scipy: a failed build or a stream the
+parsers do not support raises.
 """
 
 from __future__ import annotations
 
-import io
 import math
 from typing import Tuple
 
 import numpy as np
 
-from audioset_convnext_inf_torch.config import INT16_SCALE
-
-_INT16_SCALE = np.float32(INT16_SCALE)
-
 
 def float32_to_int16(x: np.ndarray) -> np.ndarray:
     """Clip to [-1, 1], scale by 32767 in f32 and truncate (utilities.py:220-223)."""
-    x = np.ascontiguousarray(x, np.float32)
-    return (np.clip(x, -1, 1) * np.float32(32767.0)).astype(np.int16)
+    from audioset_convnext_inf_torch.utils import native
+
+    return native.float32_to_int16(np.asarray(x))
 
 
 def int16_to_float32(x: np.ndarray) -> np.ndarray:
     """x * (1/32767) in f32 (utilities.py:226-227)."""
-    return np.ascontiguousarray(x, np.int16).astype(np.float32) * _INT16_SCALE
+    from audioset_convnext_inf_torch.utils import native
+
+    return native.int16_to_float32(np.asarray(x))
 
 
 def pad_or_truncate(x: np.ndarray, audio_length: int) -> np.ndarray:
@@ -62,14 +62,14 @@ def decimate_resample(waveform: np.ndarray, sample_rate: int) -> np.ndarray:
 
 
 def resample_poly(waveform: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resampling with scipy's Kaiser-windowed lowpass, in f64."""
+    """Polyphase resampling with scipy.signal.resample_poly's Kaiser-windowed
+    lowpass along axis 0, the loop in the host library with f64 sums."""
     if orig_sr == target_sr:
         return waveform.astype(np.float32, copy=False)
-    from scipy import signal
+    from audioset_convnext_inf_torch.utils import native
 
     g = math.gcd(int(orig_sr), int(target_sr))
-    up, down = target_sr // g, orig_sr // g
-    return signal.resample_poly(waveform.astype(np.float64), up, down).astype(np.float32)
+    return native.resample_poly_kaiser(waveform, target_sr // g, orig_sr // g)
 
 
 def normalize_pcm(data: np.ndarray, mono: bool = True) -> np.ndarray:
@@ -89,13 +89,17 @@ def normalize_pcm(data: np.ndarray, mono: bool = True) -> np.ndarray:
 
 def read_wav(path: str, target_sr: int | None = None, mono: bool = True) -> Tuple[np.ndarray, int]:
     """A WAV file -> (float32 waveform in [-1, 1], sample rate), optionally
-    down-mixed to mono (the channel mean) and resampled to ``target_sr``."""
-    from scipy.io import wavfile
+    down-mixed to mono (the channel mean) and resampled to ``target_sr``.
+    PCM 8/16/24/32 and IEEE float, WAVE_FORMAT_EXTENSIBLE too; another
+    format raises ``ValueError``."""
+    from audioset_convnext_inf_torch.utils import native
 
     with open(path, "rb") as f:
         raw = f.read()
-    sr, data = wavfile.read(io.BytesIO(raw))
-    x = normalize_pcm(data, mono=mono)
+    try:
+        x, sr = native.decode_wav_bytes(raw, mono=mono)
+    except ValueError as e:
+        raise ValueError(f"cannot decode WAV {path!r}: {e}") from e
     if target_sr is not None and sr != target_sr:
         x = resample_poly(x, sr, target_sr)
         sr = target_sr

@@ -2,14 +2,10 @@
 
 The JAX package decodes FLAC through its native library
 (``utils/native.py:242-314`` over ``native/flac_decode.cpp``); the port keeps
-a copy of that decoder and builds it itself, with the host C++ compiler
-(``CXX``, else ``g++`` or ``c++`` on ``PATH``), at first use, into
-``build/host_libs/`` at the root of the checkout. The library's name
-carries a hash of the source and the flags, as the kernels' do
-(``ops/_build.py``). The build runs under an ``fcntl`` lock on a file beside
-it and links to a temporary name that ``os.replace`` moves into place, so
-processes that start together (pytest workers, loader processes) wait for
-one build and never see a half-written library.
+a copy of that decoder and builds it itself, with the host C++ compiler,
+at first use, into ``build/host_libs/`` at the root of the checkout, through
+``utils/host_build.py`` (hash-named by source and flags, built once under a
+file lock for every process that starts together).
 
 A stream that cannot be decoded raises, and so does a missing compiler or a
 failed build: there is no fallback.
@@ -18,21 +14,17 @@ failed build: there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+from audioset_convnext_inf_torch.utils import host_build
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flac_decode.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host_libs"
-CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+BUILD_DIR: Optional[Path] = None  # None: host_build.BUILD_DIR
+CXX_FLAGS = host_build.CXX_FLAGS
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -47,41 +39,13 @@ class _FlacInfo(ctypes.Structure):
     ]
 
 
-def _compiler() -> str:
-    for cand in (os.environ.get("CXX"), "g++", "c++"):
-        path = cand and shutil.which(cand)
-        if path:
-            return path
-    raise RuntimeError("no C++ compiler (CXX, g++, c++): cannot build the FLAC decoder")
-
-
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + SOURCE.read_bytes())
-    return BUILD_DIR / f"libflac_decode_{h.hexdigest()[:16]}.so"
+    return host_build.library_path("flac_decode", [SOURCE], CXX_FLAGS, BUILD_DIR)
 
 
 def build() -> Path:
     """Compile ``csrc/flac_decode.cpp`` unless its library is built already."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(out.with_suffix(".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
-        if out.exists():
-            return out
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_compiler(), *CXX_FLAGS, "-o", tmp, str(SOURCE)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"building the FLAC decoder failed:\n{proc.stderr[-4000:]}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return out
+    return host_build.build("flac_decode", [SOURCE], CXX_FLAGS, "the FLAC decoder", BUILD_DIR)
 
 
 def _load() -> ctypes.CDLL:

@@ -9,9 +9,10 @@ the reference's on-disk schema (utils/dataset.py:193-199):
    the working set the samplers walk.
 
 :class:`AudioSetDataset` maps a meta {'hdf5_path', 'index_in_hdf5'} to
-{'audio_name', 'waveform', 'target'} (utils/data_generator.py:27-123). File
-handles are kept per (path, thread), since the loader reads from a thread
-pool. ``h5py`` is imported where a file is opened, not with this module.
+{'audio_name', 'waveform' or 'fbank', 'target'} (utils/data_generator.py:
+27-123). File handles are kept per (path, thread), since the loader reads
+from a thread pool. ``h5py`` is imported where a file is opened, not with
+this module.
 """
 
 from __future__ import annotations
@@ -27,18 +28,20 @@ from audioset_convnext_inf_torch.data.audio_io import decimate_resample, int16_t
 class AudioSetDataset:
     def __init__(self, sample_rate: int = 32000, training: bool = False,
                  use_kaldi_fbank: bool = False, keep_int16: bool = False):
-        """``keep_int16`` ships the packed int16 samples as they are and the
+        """``use_kaldi_fbank`` is the reference's use_torchaudio mode
+        (data_generator.py:75-97): items carry a (T, 224) Kaldi fbank
+        computed on the host (``ops/kaldi_fbank.py`` on CPU tensors) in
+        place of the waveform.
+
+        ``keep_int16`` ships the packed int16 samples as they are and the
         card decodes them (x * INT16_SCALE, bit-identical to the host
         decode): half the bytes of float32 per clip. Only honoured for plain
-        32 kHz waveforms: decimation consumes host-side float32."""
-        if use_kaldi_fbank:
-            raise NotImplementedError(
-                "the Kaldi-fbank dataset mode needs ops/kaldi_fbank.py, which is not ported to "
-                "PyTorch yet (ROADMAP.md, queue 1 item 15)")
+        32 kHz waveforms: decimation and the fbank consume host-side
+        float32, and would otherwise run on 32767-times-scaled samples."""
         self.sample_rate = sample_rate
         self.training = training
         self.use_kaldi_fbank = use_kaldi_fbank
-        self.keep_int16 = keep_int16 and sample_rate == 32000
+        self.keep_int16 = keep_int16 and sample_rate == 32000 and not use_kaldi_fbank
         self._local = threading.local()
 
     def _file(self, path: str):
@@ -53,12 +56,25 @@ class AudioSetDataset:
     def __getitem__(self, meta: dict) -> dict:
         hf = self._file(meta["hdf5_path"])
         idx = meta["index_in_hdf5"]
-        audio_name = hf["audio_name"][idx].decode()
+        return self.clip_item(hf["audio_name"][idx].decode(), hf["waveform"][idx],
+                              hf["target"][idx])
+
+    def clip_item(self, audio_name: str, waveform: np.ndarray, target: np.ndarray) -> dict:
+        """One packed clip (int16 samples at 32 kHz) -> the item: the decode,
+        the decimation to ``sample_rate`` and, in the fbank mode, the fbank.
+        The HDF5 route and in-memory datasets share it."""
+        target = np.asarray(target).astype(np.float32)
         if self.keep_int16:
-            waveform = hf["waveform"][idx]  # raw int16; the card decodes
-        else:
-            waveform = decimate_resample(int16_to_float32(hf["waveform"][idx]), self.sample_rate)
-        target = hf["target"][idx].astype(np.float32)
+            return {"audio_name": audio_name, "waveform": np.asarray(waveform),  # the card decodes
+                    "target": target}
+        waveform = decimate_resample(int16_to_float32(waveform), self.sample_rate)
+        if self.use_kaldi_fbank:
+            import torch
+
+            from audioset_convnext_inf_torch.ops.kaldi_fbank import kaldi_fbank
+
+            fbank = kaldi_fbank(torch.from_numpy(waveform), sample_rate=self.sample_rate).numpy()
+            return {"audio_name": audio_name, "fbank": fbank, "target": target}
         return {"audio_name": audio_name, "waveform": waveform, "target": target}
 
     def close(self):

@@ -6,7 +6,9 @@ reference leans on torch's ``DataLoader`` with 10 worker processes
 reads, so a thread pool gets the same I/O overlap without pickling batches
 across processes. Batches are assembled ahead of consumption, in order, in
 a bounded queue, so host I/O overlaps the card's compute (the Evaluator's
-replicas copy each batch to the card on their own streams).
+replicas copy each batch to the card on their own streams);
+:func:`device_prefetch` keeps batches in flight to a device for other
+consumers.
 
 With ``pad_to_batch_size`` the last partial batch is zero-padded to the
 full batch size and its real length reported as ``batch["valid"]``.
@@ -133,3 +135,56 @@ class DataLoader:
                     q.get_nowait()
                 except queue.Empty:
                     break
+
+
+def _numeric(v) -> bool:
+    return isinstance(v, np.ndarray) and v.dtype != object and np.issubdtype(v.dtype, np.number)
+
+
+def device_prefetch(iterator: Iterable, device, size: int = 2) -> Iterator[dict]:
+    """Keep ``size`` batches in flight to ``device`` (double buffering).
+
+    On the card each numeric array of a batch is copied into pinned host
+    memory and from there, ``non_blocking``, onto the card on a copy stream;
+    one event per batch follows its copies. A batch is handed out once the
+    consumer's current stream waits on that event, and its tensors are
+    marked as used on that stream, so the copy of the next batches overlaps
+    the consumer's work. On another device the arrays become tensors there.
+    Other entries (names, counts, bool masks) pass through as they are."""
+    import torch
+
+    device = torch.device(device)
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def to_device(batch):
+        if copy_stream is None:
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) if _numeric(v) else v
+                    for k, v in batch.items()}, None
+        out = {}
+        with torch.cuda.stream(copy_stream):
+            for k, v in batch.items():
+                if _numeric(v):
+                    host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                    v = host.to(device, non_blocking=True)
+                out[k] = v
+            event = torch.cuda.Event()
+            event.record(copy_stream)
+        return out, event
+
+    def hand_out(item):
+        out, event = item
+        if event is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(event)
+            for v in out.values():
+                if isinstance(v, torch.Tensor):
+                    v.record_stream(stream)
+        return out
+
+    buf: "collections.deque" = collections.deque()
+    for batch in iterator:
+        buf.append(to_device(batch))
+        if len(buf) >= size:
+            yield hand_out(buf.popleft())
+    while buf:
+        yield hand_out(buf.popleft())

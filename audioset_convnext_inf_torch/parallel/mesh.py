@@ -79,6 +79,25 @@ def shard_batch(batch, mesh: Mesh):
 
 
 @torch.no_grad()
+def pad_batch_to_multiple(batch_np: Dict[str, Any], multiple: int) -> Tuple[Dict[str, Any], Any]:
+    """Zero-pad the leading axis of every numeric array of a host batch to a
+    multiple of ``multiple`` (the mesh's size), so that it splits evenly.
+    Returns (the padded batch, the leading length of its first array
+    before padding, or None without one); other entries are kept as they are."""
+    import numpy as np
+
+    n, out = None, {}
+    for k, v in batch_np.items():
+        if isinstance(v, np.ndarray) and v.ndim >= 1 and v.dtype != object:
+            if n is None:
+                n = v.shape[0]
+            pad = (-v.shape[0]) % multiple
+            if pad:
+                v = np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1))
+        out[k] = v
+    return out, n
+
+
 def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Broadcast ``module``'s parameters and buffers from rank 0, in place,
     so that every rank starts from the same weights. Without a process

@@ -18,6 +18,20 @@ def create_folder(fd: str) -> None:
     os.makedirs(fd, exist_ok=True)
 
 
+def get_filename(path: str) -> str:
+    """The file name of ``path`` (links resolved) without its extension."""
+    return os.path.splitext(os.path.basename(os.path.realpath(path)))[0]
+
+
+def get_sub_filepaths(folder: str):
+    """Every file under ``folder``, recursively, in ``os.walk``'s order."""
+    paths = []
+    for root, _, files in os.walk(folder):
+        for name in files:
+            paths.append(os.path.join(root, name))
+    return paths
+
+
 def create_logging(log_dir: str, filemode: str = "w") -> logging.Logger:
     """Log to the first free ``NNNN.log`` in ``log_dir`` and echo INFO and
     above to the console (utilities.py:36-58)."""

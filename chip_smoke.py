@@ -126,6 +126,28 @@ run (non-zero exit) on any error or mismatch:
     bit-equal, head and every BN statistic moved, the checkpoint read back,
     the epoch's wall time split into decode, H2D, steps and evaluation. No
     transfer-path call may launch K1 or K2.
+14. the rest of the JAX package: (a) the host audio library
+    (utils/native.py over csrc/audio_host.cpp) built with the host's
+    compiler, timed; the fixture and in-memory PCM 8/16/24/32 and float
+    WAVs against scipy's reading (WAV_TOL), a 10-s clip resampled 44.1k
+    and 48k -> 32k against scipy's f64 (RESAMPLE_TOL), ms per clip of
+    both; (b) kaldi_fbank of FBANK_CLIPS 10-s clips on the card against the
+    host (FBANK_LOG_TOL), ms per batch on the card, ms per clip on the
+    host and by op; (c) the Kaldi-fbank evaluation route at full width:
+    phase 7's 200 clips through AudioSetDataset(use_kaldi_fbank=True)'s
+    own per-clip transform, the DataLoader and the Evaluator at B=64 on
+    the phase-4 bf16 model: 12 K1 launches per batch at (64,62,14,384) and
+    (64,31,7,768), the first batch bit-equal to model.forward, 4 clips of
+    the f32 parity model against the CPU (F32_LOGIT_TOL), bf16 against f32
+    (SERVING_PROB_TOL), clips/s beside phase 7's, a two-batch trace, and
+    the same loader through device_prefetch bit-equal to its host
+    batches; (d) crop/pad/pad_or_truncate and the nearest resample on the
+    card bit-equal to the CPU, resample_linear within LINEAR_RESAMPLE_TOL;
+    (e) count_parameters (28,222,767), count_flops per clip, profile_ops
+    listing K1 12 times per forward, a trace file; (f) with
+    AUDIOSET_TPU_COMPILE_CACHE set to a fresh directory, one process builds
+    K1 and both host libraries into it and a second builds nothing.
+    Packing is not run: the card machine has no h5py.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The whole of standard output also goes to
@@ -232,7 +254,8 @@ def resume_param_limit(lr, steps: int) -> float:
 
 # (name, B, H, W, C, gamma): the main path's two shapes first (tiny,
 # 10-s clips, B=16), then the batches the inference surfaces of phase 7
-# give K1 (the Evaluator, long audio, one clip), then widths of other
+# give K1 (the Evaluator, long audio, one clip), the Kaldi-fbank route's
+# stage 3 of phase 14 (994 frames: 62 rows), then widths of other
 # factories, an odd width, no gamma.
 K1_CASES = [
     ("tiny stage 3", BATCH, 63, 14, 384, True),
@@ -243,6 +266,7 @@ K1_CASES = [
     ("long stage 4", LONG_BATCH, 31, 7, 768, True),
     ("clip stage 3", 1, 63, 14, 384, True),
     ("clip stage 4", 1, 31, 7, 768, True),
+    ("fbank stage 3", EVAL_BATCH, 62, 14, 384, True),
     ("atto stage 3", BATCH, 63, 14, 160, True),
     ("base stage 4", BATCH, 31, 7, 1024, True),
     ("odd width", 4, 13, 14, 100, True),
@@ -251,7 +275,7 @@ K1_CASES = [
 K1_MAIN_PATH = {"tiny stage 3": 9, "tiny stage 4": 3}  # launches per forward
 # every K1 shape the serving paths (phases 4 and 7) launch
 K1_SERVING_CASES = set(K1_MAIN_PATH) | {f"{p} stage {s}" for p in ("eval", "long", "clip")
-                                       for s in (3, 4)}
+                                       for s in (3, 4)} | {"fbank stage 3"}
 # A rank's trunk batch in phase 10(b): TRAIN_CLIPS clips, paired by mixup,
 # split over 2 processes.
 DP_RANK_BATCH = TRAIN_CLIPS // 2 // 2
@@ -2748,6 +2772,387 @@ def run_transfer_phase(device, card):
     run_finetune_cli(root, step_ms, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the rest of the JAX package: the host audio plane, the Kaldi
+# fbank and its evaluation route, the augmentations, profiling, the cache
+# ---------------------------------------------------------------------------
+
+# (a) the host library against its numpy/scipy plain versions: PCM16 and
+# float WAVs bit for bit; 8/24/32-bit PCM as the JAX package's own
+# tests/test_native.py holds its library (24/32-bit within 1e-7); the
+# resampler within 1e-6 of scipy's f64 resample_poly.
+WAV_TOL = {(8, 1): 0.0, (16, 1): 0.0, (24, 1): 1e-7, (32, 1): 1e-7, (32, 3): 0.0, (64, 3): 0.0}
+RESAMPLE_TOL = 1e-6
+# (b) kaldi_fbank on the card against the port on the host, log domain: the
+# JAX suite's bound between two f32 FFTs (tests/test_kaldi_fbank.py).
+FBANK_LOG_TOL = 2e-3
+FBANK_CLIPS = 16
+# (d) resample_linear's f64 product on the card against the host's.
+LINEAR_RESAMPLE_TOL = 1e-6
+TINY_PARAMETERS = 28_222_767  # convnext_tiny, the reference's count
+
+
+def _wav_bytes(data: np.ndarray, sr: int, bits: int, fmt: int = 1) -> bytes:
+    """A mono RIFF/WAVE file of int16 ``data`` at ``bits`` (PCM), or of the
+    float values ``data`` (fmt 3)."""
+    import struct
+
+    if fmt == 3:
+        raw = data.astype(np.float32 if bits == 32 else np.float64).tobytes()
+    elif bits == 8:
+        raw = ((data.astype(np.int32) >> 8) + 128).astype(np.uint8).tobytes()
+    elif bits == 16:
+        raw = data.astype(np.int16).tobytes()
+    elif bits == 24:
+        v = data.astype(np.int32) << 8
+        raw = np.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF], 1).astype(np.uint8).tobytes()
+    else:
+        raw = (data.astype(np.int64) << 16).astype(np.int32).tobytes()
+    block = bits // 8
+    fmt_body = struct.pack("<HHIIHH", fmt, 1, sr, sr * block, block, bits)
+    body = (b"WAVE" + b"fmt " + struct.pack("<I", len(fmt_body)) + fmt_body
+            + b"data" + struct.pack("<I", len(raw)) + raw)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host wall time of fn() in ms, after one call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2] * 1e3
+
+
+def check_native_plane(card):
+    """(a) The host audio library (utils/native.py over csrc/audio_host.cpp)
+    built with the host's compiler, then against its plain versions."""
+    from audioset_convnext_inf_torch.data import audio_io
+    from audioset_convnext_inf_torch.utils import host_build, native
+
+    t0 = time.perf_counter()
+    lib = host_build.build("audio_host", [native.SOURCE], native.CXX_FLAGS,
+                           "the host audio library", WORK / "host_build_timing", native.LINK_FLAGS)
+    log(f"  (a) host library built by {host_build.compiler('the host audio library')} "
+        f"{' '.join(native.CXX_FLAGS)}, then {' '.join(native.LINK_FLAGS)}, in "
+        f"{time.perf_counter() - t0:.2f} s ({lib.name}; "
+        f"{native._load().omp_thread_count()} OpenMP threads)")
+    raw = FIXTURE.read_bytes()
+    got, sr = audio_io.read_wav(str(FIXTURE))
+    want, _ = native.decode_wav_bytes_reference(raw)
+    if sr != 32000 or got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("the fixture WAV does not decode bit-equal to scipy's reading")
+    log(f"  fixture WAV: {got.shape[0]} samples at {sr} Hz, bit-equal to scipy's reading")
+    pcm = fixture_batch(1, SEED)[0][:64000]
+    for (bits, fmt), tol in WAV_TOL.items():
+        data = pcm / 32768.0 if fmt == 3 else pcm
+        buf = _wav_bytes(data, 44100, bits, fmt)
+        got, _ = native.decode_wav_bytes(buf)
+        want, _ = native.decode_wav_bytes_reference(buf)
+        err = float(np.abs(got - want).max())
+        label = f"{'float' if fmt == 3 else 'PCM'}{bits}"
+        log(f"  in-memory {label} WAV: max abs diff from scipy {err:.3e} (tol {tol}), "
+            f"bit-equal {np.array_equal(got, want)}")
+        if got.shape != want.shape or not err <= tol:
+            raise AssertionError(f"{label} WAV decodes {err} away from scipy's reading")
+    for sr in (44100, 48000):
+        clip = (np.random.RandomState(sr).randn(10 * sr) * 0.2).astype(np.float32)
+        g = math.gcd(sr, 32000)
+        got = audio_io.resample_poly(clip, sr, 32000)
+        want = native.resample_poly_kaiser_reference(clip, 32000 // g, sr // g)
+        err = float(np.abs(got - want).max())
+        lib_ms = _host_ms(lambda: audio_io.resample_poly(clip, sr, 32000))
+        scipy_ms = _host_ms(lambda: native.resample_poly_kaiser_reference(clip, 32000 // g, sr // g))
+        log(f"  resample a 10-s clip {sr}->32000 Hz: {got.shape[0]} samples, max abs diff from "
+            f"scipy (f64) {err:.3e} (tol {RESAMPLE_TOL}); {lib_ms:.2f} ms per clip in the library "
+            f"({native._load().omp_thread_count()} OpenMP threads), scipy {scipy_ms:.2f} ms [{card}]")
+        if got.shape != want.shape or not err <= RESAMPLE_TOL:
+            raise AssertionError(f"resampling {sr}->32000 is {err} away from scipy's")
+
+
+def check_kaldi_fbank(device, card):
+    """(b) kaldi_fbank of FBANK_CLIPS 10-s clips on the card against the port
+    on the host; the host's time per clip, by op on one thread."""
+    from audioset_convnext_inf_torch.ops.kaldi_fbank import kaldi_fbank
+    from audioset_convnext_inf_torch.utils.profiling import profile_ops
+
+    wav = torch.from_numpy(fixture_batch(FBANK_CLIPS, SEED + 14).astype(np.float32) / 32767.0)
+    host = kaldi_fbank(wav)
+    card_out = kaldi_fbank(wav.to(device))
+    err = (card_out.cpu() - host).abs().max().item()
+    ms = cuda_ms(lambda: kaldi_fbank(wav.to(device)), iters=10)
+    on_card = wav.to(device)
+    dev_ms = cuda_ms(lambda: kaldi_fbank(on_card), iters=10)
+    host_ms = _host_ms(lambda: kaldi_fbank(wav[0]))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one_ms = _host_ms(lambda: kaldi_fbank(wav[0]))
+        rows = profile_ops(kaldi_fbank, wav[0], iters=3)
+    finally:
+        torch.set_num_threads(threads)
+    log(f"  (b) kaldi_fbank {tuple(host.shape)}: card vs host max abs diff {err:.3e} (log domain, "
+        f"tol {FBANK_LOG_TOL}); the card {dev_ms:.3f} ms per batch of {FBANK_CLIPS} "
+        f"({ms:.3f} with the host->card copy), the host {host_ms:.2f} ms per clip "
+        f"({threads} threads), {one_ms:.2f} ms on one thread [{card}]; one thread by op: "
+        + ", ".join(f"{r['name']} {r['ms_per_iter']:.2f}" for r in rows[:5]))
+    if tuple(card_out.shape) != (FBANK_CLIPS, 994, 224) or not err <= FBANK_LOG_TOL:
+        raise AssertionError(f"kaldi_fbank on the card is {err} from the host's")
+
+
+class FbankMemoryDataset:
+    """AudioSetDataset in its Kaldi-fbank mode over packed int16 clips in
+    memory (the card machine has no h5py): each item is the dataset's own
+    per-clip transform (``clip_item``: decode, fbank). ``keep_int16`` is
+    asked for, as the evaluation CLI asks for it, and the mode turns it off."""
+
+    def __init__(self, pcm, target):
+        from audioset_convnext_inf_torch.data import AudioSetDataset
+
+        self.ds = AudioSetDataset(use_kaldi_fbank=True, keep_int16=True)
+        self.pcm, self.target = pcm, target
+
+    def __getitem__(self, meta):
+        i = meta["index_in_hdf5"]
+        return self.ds.clip_item(f"clip{i:04d}", self.pcm[i], self.target[i])
+
+
+def fbank_loader(pcm, target, n):
+    from audioset_convnext_inf_torch.data import DataLoader
+
+    metas = [{"index_in_hdf5": i} for i in range(n)]
+    return DataLoader(FbankMemoryDataset(pcm, target),
+                      [metas[i:i + EVAL_BATCH] for i in range(0, n, EVAL_BATCH)],
+                      num_workers=4, pad_to_batch_size=EVAL_BATCH)
+
+
+def _k1_shapes(model, spec):
+    """The input shapes K1 sees in a forward of the spectrogram images
+    ``spec`` (B, T, M): one per stage-3/4 block."""
+    from audioset_convnext_inf_torch.models import convnext as F
+
+    shapes = []
+    with torch.inference_mode():
+        x = F._frontend_and_bn0(model, model._waveform(spec[..., None]), model.cfg,
+                                model.frontend, model.compute_dtype)
+        F.forward_features(model, x, model.cfg,
+                           tap=lambda k, v: shapes.append(tuple(v.shape)) if "fused" in k else None)
+    return shapes
+
+
+def check_fbank_route(serve, device, card, waveform_rate):
+    """(c) The Kaldi-fbank evaluation route at full width: int16 clips ->
+    AudioSetDataset(use_kaldi_fbank=True)'s per-clip transform on the host ->
+    DataLoader -> Evaluator -> ``serve`` (convnext_tiny bf16 serving).
+    Returns the route's K1 launches."""
+    from audioset_convnext_inf_torch.data import device_prefetch
+    from audioset_convnext_inf_torch.engine.evaluator import Evaluator
+
+    pcm, target = eval_data(SEED + 9)  # phase 7's clips
+    ev = Evaluator(serve, device=device)
+    batches = -(-EVAL_CLIPS // EVAL_BATCH)
+    out, n = _k1_count(lambda: ev.infer_probs(fbank_loader(pcm, target, EVAL_CLIPS)))
+    _expect_launches(f"(c) Evaluator over {EVAL_CLIPS} clips' Kaldi fbanks, B={EVAL_BATCH} "
+                     f"({batches} batches)", n, batches * sum(K1_MAIN_PATH.values()))
+    probs = out["clipwise_output"]
+    if probs.shape != (EVAL_CLIPS, 527) or not np.isfinite(probs).all():
+        raise AssertionError(f"the fbank route returned {probs.shape} probabilities, or non-finite")
+    first = next(iter(fbank_loader(pcm, target, EVAL_BATCH)))
+    spec = torch.from_numpy(first["fbank"])
+    shapes = _k1_shapes(serve, spec)
+    want = [(EVAL_BATCH, 62, 14, 384)] * 9 + [(EVAL_BATCH, 31, 7, 768)] * 3
+    log(f"  fbank batch {tuple(spec.shape)}; K1 input shapes: {shapes[0]} x "
+        f"{shapes.count(shapes[0])}, {shapes[-1]} x {shapes.count(shapes[-1])}")
+    if shapes != want:
+        raise AssertionError(f"K1 saw {shapes}, expected {want}")
+    ref = serve.forward(spec[..., None])["clipwise_output"].cpu().numpy()
+    if not np.array_equal(ref, probs[:EVAL_BATCH]):
+        raise AssertionError("the Evaluator's first fbank batch differs from model.forward's")
+    parity = build_model(device, torch.float32)
+    cpu = build_model("cpu", torch.float32)
+    few = spec[:4, ..., None]
+    f32 = parity.forward(few)
+    logit_err = (f32["clipwise_logits"].cpu() - cpu.forward(few)["clipwise_logits"]).abs().max().item()
+    prob_err = float(np.abs(probs[:4] - f32["clipwise_output"].cpu().numpy()).max())
+    log(f"  f32 parity, 4 fbank clips: card vs CPU logits max abs diff {logit_err:.3e} "
+        f"(tol {F32_LOGIT_TOL}); bf16 serving vs f32 probabilities {prob_err:.3e} "
+        f"(tol {SERVING_PROB_TOL})")
+    if not logit_err <= F32_LOGIT_TOL:
+        raise AssertionError("the f32 parity model on fbank images disagrees with the CPU")
+    if not prob_err <= SERVING_PROB_TOL:
+        raise AssertionError("bf16 serving on fbank images drifts from f32 parity")
+    del parity, cpu
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ev.infer_probs(fbank_loader(pcm, target, EVAL_CLIPS))
+        runs.append(time.perf_counter() - t0)
+    dt = sorted(runs)[1]
+    log(f"  fbank route, {EVAL_CLIPS} clips at B={EVAL_BATCH}, host fbank in 4 loader threads "
+        f"included: {', '.join(f'{r * 1e3:.1f}' for r in runs)} ms (median {dt * 1e3:.1f}): "
+        f"{EVAL_CLIPS / dt:.1f} clips/s, beside the waveform route's "
+        + (f"{waveform_rate:.1f} clips/s (phase 7)" if waveform_rate else "(phase 7 not run)")
+        + f" [{card}]")
+    profile_run(lambda: ev.infer_probs(fbank_loader(pcm, target, 2 * EVAL_BATCH)),
+                f"fbank route, 2 batches of {EVAL_BATCH}", top=8)
+    host = []
+
+    def kept():
+        for batch in fbank_loader(pcm, target, EVAL_CLIPS):
+            host.append(batch)
+            yield batch
+
+    moved = 0
+    for i, batch in enumerate(device_prefetch(kept(), device)):
+        for k, v in batch.items():
+            if isinstance(v, torch.Tensor):
+                if v.device.type != device.type or not np.array_equal(v.cpu().numpy(), host[i][k]):
+                    raise AssertionError(f"device_prefetch batch {i} '{k}' differs from its host batch")
+                moved += 1
+    log(f"  device_prefetch over the same loader: {len(host)} batches, {moved} tensors on the "
+        f"card (pinned copies on a copy stream), each bit-equal to its host array")
+    return n
+
+
+def check_augment_on_card(device):
+    """(d) crop/pad/pad_or_truncate at each alignment and the nearest
+    resample, bit-equal; resample_linear within LINEAR_RESAMPLE_TOL."""
+    from audioset_convnext_inf_torch.ops import augment as A
+
+    x = torch.from_numpy(fixture_batch(4, SEED + 41).astype(np.float32) / 32767.0)
+    xd = x.to(device)
+    g = torch.Generator().manual_seed(SEED + 42)
+    checks = 0
+    for align in A.ALIGNS:
+        for target in (250000, 400000):
+            start = A.draw_crop_start(g, x.shape[-1], target) if align == "random" else None
+            left = A.draw_pad_left(g, x.shape[-1], target) if align == "random" else None
+            pairs = [(A.crop(xd, target, align, start=start), A.crop(x, target, align, start=start)),
+                     (A.pad(xd, target, align, -0.5, left=left), A.pad(x, target, align, -0.5, left=left)),
+                     (A.pad_or_truncate(xd, target), A.pad_or_truncate(x, target))]
+            for got, want in pairs:
+                if got.device != xd.device or not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"crop/pad align={align} target={target}: card != CPU")
+                checks += 1
+    errs = []
+    for rate in (0.9, 1.1, 1.5):
+        got, want = A.resample(xd, rate, "nearest"), A.resample(x, rate, "nearest")
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"nearest resample at {rate}: card != CPU")
+        got = A.resample_linear(xd, rate, quantize_hz=100)
+        want = A.resample_linear(x, rate, quantize_hz=100)
+        errs.append((got.cpu() - want).abs().max().item())
+        if got.shape != want.shape or not errs[-1] <= LINEAR_RESAMPLE_TOL:
+            raise AssertionError(f"resample_linear at {rate}: card {errs[-1]} from the CPU")
+    log(f"  (d) crop/pad/pad_or_truncate, 4 alignments x 2 lengths: {checks} results bit-equal "
+        f"card vs CPU; nearest resample at 0.9/1.1/1.5 bit-equal; resample_linear "
+        f"(quantize_hz=100) max abs diff {', '.join(f'{e:.3e}' for e in errs)} "
+        f"(tol {LINEAR_RESAMPLE_TOL})")
+
+
+def check_profiling(serve, card):
+    """(e) count_parameters, count_flops, profile_ops and trace on ``serve``.
+    Returns profile_ops' K1 launches."""
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
+    from audioset_convnext_inf_torch.utils import profiling as P
+
+    n = P.count_parameters(serve)
+    log(f"  (e) count_parameters(convnext_tiny) = {n:,} (expect {TINY_PARAMETERS:,})")
+    if n != TINY_PARAMETERS:
+        raise AssertionError(f"count_parameters gave {n}")
+    one = fixture_batch(1, SEED)
+    flops = P.count_flops(serve.forward, one)
+    log(f"  count_flops, bf16 forward B=1: {flops['flops'] / 1e9:.3f} GFLOP per clip; by op "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in sorted(flops["flops_by_op"].items())))
+    pcm = fixture_batch(BATCH, SEED)
+    fused_block.launches = 0
+    rows = P.profile_ops(serve.forward, pcm, iters=3)
+    launched = fused_block.launches
+    k1 = [r for r in rows if "fused_block" in r["name"]]
+    for r in rows[:6]:
+        log(f"    {r['ms_per_iter']:8.3f} ms x{r['count_per_iter']:<3d} {r['category']:7s} "
+            f"{r['name'][:80]}")
+    log(f"  profile_ops, bf16 forward B={BATCH}, 3 iterations: {len(rows)} rows; K1: "
+        + ", ".join(f"{r['name']} x{r['count_per_iter']} {r['ms_per_iter']:.3f} ms" for r in k1)
+        + f" [{card}]")
+    if sum(r["count_per_iter"] for r in k1) != sum(K1_MAIN_PATH.values()):
+        raise AssertionError("profile_ops does not list K1 12 times per forward")
+    with P.trace(str(WORK / "trace14")) as d:
+        serve.forward(pcm)
+    path = Path(d) / "trace.json"
+    size = path.stat().st_size if path.exists() else 0
+    log(f"  trace: {path.relative_to(ROOT)} {size / 1e6:.1f} MB")
+    if not size:
+        raise AssertionError("utils.profiling.trace wrote no trace")
+    return launched
+
+
+_CACHE_PROBE = """
+import json, sys, time
+t0 = time.perf_counter()
+from audioset_convnext_inf_torch.utils.cache import enable_compilation_cache
+assert enable_compilation_cache()
+from audioset_convnext_inf_torch.data import flac
+from audioset_convnext_inf_torch.ops import _build
+from audioset_convnext_inf_torch.utils import native
+paths = [_build.library_path("fused_block"), native.library_path(), flac.library_path()]
+existed = [p.exists() for p in paths]
+t1 = time.perf_counter()
+_build.build("fused_block"); native.build(); flac.build()
+print(json.dumps({"existed": existed, "build_s": time.perf_counter() - t1,
+                  "total_s": time.perf_counter() - t0, "paths": [str(p) for p in paths]}))
+"""
+
+
+def start_cache_probe(cache_dir: Path):
+    env = dict(os.environ, AUDIOSET_TPU_COMPILE_CACHE=str(cache_dir))
+    env.pop("AUDIOSET_TPU_NO_COMPILE_CACHE", None)
+    return subprocess.Popen([sys.executable, "-c", _CACHE_PROBE], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cache_probe(proc) -> dict:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the cache probe failed:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def check_cache(first, cache_dir: Path):
+    """(f) A first process (``first``, started by start_cache_probe) built K1
+    and the two host libraries into a fresh AUDIOSET_TPU_COMPILE_CACHE; a
+    second loads them without building."""
+    a = finish_cache_probe(first)
+    b = finish_cache_probe(start_cache_probe(cache_dir))
+    log(f"  (f) AUDIOSET_TPU_COMPILE_CACHE={cache_dir.relative_to(ROOT)}: first process "
+        f"found {a['existed']}, built in {a['build_s']:.2f} s ({a['total_s']:.2f} s in all); "
+        f"second found {b['existed']}, {b['build_s']:.3f} s ({b['total_s']:.2f} s in all)")
+    inside = all(Path(p).parent.parent == cache_dir for p in a["paths"])
+    if any(a["existed"]) or not all(b["existed"]) or a["paths"] != b["paths"] or not inside:
+        raise AssertionError("the compilation cache did not build once and load after")
+
+
+def run_rest_phase(device, card, waveform_rate):
+    """Phase 14. Returns the K1 launches of the fbank route and of profile_ops."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    cache_dir = WORK / "compile_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    check_native_plane(card)
+    check_kaldi_fbank(device, card)
+    serve = build_model(device, torch.bfloat16)  # the phase-4 model
+    launches = check_fbank_route(serve, device, card, waveform_rate)
+    torch.cuda.empty_cache()
+    probe = start_cache_probe(cache_dir)  # nvcc on the host while the card works
+    check_augment_on_card(device)
+    launches += check_profiling(serve, card)
+    check_cache(probe, cache_dir)
+    log("  packing (data/pack.py, cli/pack_dataset.py) is not run: the card machine has no "
+        "h5py; tests/test_torch_pack.py holds it against the JAX package on the CPU")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2822,27 +3227,27 @@ def run_phases() -> int:
 
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    phase(f"[1/13] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    phase(f"[1/14] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    phase("[2/13] build")
+    phase("[2/14] build")
     build_kernels(["fused_block", "fused_block_bwd"])
 
-    phase("[3/13] kernels against their plain versions")
+    phase("[3/14] kernels against their plain versions")
     k1_results = check_k1(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
-    phase("[4/13] serving path: convnext_tiny, B=16 x 10-s clips")
+    phase("[4/14] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
     check_row_independence(serve)
 
-    phase(f"[5/13] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+    phase(f"[5/14] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
     trainer, batch, train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    phase(f"[6/13] times on {card}")
+    phase(f"[6/14] times on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
@@ -2851,7 +3256,7 @@ def run_phases() -> int:
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
-    phase("[7/13] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
+    phase("[7/14] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
     WORK.mkdir(parents=True, exist_ok=True)
     surface_launches = check_checkpoint_round_trip(serve, device, fixture_batch(BATCH, SEED))
     pcm, target = eval_data(SEED + 9)
@@ -2865,15 +3270,15 @@ def run_phases() -> int:
     one_rate = time_evaluator(serve, ev, pcm, target, card)
     del ev
 
-    phase(f"[8/13] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
+    phase(f"[8/14] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
     service_launches, http_rate = run_service(serve, card)
     torch.cuda.empty_cache()
 
-    phase("[9/13] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
+    phase("[9/14] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
     runner = CliRunner()
     cli_launches, three = run_train_cli(runner, card)
 
-    phase("[10/13] data parallelism on the one card")
+    phase("[10/14] data parallelism on the one card")
     torch.cuda.empty_cache()
     log("  (a) cli/train.py under torchrun's environment, world size 1, NCCL")
     nccl_launches = run_nccl_world_1(runner, three, card)
@@ -2886,26 +3291,31 @@ def run_phases() -> int:
     log("  (d) cli/serve.py --mesh")
     mesh_launches = run_service_mesh(serve, card)
 
-    phase("[11/13] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
+    phase("[11/14] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
     bundle_launches = run_bundle_phase(serve, device, card, http_rate)
     del serve
     torch.cuda.empty_cache()
 
-    phase("[12/13] PANN zoo: 49 models, f32 under fp32_precision(\"highest\"), 10-s clips")
+    phase("[12/14] PANN zoo: 49 models, f32 under fp32_precision(\"highest\"), 10-s clips")
     run_pann_phase(device, card)
 
-    phase("[13/13] PANN transfer: AudioCaps FLAC root, forward_train, TransferTrainer, "
+    phase("[13/14] PANN transfer: AudioCaps FLAC root, forward_train, TransferTrainer, "
           "cli/finetune_audiocaps.py; Cnn14 f32, 10-s clips")
     run_transfer_phase(device, card)
+
+    phase("[14/14] the rest: host audio library, Kaldi fbank and its evaluation route, "
+          "augmentations, profiling, compilation cache")
+    rest_launches = run_rest_phase(device, card, one_rate)
     shutil.rmtree(WORK)
     phase("done")
 
     kernels = [
         _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
                launches + surface_launches + service_launches + cli_launches[0]
-               + sharded_eval_launches + mesh_launches + bundle_launches, k1_results, per_shape,
-               "serving forward (phases 4, 7, 8, 10(c-d), 11's bundles, and phase 9's "
-               "evaluations in f32)",
+               + sharded_eval_launches + mesh_launches + bundle_launches + rest_launches,
+               k1_results, per_shape,
+               "serving forward (phases 4, 7, 8, 10(c-d), 11's bundles, 14's Kaldi-fbank route "
+               "and profile, and phase 9's evaluations in f32)",
                K1_MAIN_PATH, unfused, err_cases=K1_SERVING_CASES),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",

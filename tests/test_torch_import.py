@@ -26,6 +26,9 @@ def _submodules():
 def test_imports_with_jax_blocked():
     mods = _submodules()
     assert "audioset_convnext_inf_torch.ops.fused_block" in mods
+    assert {f"audioset_convnext_inf_torch.{m}" for m in (
+        "version", "utils.native", "utils.host_build", "utils.profiling", "utils.cache",
+        "ops.kaldi_fbank", "data.pack", "cli.pack_dataset")} <= set(mods)
     code = (
         "import sys, importlib\n"
         "for name in ('jax', 'optax', 'audioset_convnext_inf_tpu', 'h5py', 'sklearn',\n"
@@ -49,13 +52,16 @@ SERVING_AND_TRAINING = (
     "engine/service.py", "engine/statistics.py", "engine/trainer.py", "checkpoint/io.py",
     "labels.py", "utils/logging_utils.py", "engine/aot_export.py", "cli/export_serving.py",
     "data/audiocaps.py", "data/flac.py", "engine/transfer.py", "cli/finetune_audiocaps.py",
+    "version.py", "utils/native.py", "utils/host_build.py", "utils/profiling.py",
+    "utils/cache.py", "ops/kaldi_fbank.py", "data/pack.py", "cli/pack_dataset.py",
 )
 
 
 def test_sources_name_neither_jax_nor_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cpp"))
     assert len(files) >= 10
-    assert {PKG / m for m in SERVING_AND_TRAINING} | {PKG / "csrc" / "flac_decode.cpp"} <= set(files)
+    assert {PKG / m for m in SERVING_AND_TRAINING} | {PKG / "csrc" / "flac_decode.cpp",
+                                                       PKG / "csrc" / "audio_host.cpp"} <= set(files)
     for f in files:
         text = f.read_text()
         assert "audioset_convnext_inf_tpu" not in text, f
@@ -121,12 +127,37 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
 
 
 def test_the_port_loads_no_native_library():
-    """The JAX package's native data plane (``native/libaudiohost.so``) is
-    built on demand by ``make``; the port reads audio with numpy and scipy,
-    and FLAC through its own build of ``csrc/flac_decode.cpp``."""
+    """The JAX package's native data plane (``native/libaudiohost.so``, built
+    by ``make`` in ``native/``) is not the port's: the port builds its own
+    copies of the sources (``csrc/audio_host.cpp``, ``csrc/flac_decode.cpp``)
+    into libraries of its own, no source of the port names the JAX library,
+    and a process that decodes WAV, int16 and FLAC and resamples through the
+    port has not mapped it."""
     for f in sorted(PKG.rglob("*.py")):
-        text = f.read_text()
-        assert "libaudiohost" not in text and "audio_host" not in text, f
+        assert "libaudiohost" not in f.read_text(), f
+    from audioset_convnext_inf_torch.data import flac
+    from audioset_convnext_inf_torch.utils import native
+
+    assert native.SOURCE == PKG / "csrc" / "audio_host.cpp"
+    assert flac.SOURCE == PKG / "csrc" / "flac_decode.cpp"
+    assert native.library_path().name.startswith("libaudio_host_")
+    code = (
+        "import numpy as np\n"
+        "from audioset_convnext_inf_torch.data import audio_io\n"
+        "from audioset_convnext_inf_torch.data.flac import decode_flac_bytes\n"
+        "x, sr = audio_io.read_wav('tests/fixtures/f62-S-v2swA_200000_210000.wav', 16000)\n"
+        "audio_io.int16_to_float32(np.zeros(8, np.int16))\n"
+        "try:\n"
+        "    decode_flac_bytes(b'fLaC')\n"
+        "except ValueError:\n"
+        "    pass\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libaudio_host_' in maps and 'libflac_decode_' in maps\n"
+        "print('libaudiohost' in maps)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "False", proc.stderr[-2000:]
 
 
 def test_kernel_modules_import_and_run_on_cpu_without_nvcc():
