@@ -105,7 +105,10 @@ def kaldi_fbank(
     padded = 1 << (frame_len - 1).bit_length()  # the next power of two
 
     num_frames = max(0, 1 + (x.shape[-1] - frame_len) // shift)
-    frames = x.unfold(-1, frame_len, shift)[:, :num_frames]  # (B, T, frame_len)
+    if num_frames == 0:  # shorter than one frame: no frames, as the JAX function gives
+        frames = x.new_zeros((x.shape[0], 0, frame_len))
+    else:
+        frames = x.unfold(-1, frame_len, shift)[:, :num_frames]  # (B, T, frame_len)
     if remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     if preemphasis:
@@ -113,8 +116,11 @@ def kaldi_fbank(
         frames = frames - preemphasis * prev
     frames = frames * _window(window_type, frame_len, x.device)
 
-    spec = torch.fft.rfft(frames, n=padded, dim=-1)
-    power = (spec.real ** 2 + spec.imag ** 2).to(torch.float32)
+    if num_frames:
+        spec = torch.fft.rfft(frames, n=padded, dim=-1)
+        power = (spec.real ** 2 + spec.imag ** 2).to(torch.float32)
+    else:  # the FFT libraries refuse an empty batch
+        power = frames.new_zeros((x.shape[0], 0, padded // 2 + 1), dtype=torch.float32)
     banks = _kaldi_mel_banks(num_mel_bins, padded, sample_rate, low_freq, high_freq)
     with fp32_precision("highest"):
         mel = torch.matmul(power, banks.to(x.device).t())

@@ -131,7 +131,10 @@ run (non-zero exit) on any error or mismatch:
     compiler, timed; the fixture and in-memory PCM 8/16/24/32 and float
     WAVs against scipy's reading (WAV_TOL), a 10-s clip resampled 44.1k
     and 48k -> 32k against scipy's f64 (RESAMPLE_TOL), ms per clip of
-    both; (b) kaldi_fbank of FBANK_CLIPS 10-s clips on the card against the
+    both; about 240 of tests/test_fuzz_decoders.py's mutations of a FLAC
+    and a WAV stream (tests/torch_fuzz_util.py) through the FLAC and WAV
+    libraries built here: each decodes well formed or raises ValueError;
+    (b) kaldi_fbank of FBANK_CLIPS 10-s clips on the card against the
     host (FBANK_LOG_TOL), ms per batch on the card, ms per clip on the
     host and by op; (c) the Kaldi-fbank evaluation route at full width:
     phase 7's 200 clips through AudioSetDataset(use_kaldi_fbank=True)'s
@@ -148,6 +151,27 @@ run (non-zero exit) on any error or mismatch:
     AUDIOSET_TPU_COMPILE_CACHE set to a fresh directory, one process builds
     K1 and both host libraries into it and a second builds nothing.
     Packing is not run: the card machine has no h5py.
+15. the learning certificates: (a) scripts/train_learn_tpu.py's run on
+    the port: convnext_tiny at full width from the port's own init, the
+    fused bf16 recipe (tanh GELU, fused_train_blocks, drop path 0.1,
+    frontend "high", SpecAugment, mixup 1.0, AdamW, OneCycle at 1.5e-3),
+    LEARN_STEPS Trainer.step calls of 32 of the 64 ten-second tone clips
+    (16 classes), each step launching K1's save mode and K2 12 times; its
+    gates: the loss ratio under LEARN_LOSS_RATIO and train mAP over the 16
+    columns above LEARN_MAP through the bf16 serving forward (12 K1
+    launches a forward); (b) the same run on the unfused route (no K1 save
+    mode, no K2), the same gates, both runs side by side with their largest
+    per-step loss gap; (c) scripts/serving_parity_trained_tpu.py's check:
+    run (a)'s weights written as safetensors and read by
+    ConvNeXt.from_pretrained into the f32 parity config and the bf16
+    serving config at frontend "default" and "high", 256 held-out clips
+    through the Evaluator: each bf16 config within PARITY_MAP_TOL mAP and
+    PARITY_TOP1 top-1 agreement of f32, the f32 held-out mAP above
+    HELDOUT_MAP, K1 12 times a bf16 batch and never in f32; (d)
+    scripts/transfer_cert_tpu.py's run: Cnn14 head-only TransferTrainer
+    at 1e-3, 300 steps of 32 one-second tone clips (8 classes): loss
+    ratio, train mAP, frozen weights bit-identical, BN statistics changed,
+    head moved, no K1 or K2 launch.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. The whole of standard output also goes to
@@ -156,6 +180,7 @@ chiprun_out/chip_smoke.log.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -171,6 +196,7 @@ import urllib.request
 import wave
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -886,7 +912,8 @@ def time_end_to_end(model, label: str):
 def profile_run(fn, label: str, top: int = 10):
     """One traced call of fn (after one untraced): device time by kernel
     name, and the device's idle share of the traced wall time (union of
-    kernel and copy intervals)."""
+    kernel and copy intervals). Returns (wall ms, device-busy ms, idle
+    share), or None when the profiler saw no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -900,7 +927,7 @@ def profile_run(fn, label: str, top: int = 10):
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         log(f"  profile {label}: the profiler saw no device events; kernel breakdown not measured")
-        return
+        return None
     by_name = {}
     for e in dev:
         t, n = by_name.get(e.name, (0.0, 0))
@@ -918,6 +945,7 @@ def profile_run(fn, label: str, top: int = 10):
         f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, kernel time {total / 1e3:.2f} ms")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"    {t / 1e3:9.3f} ms {100 * t / total:5.1f}% x{n:<4d} {name[:90]}")
+    return wall_us / 1e3, busy / 1e3, 1 - busy / wall_us
 
 
 def profile_forward(model, batch: int, top: int = 10):
@@ -2455,15 +2483,8 @@ def _ac_clip(i: int) -> np.ndarray:
 
 
 def _ac_encode(i: int):
-    """Clip i and its FLAC stream, by tests/flac_encoder.py (loaded from its
-    file: a package named ``tests`` elsewhere on the path would shadow the
-    checkout's, which has no __init__.py)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("flac_encoder",
-                                                  ROOT / "tests" / "flac_encoder.py")
-    encoder = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(encoder)
+    """Clip i and its FLAC stream, by tests/flac_encoder.py."""
+    encoder = _load_test_helper("flac_encoder")
     x = _ac_clip(i)
     return x, encoder.encode_flac(x, 32000, kind="fixed", order=2, blocksize=4096)
 
@@ -2872,6 +2893,70 @@ def check_native_plane(card):
             raise AssertionError(f"resampling {sr}->32000 is {err} away from scipy's")
 
 
+def _load_test_helper(name: str):
+    """tests/<name>.py, loaded by its path (a package named ``tests``
+    elsewhere on the path would shadow the checkout's, which has no
+    __init__.py): a helper the tests share with this script, which imports
+    neither JAX nor a package named tests."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tests" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_decoder_fuzz(card):
+    """(a) About 240 of tests/test_fuzz_decoders.py's mutations, drawn with
+    its seeds by tests/torch_fuzz_util.py, against the FLAC and WAV
+    libraries this machine's compiler built with the port's flags: each
+    decodes to a well-formed array or raises ValueError; the huge claimed
+    total and the zero channel and bit counts raise."""
+    from itertools import islice
+
+    from audioset_convnext_inf_torch.data.flac import decode_flac_bytes
+    from audioset_convnext_inf_torch.utils import native
+
+    fz = _load_test_helper("torch_fuzz_util")
+    flac, wav = fz.valid_flac(), fz.valid_wav()
+    families = [
+        ("FLAC byte flips", decode_flac_bytes, islice(fz.byte_flips(flac, 400, 0), 40)),
+        ("FLAC multi-byte", decode_flac_bytes, islice(fz.multi_byte(flac, 150, 1), 30)),
+        ("FLAC truncations", decode_flac_bytes, islice(fz.truncations(flac, 7), 0, None, 20)),
+        ("FLAC garbage", decode_flac_bytes, (blob for _, blob in fz.flac_garbage(2))),
+        ("WAV byte flips", native.decode_wav_bytes, islice(fz.byte_flips(wav, 400, 3), 40)),
+        ("WAV truncations", native.decode_wav_bytes, islice(fz.truncations(wav, 13), 0, None, 10)),
+        ("WAV geometry", native.decode_wav_bytes, (b for _, b in fz.wav_absurd_geometry(wav))),
+    ]
+    t0 = time.perf_counter()
+    fz.well_formed(decode_flac_bytes(flac), len(flac))
+    fz.well_formed(native.decode_wav_bytes(wav), len(wav))
+    counts = []
+    for label, decode, streams in families:
+        accepted = rejected = 0
+        for buf in streams:
+            try:
+                out = decode(buf)
+            except ValueError:
+                rejected += 1
+                continue
+            fz.well_formed(out, len(buf))
+            accepted += 1
+        counts.append(f"{label} {accepted}/{accepted + rejected}")
+    must_raise = [("huge claimed total", decode_flac_bytes, fz.flac_huge_total(flac))] + [
+        (label, native.decode_wav_bytes, buf) for label, buf in fz.wav_absurd_geometry(wav)
+        if label.startswith("0 ")]
+    for label, decode, buf in must_raise:
+        try:
+            decode(buf)
+        except ValueError:
+            continue
+        raise AssertionError(f"the {label} mutation decoded; it must raise")
+    log(f"  (a) decoder fuzzing, accepted / mutations: {', '.join(counts)}; "
+        f"{len(must_raise)} that must raise raised; every other mutation decoded well formed or "
+        f"raised ValueError, in {time.perf_counter() - t0:.2f} s [{card}]")
+
+
 def check_kaldi_fbank(device, card):
     """(b) kaldi_fbank of FBANK_CLIPS 10-s clips on the card against the port
     on the host; the host's time per clip, by op on one thread."""
@@ -3140,6 +3225,7 @@ def run_rest_phase(device, card, waveform_rate):
     cache_dir = WORK / "compile_cache"
     shutil.rmtree(cache_dir, ignore_errors=True)
     check_native_plane(card)
+    check_decoder_fuzz(card)
     check_kaldi_fbank(device, card)
     serve = build_model(device, torch.bfloat16)  # the phase-4 model
     launches = check_fbank_route(serve, device, card, waveform_rate)
@@ -3151,6 +3237,309 @@ def run_rest_phase(device, card, waveform_rate):
     log("  packing (data/pack.py, cli/pack_dataset.py) is not run: the card machine has no "
         "h5py; tests/test_torch_pack.py holds it against the JAX package on the CPU")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the learning certificates
+# ---------------------------------------------------------------------------
+
+# (a)/(b): scripts/train_learn_tpu.py's run. 16 tone classes at
+# 130 * 2^(k/2.1) Hz (the last, about 18.3 kHz, aliases to about 13.7 kHz),
+# class k at column 7(k+1), 4 ten-second clips each; 400 steps of 32 clips
+# (mixup pairs them into a trunk batch of 16), batches from RandomState(42).
+LEARN_CLASSES = 16
+LEARN_COLUMNS = [7 * (k + 1) for k in range(LEARN_CLASSES)]
+LEARN_STEPS = 400
+LEARN_BATCH = 32
+LEARN_TIMED_FROM = 50  # ms per step: the median of steps 50-399
+# Gates of the JAX certificate (train_learn_tpu.py:128): the mean loss of
+# the last 10 steps under LEARN_LOSS_RATIO of the first 10's, and train mAP
+# over the 16 columns above LEARN_MAP through the bf16 serving forward.
+LEARN_LOSS_RATIO = 0.1
+LEARN_MAP = 0.9
+# (c): scripts/serving_parity_trained_tpu.py's gates (:223) on 256 held-out
+# clips (16 a class, seed 123) in batches of 32, each bf16 serving config
+# against the f32 parity config; and scripts/eval_e2e_tpu.py's gate on the
+# f32 model's held-out mAP. Held-out mAP and top-1 saturate on this task,
+# so the largest probability gap is gated too: PARITY_PROB_GAP is about
+# twice the larger of the two readings on the H100 (8.1e-3 at frontend
+# "default", 3.4e-3 at "high").
+PARITY_CLIPS_PER_CLASS = 16
+PARITY_BATCH = 32
+PARITY_MAP_TOL = 1e-3
+PARITY_TOP1 = 0.999
+PARITY_PROB_GAP = 1.6e-2
+HELDOUT_MAP = 0.9
+# (d): scripts/transfer_cert_tpu.py's run: Cnn14 head-only, 300 steps of 32
+# one-second clips; its task and five gates are tests/torch_transfer_cert.py's.
+TRANSFER_STEPS = 300
+TRANSFER_CERT_BATCH = 32
+
+
+def tone_clips(per_class: int, seed: int):
+    """The certificates' tone clips (train_learn_tpu.py:57-74,
+    serving_parity_trained_tpu.py:make_tone_clips): (16 * per_class, 320000)
+    f32 and one-hot targets at LEARN_COLUMNS."""
+    rng = np.random.RandomState(seed)
+    freqs = 130.0 * (2.0 ** (np.arange(LEARN_CLASSES) / 2.1))
+    t = np.arange(320000) / 32000
+    clips, targets = [], []
+    for k in range(LEARN_CLASSES):
+        for _ in range(per_class):
+            wav = (0.5 + 0.3 * rng.rand()) * np.sin(2 * np.pi * freqs[k] * t + rng.rand() * 2 * np.pi)
+            clips.append((wav + 0.05 * rng.randn(320000)).astype(np.float32))
+            tg = np.zeros(527, np.float32)
+            tg[LEARN_COLUMNS[k]] = 1.0
+            targets.append(tg)
+    return np.stack(clips), np.stack(targets)
+
+
+def _map(probs, targets, columns):
+    """(mAP over ``columns``, their APs) by engine/metrics.py."""
+    from audioset_convnext_inf_torch.engine.metrics import evaluate_clipwise
+
+    ap = evaluate_clipwise(probs, targets)["average_precision"][columns]
+    return float(np.mean(ap)), ap
+
+
+def serving_probs(model, clips, batch: int):
+    """model.forward over ``clips`` in batches: (probabilities, K1 launches)."""
+    def run():
+        return np.concatenate([model.forward(clips[i:i + batch])["clipwise_output"].float().cpu()
+                               .numpy() for i in range(0, len(clips), batch)])
+    return _k1_count(run)
+
+
+class LearnRun(NamedTuple):
+    """One 400-step run of (a) or (b)."""
+
+    losses: np.ndarray
+    ms: np.ndarray  # per step, synchronised
+    train_s: float
+    launches: tuple  # (K1, K1 save, K2) over the run
+    state: dict  # the trained weights
+    cfg: object
+    trace: object  # profile_run's (wall ms, device-busy ms, idle share) of one more step
+
+
+def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
+    """(a) or (b): convnext_tiny at full width from the port's own init
+    (layer scale 1e-6), the fused bf16 recipe with fused_train_blocks
+    ``fused``, LEARN_STEPS Trainer.step calls. Each step must launch K1's
+    save mode and K2 12 times on the fused route and neither on the other.
+    After the run and the copy of its weights, one more step is traced."""
+    from audioset_convnext_inf_torch.config import FrontendConfig
+    from audioset_convnext_inf_torch.engine.trainer import TrainConfig, Trainer
+    from audioset_convnext_inf_torch.models import convnext_tiny
+
+    model = convnext_tiny(drop_path_rate=0.1, block_impl="xla_approx", fused_train_blocks=fused,
+                          frontend=FrontendConfig(precision="high"), seed=SEED, device=device)
+    if model.count_parameters() != TINY_PARAMETERS:
+        raise AssertionError(f"convnext_tiny has {model.count_parameters()} parameters")
+    trainer = Trainer(model, TrainConfig(max_lr=1.5e-3, total_steps=LEARN_STEPS, mixup_alpha=1.0,
+                                         weight_decay=0.01, seed=7, bf16_compute=True))
+    per_step = sum(K1_MAIN_PATH.values()) if fused else 0
+    order = np.random.RandomState(42)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for step in range(LEARN_STEPS):
+        idx = order.permutation(len(clips))[:LEARN_BATCH]
+        before = _counts()
+        s0 = time.perf_counter()
+        losses.append(trainer.step_async(clips[idx], targets[idx]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - s0))
+        delta = tuple(a - b for a, b in zip(_counts(), before))
+        if delta != (per_step, per_step, per_step):
+            raise AssertionError(f"learning step {step} launched (K1, K1 save, K2) {delta}, "
+                                 f"expected {per_step} each")
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss at steps {np.where(~np.isfinite(losses))[0][:10]}")
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    idx = order.permutation(len(clips))[:LEARN_BATCH]
+    trace = profile_run(lambda: trainer.step(clips[idx], targets[idx]),
+                        f"{label} step {LEARN_STEPS + 2} ({LEARN_BATCH} clips, f32 host arrays)",
+                        top=8)
+    _zero_counts()
+    return LearnRun(losses, np.asarray(ms), train_s, launches, state, model.cfg, trace)
+
+
+def learn_gates(label, device, run: LearnRun, clips, targets, card):
+    """The JAX certificate's gates on one run: the loss ratio and train mAP
+    through the bf16 serving forward (12 K1 launches a forward). Returns
+    (mAP, loss ratio, ms per step, K1 serving launches)."""
+    from audioset_convnext_inf_torch.models import ConvNeXt
+
+    losses, ms, train_s = run.losses, run.ms, run.train_s
+    serve = ConvNeXt(dataclasses.replace(run.cfg, drop_path_rate=0.0),
+                     compute_dtype=torch.bfloat16, device=device)
+    serve.load_state_dict(run.state, strict=True)
+    probs, n = serving_probs(serve, clips, PARITY_BATCH)
+    forwards = -(-len(clips) // PARITY_BATCH)
+    _expect_launches(f"{label}: bf16 serving forward over the {len(clips)} training clips "
+                     f"({forwards} forwards)", n, forwards * sum(K1_MAIN_PATH.values()))
+    m, ap = _map(probs, targets, LEARN_COLUMNS)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    ratio = last / first
+    step_ms = float(np.median(ms[LEARN_TIMED_FROM:]))
+    low = int(np.argmin(ap))
+    log(f"  {label}: {LEARN_STEPS} steps in {train_s:.1f} s, {step_ms:.2f} ms/step (median of "
+        f"steps {LEARN_TIMED_FROM}-{LEARN_STEPS - 1}, synchronised; first step {ms[0]:.1f} ms) "
+        f"[{card}]")
+    log(f"  {label}: loss mean of the first 10 steps {first:.6f}, of the last 10 {last:.6f}, "
+        f"ratio {ratio:.6f} (gate < {LEARN_LOSS_RATIO}); train mAP over the {LEARN_CLASSES} "
+        f"columns {m:.6f} (gate > {LEARN_MAP}), lowest AP {ap[low]:.6f} (class {low}, "
+        f"{130.0 * 2.0 ** (low / 2.1):.0f} Hz) [{card}]")
+    if not ratio < LEARN_LOSS_RATIO:
+        raise AssertionError(f"{label}: the loss fell only to {ratio:.4f} of its start")
+    if not m > LEARN_MAP:
+        raise AssertionError(f"{label}: train mAP {m:.4f}, per class {np.round(ap, 4).tolist()}")
+    return m, ratio, step_ms, n
+
+
+def check_serving_parity(device, path: Path, card):
+    """(c) Run (a)'s weights, read from their safetensors file by
+    ConvNeXt.from_pretrained into the f32 parity config and the bf16 serving
+    config at frontend "default" and "high", over the held-out clips through
+    the Evaluator. Returns the K1 launches."""
+    from audioset_convnext_inf_torch.config import ConvNeXtConfig, FrontendConfig
+    from audioset_convnext_inf_torch.engine.evaluator import Evaluator
+    from audioset_convnext_inf_torch.models import ConvNeXt
+
+    clips, targets = tone_clips(PARITY_CLIPS_PER_CLASS, 123)
+    loader = [{"waveform": clips[i:i + PARITY_BATCH], "target": targets[i:i + PARITY_BATCH]}
+              for i in range(0, len(clips), PARITY_BATCH)]
+    configs = [("f32 parity", torch.float32, None),
+               ("bf16 serving, frontend default", torch.bfloat16, None),
+               ("bf16 serving, frontend high", torch.bfloat16,
+                ConvNeXtConfig(drop_path_rate=0.0, frontend=FrontendConfig(precision="high")))]
+    results, launches = {}, 0
+    for label, dtype, cfg in configs:
+        model = ConvNeXt.from_pretrained(str(path), compute_dtype=dtype, cfg=cfg, device=device)
+        ev = Evaluator(model, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, n = _k1_count(lambda: ev.infer_probs(loader))
+        dt = time.perf_counter() - t0
+        want = len(loader) * sum(K1_MAIN_PATH.values()) if dtype == torch.bfloat16 else 0
+        _expect_launches(f"(c) {label} ({model.cfg.block_impl}, frontend "
+                         f"{model.cfg.frontend.precision}), {len(clips)} clips in "
+                         f"{len(loader)} batches", n, want)
+        launches += n
+        if not np.array_equal(out["target"], targets):
+            raise AssertionError(f"{label}: the Evaluator returned other targets")
+        results[label] = (out["clipwise_output"], dt)
+        del model, ev
+    ref = results["f32 parity"][0]
+    m_ref, _ = _map(ref, targets, LEARN_COLUMNS)
+    log(f"  (c) f32 parity: held-out mAP {m_ref:.6f} (gate > {HELDOUT_MAP}), "
+        f"{len(clips) / results['f32 parity'][1]:.1f} clips/s [{card}]")
+    if not m_ref > HELDOUT_MAP:
+        raise AssertionError(f"held-out mAP of the f32 model {m_ref:.4f}")
+    top1_ref = np.argmax(ref, axis=1)
+    top6_ref = np.argsort(-ref, axis=1)[:, :6]
+    for label, (probs, dt) in list(results.items())[1:]:
+        m, _ = _map(probs, targets, LEARN_COLUMNS)
+        top1 = float(np.mean(np.argmax(probs, axis=1) == top1_ref))
+        top6 = float(np.mean([len(set(a) & set(b)) / 6.0
+                              for a, b in zip(np.argsort(-probs, axis=1)[:, :6], top6_ref)]))
+        gap = float(np.abs(probs - ref).max())
+        log(f"  (c) {label}: mAP {m:.6f}, |delta| {abs(m - m_ref):.3e} (gate < {PARITY_MAP_TOL}); "
+            f"top-1 agreement {top1:.4f} (gate >= {PARITY_TOP1}); top-6 rank agreement "
+            f"{top6:.4f}; largest probability gap {gap:.3e} (gate < {PARITY_PROB_GAP}); "
+            f"{len(clips) / dt:.1f} clips/s [{card}]")
+        if not abs(m - m_ref) < PARITY_MAP_TOL:
+            raise AssertionError(f"{label}: mAP {m:.6f} vs the f32 parity config's {m_ref:.6f}")
+        if not top1 >= PARITY_TOP1:
+            raise AssertionError(f"{label}: top-1 agreement {top1:.4f}")
+        if not gap < PARITY_PROB_GAP:
+            raise AssertionError(f"{label}: a probability {gap:.3e} from the f32 config's")
+    return launches
+
+
+def check_transfer_learns(device, card):
+    """(d) Cnn14 at its published widths, registry dropout and SpecAugment,
+    head-only TransferTrainer at 1e-3: the transfer certificate's task and
+    five gates (tests/torch_transfer_cert.py, loaded by its path), and no
+    K1 or K2 launch."""
+    from audioset_convnext_inf_torch.engine.transfer import TransferTrainer
+    from audioset_convnext_inf_torch.models import create_pann_model
+
+    tc = _load_test_helper("torch_transfer_cert")
+    clips, tags = tc.tone_clips(32000)
+    model = create_pann_model("Cnn14", seed=0, device=device)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = TransferTrainer(model, learning_rate=1e-3)
+    losses, ms = [], []
+    _zero_counts()
+    t0 = time.perf_counter()
+    for idx in tc.batches(len(clips), TRANSFER_STEPS, TRANSFER_CERT_BATCH):
+        s0 = time.perf_counter()
+        losses.append(trainer.step_on_device(*trainer.to_device(clips[idx], tags[idx])))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - s0))
+    train_s = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().numpy()
+    probs = model.forward(clips)["clipwise_output"].cpu().numpy()
+    torch.cuda.synchronize()
+    if _counts() != (0, 0, 0):
+        raise AssertionError(f"the transfer run launched (K1, K1 save, K2) {_counts()}")
+    got = tc.report(model, start, losses, probs, tags)
+    log(f"  (d) Cnn14 head-only, {TRANSFER_STEPS} steps of {TRANSFER_CERT_BATCH} 1-s clips in "
+        f"{train_s:.1f} s, {np.median(ms[LEARN_TIMED_FROM:]):.2f} ms/step (median, synchronised) "
+        f"[{card}]")
+    log(f"  (d) loss mean of the first 8 steps {got.first:.6f}, of the last 8 {got.last:.6f}, "
+        f"ratio {got.ratio:.6f} (gate < {tc.LOSS_RATIO}); train mAP over the {tc.CLASSES} "
+        f"columns {got.map:.6f} (gate > {tc.MIN_MAP}), lowest AP {got.ap.min():.6f}; "
+        f"{got.frozen} frozen parameters bit-identical {got.frozen_ok}; BN statistics changed "
+        f"{got.moved_stats} of {got.stats}; fc_audioset moved {got.head_moved}; K1/K2 launches 0 "
+        f"[{card}]")
+    if got.failures():
+        raise AssertionError("transfer certificate: " + "; ".join(got.failures()))
+
+
+def run_learning_phase(device, card):
+    """Phase 15. Returns the fused run's K1 save-mode and K2 launches and
+    the K1 serving launches of the evaluations."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    clips, targets = tone_clips(4, 0)
+    labels = {True: "(a) fused", False: "(b) unfused"}
+    runs, summary, serving = {}, {}, 0
+    for fused, label in labels.items():
+        log(f"  {label}: convnext_tiny, fused_train_blocks={fused}, {LEARN_STEPS} steps of "
+            f"{LEARN_BATCH} ten-second clips")
+        runs[fused] = learn_run(device, fused, clips, targets, label)
+        m, ratio, step_ms, n = learn_gates(label, device, runs[fused], clips, targets, card)
+        serving += n
+        summary[label] = (m, ratio, step_ms)
+        torch.cuda.empty_cache()
+    gap = np.abs(runs[True].losses - runs[False].losses)
+    log(f"  (a) vs (b): train mAP {summary['(a) fused'][0]:.6f} / {summary['(b) unfused'][0]:.6f}, "
+        f"loss ratio {summary['(a) fused'][1]:.6f} / {summary['(b) unfused'][1]:.6f}, ms per step "
+        f"{summary['(a) fused'][2]:.2f} / {summary['(b) unfused'][2]:.2f}; largest per-step loss "
+        f"gap {gap.max():.6f} (step {int(np.argmax(gap))}), mean {gap.mean():.6f} [{card}]")
+    traces = [runs[f].trace for f in labels]
+    if None not in traces:
+        (fw, fb, fi), (uw, ub, ui) = traces
+        log(f"  (a) vs (b), one traced step each: wall {fw:.2f} / {uw:.2f} ms, device busy "
+            f"{fb:.2f} / {ub:.2f} ms, idle share {fi:.3f} / {ui:.3f} [{card}]")
+    path = WORK / "learned.safetensors"
+    from audioset_convnext_inf_torch.checkpoint.io import save_safetensors
+
+    save_safetensors(runs[True].state, str(path))
+    launches = runs[True].launches
+    del runs
+    torch.cuda.empty_cache()
+    serving += check_serving_parity(device, path, card)
+    torch.cuda.empty_cache()
+    check_transfer_learns(device, card)
+    shutil.rmtree(WORK)
+    return launches[1], launches[2], serving
 
 
 def _leaves(tree):
@@ -3227,27 +3616,27 @@ def run_phases() -> int:
 
     kind = torch.cuda.get_device_name(0)
     card = power_line()
-    phase(f"[1/14] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
+    phase(f"[1/15] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:")
     log(card)
 
-    phase("[2/14] build")
+    phase("[2/15] build")
     build_kernels(["fused_block", "fused_block_bwd"])
 
-    phase("[3/14] kernels against their plain versions")
+    phase("[3/15] kernels against their plain versions")
     k1_results = check_k1(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
-    phase("[4/14] serving path: convnext_tiny, B=16 x 10-s clips")
+    phase("[4/15] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
     check_row_independence(serve)
 
-    phase(f"[5/14] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
+    phase(f"[5/15] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
     trainer, batch, train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    phase(f"[6/14] times on {card}")
+    phase(f"[6/15] times on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
@@ -3256,7 +3645,7 @@ def run_phases() -> int:
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
 
-    phase("[7/14] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
+    phase("[7/15] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
     WORK.mkdir(parents=True, exist_ok=True)
     surface_launches = check_checkpoint_round_trip(serve, device, fixture_batch(BATCH, SEED))
     pcm, target = eval_data(SEED + 9)
@@ -3270,15 +3659,15 @@ def run_phases() -> int:
     one_rate = time_evaluator(serve, ev, pcm, target, card)
     del ev
 
-    phase(f"[8/14] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
+    phase(f"[8/15] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
     service_launches, http_rate = run_service(serve, card)
     torch.cuda.empty_cache()
 
-    phase("[9/14] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
+    phase("[9/15] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
     runner = CliRunner()
     cli_launches, three = run_train_cli(runner, card)
 
-    phase("[10/14] data parallelism on the one card")
+    phase("[10/15] data parallelism on the one card")
     torch.cuda.empty_cache()
     log("  (a) cli/train.py under torchrun's environment, world size 1, NCCL")
     nccl_launches = run_nccl_world_1(runner, three, card)
@@ -3291,41 +3680,49 @@ def run_phases() -> int:
     log("  (d) cli/serve.py --mesh")
     mesh_launches = run_service_mesh(serve, card)
 
-    phase("[11/14] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
+    phase("[11/15] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
     bundle_launches = run_bundle_phase(serve, device, card, http_rate)
     del serve
     torch.cuda.empty_cache()
 
-    phase("[12/14] PANN zoo: 49 models, f32 under fp32_precision(\"highest\"), 10-s clips")
+    phase("[12/15] PANN zoo: 49 models, f32 under fp32_precision(\"highest\"), 10-s clips")
     run_pann_phase(device, card)
 
-    phase("[13/14] PANN transfer: AudioCaps FLAC root, forward_train, TransferTrainer, "
+    phase("[13/15] PANN transfer: AudioCaps FLAC root, forward_train, TransferTrainer, "
           "cli/finetune_audiocaps.py; Cnn14 f32, 10-s clips")
     run_transfer_phase(device, card)
 
-    phase("[14/14] the rest: host audio library, Kaldi fbank and its evaluation route, "
+    phase("[14/15] the rest: host audio library, Kaldi fbank and its evaluation route, "
           "augmentations, profiling, compilation cache")
     rest_launches = run_rest_phase(device, card, one_rate)
     shutil.rmtree(WORK)
+
+    phase(f"[15/15] learning certificates: convnext_tiny fused and unfused bf16 recipe, "
+          f"{LEARN_STEPS} steps; serving parity with the trained weights; Cnn14 transfer")
+    learn_save, learn_bwd, learn_serving = run_learning_phase(device, card)
     phase("done")
 
     kernels = [
         _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
                launches + surface_launches + service_launches + cli_launches[0]
-               + sharded_eval_launches + mesh_launches + bundle_launches + rest_launches,
+               + sharded_eval_launches + mesh_launches + bundle_launches + rest_launches
+               + learn_serving,
                k1_results, per_shape,
                "serving forward (phases 4, 7, 8, 10(c-d), 11's bundles, 14's Kaldi-fbank route "
-               "and profile, and phase 9's evaluations in f32)",
+               "and profile, 15's evaluations, and phase 9's evaluations in f32)",
                K1_MAIN_PATH, unfused, err_cases=K1_SERVING_CASES),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",
-               train_launches[1] + cli_launches[1] + nccl_launches[1] + pair_launches[0],
-               k1s_results, save_shape, "training forward (save mode; phases 5, 9, 10(a-b))",
+               train_launches[1] + cli_launches[1] + nccl_launches[1] + pair_launches[0]
+               + learn_save,
+               k1s_results, save_shape, "training forward (save mode; phases 5, 9, 10(a-b), 15(a))",
                K1_MAIN_PATH, unfused),
         _entry("fused_block_bwd", "fused_block_bwd.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66",
-               train_launches[2] + cli_launches[2] + nccl_launches[2] + pair_launches[1],
-               k2_results, k2_shape, "training backward (phases 5, 9, 10(a-b))", K1_MAIN_PATH),
+               train_launches[2] + cli_launches[2] + nccl_launches[2] + pair_launches[1]
+               + learn_bwd,
+               k2_results, k2_shape, "training backward (phases 5, 9, 10(a-b), 15(a))",
+               K1_MAIN_PATH),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

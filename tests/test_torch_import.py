@@ -76,6 +76,41 @@ def test_sources_name_neither_jax_nor_the_jax_package():
                 assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "optax")], f
 
 
+# Files beside the package that run on the card machine, where the port
+# must not reach JAX: the smoke run and the checkpoint-arrival gate (and the
+# mutation and transfer-certificate helpers the smoke run loads).
+STANDALONE = ("chip_smoke.py", "scripts/verify_checkpoint_torch.py", "tests/torch_fuzz_util.py",
+              "tests/torch_transfer_cert.py")
+
+
+def test_smoke_run_and_gate_script_import_no_jax():
+    """Neither names JAX or the JAX package in an import, and each loads
+    with both blocked in ``sys.modules`` (their main is not run)."""
+    for rel in STANDALONE:
+        text = (ROOT / rel).read_text()
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not [n for n in names if n.split(".")[0] in (
+                "jax", "jaxlib", "optax", "audioset_convnext_inf_tpu")], rel
+    code = (
+        "import sys, importlib.util\n"
+        "for name in ('jax', 'optax', 'audioset_convnext_inf_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for i, rel in enumerate({STANDALONE!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'standalone{i}', rel)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
 def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, tmp_path):
     from audioset_convnext_inf_torch.cli import (convert, demo, evaluate, export_serving,
                                                  extract_embeddings, finetune_audiocaps,

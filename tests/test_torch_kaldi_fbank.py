@@ -76,6 +76,27 @@ def test_fbank_shape_floor_and_other_settings():
         kaldi_fbank(x, window_type="blackman")
 
 
+@pytest.mark.parametrize("n", [1000, 2047, 2048, 2049])
+def test_fbank_shorter_than_one_frame(n):
+    """A clip shorter than one 64-ms frame (2048 samples) gives no frames,
+    (0, 224), as the JAX function does, 1-D and batched; at 2048 and 2049
+    samples one frame, within FBANK_TOL of the JAX package. An unknown
+    window type raises at every length, in both."""
+    x = (np.random.RandomState(n).randn(2, n) * 0.1).astype(np.float32)
+    frames = 1 if n >= 2048 else 0
+    got, want = kaldi_fbank(torch.from_numpy(x)), JK.kaldi_fbank(x)
+    one, want_one = kaldi_fbank(torch.from_numpy(x[0])), JK.kaldi_fbank(x[0])
+    assert tuple(got.shape) == want.shape == (2, frames, 224)
+    assert tuple(one.shape) == want_one.shape == (frames, 224)
+    assert got.dtype == one.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=FBANK_TOL)
+    np.testing.assert_allclose(one.numpy(), want_one, rtol=0, atol=FBANK_TOL)
+    with pytest.raises(ValueError, match="window_type"):  # the settings are still checked
+        JK.kaldi_fbank(x, window_type="blackman")
+    with pytest.raises(ValueError, match="window_type"):
+        kaldi_fbank(torch.from_numpy(x), window_type="blackman")
+
+
 @pytest.mark.parametrize("name", ["impulse", "tone", "noise"])
 def test_fbank_matches_frozen_goldens(name):
     """The JAX suite's golden signals: its frozen values, and the whole
