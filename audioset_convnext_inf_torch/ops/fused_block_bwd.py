@@ -15,16 +15,18 @@ NHWC (B, H, W, C). It replaces the JAX package's
 launches ``csrc/fused_block_bwd.cu`` (built at first use by
 ``ops/_build.py``) or raises; on a CPU tensor it runs
 ``fused_block_bwd_reference``. The kernel
-source says what bounds it on the card and how its launches divide the work.
-``launch_plan`` chooses the launches (pixels per chain block, the split of
-the weight-gradient products over pixel ranges, shared memory) and the
-workspace sizes from (C, dtype, pixel count); the wrapper allocates what it
-says and passes it to the kernel, which refuses a plan it cannot run.
+source says what bounds it on the card and how its launches divide the work
+(bf16: seven, the products on Hopper's ``wgmma`` fed by TMA).
+``launch_plan`` chooses the launches (the chain's wgmma tiles, the splits of
+the dxn and weight-gradient products, the stencil tile, shared memory) and
+the workspace sizes from (C, dtype, image shape); the wrapper allocates what
+it says and passes it to the kernel, which refuses a plan it cannot run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -32,101 +34,193 @@ import torch.nn.functional as F
 
 from audioset_convnext_inf_torch.ops import _build
 from audioset_convnext_inf_torch.ops.fused_block import (
-    HLD, K, MAX_C, OPS, RING, _DTYPE_CODE, _check, bf16_tiling, tile_weights)
+    K, MAX_C, OPS, _DTYPE_CODE, _check, bf16_tiling, tile_weights)
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
 
 _C0 = 0.7978845608028654  # sqrt(2/pi)
 _C1 = 0.044715
-WGRAD_CHUNK = 256  # pixels per partial sum of the depthwise weight gradient
-CUDA_LAUNCHES = 7  # kernel launches per call (see the kernel source)
-SMS = 132  # streaming multiprocessors of an H100: the split-K target is two blocks each
-_GT, _KP = 128, 32  # output tile edge and pixels per step of the bf16 products
-WGRAD_SMEM = 2 * 4 * 2 * _KP * (_GT + 8)  # bf16 product block: 4 stages of two tiles
+CUDA_LAUNCHES = 7  # kernel launches per bf16 call (see the kernel source)
+SMS = 132  # streaming multiprocessors of an H100: the split targets are two blocks each
+_BM, _BN, _BK = 128, 128, 64  # wgmma block tile (two warpgroups of 64 rows) and ring depth
+PX = 32  # pixels of a prep / LN-backward block (bf16)
+_TILE = _BM * _BK * 2  # bytes of a 128 x 64 bf16 tile
+CHAIN_SMEM = 3 * 4 * _TILE + 1024  # chain_h_kernel: 3 stages of xn, dz2, W1, W2 tiles + alignment
+WGRAD_SMEM = 3 * 2 * _TILE + 1024  # gemm_kernel: 3 stages of A and B tiles + alignment
+SLAB = 64  # channels of a stencil block
+_ROWS, _COLS, _STENCIL_CAP = 16, 32, 112640  # the stencil tile's limits (110 KiB: 2 blocks an SM)
+
+
+class StencilTile(NamedTuple):
+    th: int     # output rows of a tile
+    tw: int     # output columns of a tile
+    nth: int    # tiles down an image
+    ntw: int    # tiles across an image
+    smem: int   # bytes: dd with its 3-pixel halo and x, SLAB channels, and their 49 taps in f32
+
+
+def _sum_blocks(rows: int, cols: int) -> int:
+    """Blocks of the sums' launch (sum_parts_kernel) for one partial: g
+    threads a column (a power of two up to 32, at most the rows), each of
+    256 threads 4 columns where the rows are at most 8, else 1."""
+    g = 1
+    while g < 32 and 2 * g <= rows:
+        g *= 2
+    return -(-cols // ((4 if rows <= 8 else 1) * 256 // g))
+
+
+def stencil_tile(h: int, w: int, esize: int) -> StencilTile:
+    """The depthwise stencils' tile on an h x w image (as the kernel's
+    stencil_plan): all of w up to 32 columns, else w in even pieces of at
+    most 32; as many rows as the staging of dd and x fits in 110 KiB of
+    shared memory, at most 16, h in even pieces."""
+    ntw = -(-w // _COLS)
+    tw = -(-w // ntw)
+    staged = _STENCIL_CAP // (SLAB * esize)
+    rows = max(1, min((staged - 6 * (tw + 6)) // (2 * tw + 6), _ROWS, h))
+    nth = -(-h // rows)
+    th = -(-h // nth)
+    staging = ((th + 6) * (tw + 6) + th * tw) * SLAB * esize
+    return StencilTile(th, tw, nth, ntw, staging + 4 * K * K * SLAB)
 
 
 class BwdPlan(NamedTuple):
-    mt: int           # pixels per chain block
+    mt: int           # pixels per chain block (bf16: a 128-pixel wgmma tile; f32: 16)
     cp: int           # channels as the kernels' tiles see them (bf16: padded to CPAD)
+    px: int           # pixels per prep / LN-backward block (bf16; f32: = mt)
     split: int        # pixel ranges of the bf16 weight-gradient products (split-K)
-    split_px: int     # pixels per range, a multiple of 32
+    split_px: int     # pixels per range, a multiple of 64
+    ksplit: int       # ranges of the bf16 dxn product's 4C reduction
+    stencil: StencilTile
     chain_ctas: int   # thread blocks of the chain launch
+    dxn_ctas: int     # thread blocks of the bf16 dxn product
     wgrad_ctas: int   # thread blocks of the weight-gradient launch(es)
+    stencil_ctas: int  # thread blocks of the stencil launch
     chain_smem: int   # dynamic shared memory of one chain block
-    wgrad_smem: int   # shared memory of one weight-gradient block
-    acc_regs: int     # f32 registers per thread that hold the chain's (mt, C) dxn
-    workspace: Dict[str, int]  # elements: xn, dys, gact, dh1, dd in dt; parts in f32
+    wgrad_smem: int   # shared memory of one product block (bf16: the dxn product's too)
+    ln_smem: int      # dynamic shared memory of one LN-backward block (bf16)
+    acc_regs: int     # f32 accumulator registers per thread of the chain
+    workspace: Dict[str, int]  # elements: xn, dys, dz2, gact, dh1, dd in dt; the rest f32
+    launches: Tuple[Tuple[str, int], ...]  # (kernel, thread blocks) of each launch, in order
 
 
-def launch_plan(c: int, dtype: torch.dtype, npix: int) -> BwdPlan:
-    """The backward's launches and workspaces for C channels and npix =
-    B*H*W pixels. bf16: the tensor-core chain under the forward's
-    ``bf16_tiling``; the two weight-gradient products as 128x128 tiles in
-    one launch, the pixels cut into ``split`` ranges so that the launch has
-    about two blocks per SM. f32: the FMA kernels, 16 pixels per chain
-    block, no split."""
+def launch_plan(c: int, dtype: torch.dtype, b: int, h: int, w: int) -> BwdPlan:
+    """The backward's launches and workspaces for C channels on (b, h, w)
+    pixels. bf16: the chain as 128-pixel x 128-hidden-unit wgmma tiles;
+    dxn = dh1 . W1 as 128 x 128 tiles, its 4C reduction cut into
+    ``ksplit`` ranges when the tiles alone are fewer than two a SM; the two
+    weight-gradient products as 128 x 128 tiles in one launch, the pixels
+    cut into ``split`` ranges for about two blocks a SM. f32: the FMA
+    kernels, 16 pixels per chain block, no split. Both: the stencil tile of
+    ``stencil_tile``, 64 channels a block."""
     if not 1 <= c <= MAX_C:
         raise ValueError(f"fused_block_bwd supports 1 <= C <= {MAX_C}, got C={c}")
+    npix = b * h * w
     if dtype == torch.float32:
-        mt, cp, split, split_px = 16, c, 1, max(npix, 1)
+        mt = px = 16
+        cp, split, split_px, ksplit = c, 1, max(npix, 1), 1
         cs = (c + 3) & ~3
+        chain_ctas, dxn_ctas = -(-npix // mt), 0
         chain_smem = 4 * (3 * 16 * cs + 2 * 16 * 64 + 64 * 65 + 4 * 16)
         wgrad_ctas = 2 * (-(-c // 64)) * (-(-4 * c // 64))  # two launches of 64x64 tiles
-        wgrad_smem = 2 * 4 * 32 * 64  # two static 32 x 64 f32 tiles
-        acc_regs = 4
+        wgrad_smem, ln_smem, acc_regs = 2 * 4 * 32 * 64, 0, 4  # two static 32 x 64 f32 tiles
+        esize = 4
     elif dtype == torch.bfloat16:
-        cp, mt, ncls = bf16_tiling(c)
-        tiles = (cp // _GT) * (4 * cp // _GT)
+        cp, mt, px = bf16_tiling(c)[0], _BM, PX
+        mtiles = -(-npix // _BM)
+        chain_ctas = (4 * cp // _BN) * mtiles
+        dxn_tiles = mtiles * (cp // _BN)
+        ksplit = min(4, max(1, -(-2 * SMS // max(dxn_tiles, 1))))
+        dxn_ctas = dxn_tiles * ksplit
+        tiles = (cp // _BN) * (4 * cp // _BN)
         want = max(1, round(2 * SMS / tiles))
         per_range = -(-npix // want)
-        split_px = max(_KP, -(-per_range // _KP) * _KP)  # whole 32-pixel steps
+        split_px = max(_BK, -(-per_range // _BK) * _BK)  # whole 64-pixel steps
         split = max(1, -(-npix // split_px))
-        chain_smem = 2 * (2 * mt * (cp + 8) + 2 * mt * HLD + RING) + 4 * 4 * mt
-        wgrad_ctas, wgrad_smem, acc_regs = 2 * tiles * split, WGRAD_SMEM, mt * ncls // 2
+        wgrad_ctas = 2 * tiles * split
+        chain_smem, wgrad_smem, ln_smem = CHAIN_SMEM, WGRAD_SMEM, 4 * PX * cp
+        acc_regs = 128  # h1 and dg: two 64 x 128 f32 tiles a warpgroup
+        esize = 2
     else:
         raise TypeError(f"fused_block_bwd takes float32 or bfloat16 activations, got {dtype}")
-    nchain = -(-npix // mt)
+    st = stencil_tile(h, w, esize)
+    bf = dtype == torch.bfloat16
+    stencil_ctas = b * st.nth * st.ntw * -(-c // SLAB)
     workspace = {
-        "xn": npix * cp, "dys": npix * cp, "gact": npix * 4 * cp, "dh1": npix * 4 * cp,
-        "dd": npix * c, "part_chain": nchain * 8 * c,
-        "part_wgrad": -(-npix // WGRAD_CHUNK) * K * K * c,
-        "part_mm": split * 2 * 4 * cp * cp if dtype == torch.bfloat16 else 0,
+        "xn": npix * cp, "dys": npix * cp, "dz2": npix * cp if bf else 0,
+        "gact": npix * 4 * cp, "dh1": npix * 4 * cp, "dd": npix * c,
+        "dxn": ksplit * npix * cp if bf else 0, "stats": 2 * npix if bf else 0,
+        "part_vec": -(-npix // px) * (4 if bf else 8) * c,
+        "part_db1": -(-npix // mt) * 4 * c if bf else 0,
+        "part_dww": b * st.nth * st.ntw * K * K * c,
+        "part_mm": split * 2 * 4 * cp * cp if bf else 0,
     }
-    return BwdPlan(mt, cp, split, split_px, nchain, wgrad_ctas, chain_smem, wgrad_smem,
-                   acc_regs, workspace)
+    # the fixed-order sums: one launch over every partial, a segment per
+    # output (sum dy*s, dlnb, dlns, db_dw, db1, dW_dw, bf16: M | dW1) as
+    # (rows, columns)
+    vec_rows = workspace["part_vec"] // ((4 if bf else 8) * c)
+    segments = [(vec_rows, c)] * 4 + [
+        (-(-npix // mt) if bf else vec_rows, 4 * c),
+        (workspace["part_dww"] // (K * K * c), K * K * c)] + ([(split, 8 * cp * cp)] if bf else [])
+    sum_ctas = sum(_sum_blocks(rows, cols) for rows, cols in segments)
+    if bf:
+        nblk = -(-npix // px)
+        launches = (("prep_kernel", nblk), ("chain_h_kernel", chain_ctas),
+                    ("gemm_kernel", dxn_ctas), ("ln_bwd_kernel", nblk),
+                    ("gemm_kernel", wgrad_ctas), ("dw_bwd_kernel", stencil_ctas),
+                    ("sum_parts_kernel", sum_ctas))
+    else:
+        launches = (("chain_kernel", chain_ctas), ("wgrad_gemm_kernel", wgrad_ctas // 2),
+                    ("wgrad_gemm_kernel", wgrad_ctas // 2), ("dw_bwd_kernel", stencil_ctas),
+                    ("sum_parts_kernel", sum_ctas))
+    return BwdPlan(mt, cp, px, split, split_px, ksplit, st, chain_ctas, dxn_ctas, wgrad_ctas,
+                   stencil_ctas, chain_smem, wgrad_smem, ln_smem, acc_regs, workspace, launches)
 
 
-_WS_DT = ("xn", "dys", "gact", "dh1", "dd")  # workspaces in the activation dtype
+_WS_DT = ("xn", "dys", "dz2", "gact", "dh1", "dd")  # workspaces in the activation dtype
+
+
+# the kernel's f32 vector sums, each its own tensor (a custom op's outputs
+# may not share storage): (name, length in C)
+_VEC = (("sdys", 1), ("dlnb", 1), ("dlns", 1), ("dbdw", 1), ("db1", 4))
 
 
 def allocate(plan: BwdPlan, c: int, dt: torch.dtype, device) -> Dict[str, torch.Tensor]:
     """Every buffer the kernel writes under ``plan``: the workspaces of
-    ``plan.workspace`` (flat), and the f32 sums vec (8C), dww (49, C), m
-    (cp, 4cp) and dw1 (4cp, cp). m and dw1 are the two halves of one buffer,
-    so that one fixed-order sum writes both."""
+    ``plan.workspace`` (flat views of one allocation per dtype, each
+    starting on a 256-byte boundary, as the kernels' 16-byte loads and TMA
+    need), and the f32 sums: sum dy*s, dlnb, dlns, db_dw (C each), db1
+    (4C), dww (C, 1, 7, 7), m (cp, 4cp) and dw1 (4cp, cp). m and dw1 are
+    the two halves of one buffer, so that one fixed-order sum writes both."""
     cp = plan.cp
-    bufs = {k: torch.empty(n, dtype=dt if k in _WS_DT else torch.float32, device=device)
-            for k, n in plan.workspace.items()}
+    bufs = {}
+    for kind, names in ((dt, _WS_DT), (torch.float32, [k for k in plan.workspace
+                                                      if k not in _WS_DT])):
+        align = 256 // torch.finfo(kind).bits * 8  # elements of 256 bytes
+        sizes = [-(-plan.workspace[k] // align) * align for k in names]
+        flat = torch.empty(sum(sizes), dtype=kind, device=device)
+        for k, start in zip(names, itertools.accumulate([0] + sizes)):
+            bufs[k] = flat[start:start + plan.workspace[k]]
+    for k, n in _VEC:
+        bufs[k] = torch.empty(n * c, device=device)
     mm = torch.empty(2, 4 * cp * cp, device=device)
-    bufs.update(vec=torch.empty(8 * c, device=device), dww=torch.empty(K * K, c, device=device),
-                m=mm[0].view(cp, 4 * cp), dw1=mm[1].view(4 * cp, cp))
+    bufs.update(dww=torch.empty(c, 1, K, K, device=device), m=mm[0].view(cp, 4 * cp),
+                dw1=mm[1].view(4 * cp, cp))
     return bufs
 
 Grads = Dict[str, torch.Tensor]
 
 
-def _grads(dww: torch.Tensor, vec: torch.Tensor, m: torch.Tensor, dw1: torch.Tensor,
+def _grads(dww: torch.Tensor, sdys: torch.Tensor, dlnb: torch.Tensor, dlns: torch.Tensor,
+           dbdw: torch.Tensor, db1: torch.Tensor, m: torch.Tensor, dw1: torch.Tensor,
            w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor, dt: torch.dtype) -> Grads:
-    """The gradients in the port's parameter layouts from the kernel's sums:
-    dww (49, C) tap-major, vec = [sum dy*s | dlnb | dlns | db_dw | db1 (4C)],
-    m = (dy*s)^T . gact (C, 4C), dw1 = dh1^T . xn (4C, C). dW2, db2 and
-    dgamma come from m as in the JAX package (outside its kernel); dgamma
-    takes W2 rounded to the activation dtype, as the kernel saw it."""
-    c = dww.shape[1]
-    # copies, not views of vec: a custom op's outputs may not alias each other
-    sdys, dlnb, dlns, dbdw, db1 = (t.clone() for t in torch.split(vec, [c, c, c, c, 4 * c]))
+    """The gradients in the port's parameter layouts from the kernel's
+    sums: dww (C, 1, 7, 7), sum dy*s, dlnb, dlns, db_dw (C), db1 (4C), m =
+    (dy*s)^T . gact (C, 4C), dw1 = dh1^T . xn (4C, C). dW2, db2 and dgamma
+    come from m as in the JAX package (outside its kernel); dgamma takes
+    W2 rounded to the activation dtype, as the kernel saw it."""
     g = gamma.float()
     return {
-        "dwconv.weight": dww.t().reshape(c, 1, K, K).contiguous(),
+        "dwconv.weight": dww,
         "dwconv.bias": dbdw,
         "norm.weight": dlns,
         "norm.bias": dlnb,
@@ -134,7 +228,7 @@ def _grads(dww: torch.Tensor, vec: torch.Tensor, m: torch.Tensor, dw1: torch.Ten
         "pwconv1.bias": db1,
         "pwconv2.weight": m * g[:, None],
         "pwconv2.bias": g * sdys,
-        "gamma": (w2.to(dt).float() * m).sum(dim=1) + b2.float() * sdys,
+        "gamma": (m * w2.to(dt)).sum(dim=1) + b2.float() * sdys,
     }
 
 
@@ -196,15 +290,15 @@ def fused_block_bwd_reference(
         ddc = rstd * (dxh - m1 - xhat * m2)
         dd = ddc.to(dt).float()
         pix = (0, 1, 2)
-        vec = torch.cat([dys32.sum(pix), dxn.sum(pix), (dxn * xhat).sum(pix), ddc.sum(pix),
-                         dh1f.sum(pix)])
+        vec = (dys32.sum(pix), dxn.sum(pix), (dxn * xhat).sum(pix), ddc.sum(pix), dh1f.sum(pix))
         xp = F.pad(x.float(), (0, 0, K // 2, K // 2, K // 2, K // 2))
         dww = torch.stack([(xp[:, ky:ky + h, kx:kx + w] * dd).sum(pix)
                            for ky in range(K) for kx in range(K)])
         flipped = dw_w.float().flip(-1, -2)
         dgrad = F.conv2d(dd.permute(0, 3, 1, 2), flipped, padding=K // 2, groups=c)
         dx = (dy.float() + dgrad.permute(0, 2, 3, 1)).to(dt)
-    return dx, _grads(dww, vec, m, dw1, w2, b2, gamma, dt)
+    dww = dww.t().reshape(c, 1, K, K).contiguous()
+    return dx, _grads(dww, *vec, m, dw1, w2, b2, gamma, dt)
 
 
 def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
@@ -212,14 +306,17 @@ def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib = _build.load("fused_block_bwd", defines)
     fn = lib.fused_block_backward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8
         fn.restype = ctypes.c_int
         lib.fused_block_bwd_plan_smem.argtypes = [ctypes.c_int] * 4
         lib.fused_block_bwd_plan_smem.restype = ctypes.c_longlong
         lib.fused_block_bwd_wgrad_smem.argtypes = []
         lib.fused_block_bwd_wgrad_smem.restype = ctypes.c_longlong
+        lib.fused_block_bwd_ln_smem.argtypes = [ctypes.c_int]
+        lib.fused_block_bwd_ln_smem.restype = ctypes.c_longlong
+        lib.fused_block_bwd_stencil_smem.argtypes = [ctypes.c_int] * 5
+        lib.fused_block_bwd_stencil_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -267,7 +364,7 @@ def _bwd_op(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
 def _bwd_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
     b, h, w, c = x.shape
     dx, g = _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
-                           launch_plan(c, x.dtype, b * h * w))
+                           launch_plan(c, x.dtype, b, h, w))
     return (dx, *(g[k] for k in GRAD_KEYS))
 
 
@@ -288,27 +385,30 @@ def _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
     dt = x.dtype
 
     def f32(t):
+        if t.dtype == torch.float32 and t.is_contiguous():
+            return t.detach()
         return t.detach().to(torch.float32).contiguous()
 
-    dww = f32(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
     w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
-    ins = (dww, f32(ln_w), f32(ln_b), w1c, f32(b1), w2c, f32(gamma), f32(s))
+    ins = (f32(dw_w), f32(ln_w), f32(ln_b), w1c, f32(b1), w2c, f32(gamma), f32(s))
     dx = torch.empty_like(x)
     buf = allocate(plan, c, dt, x.device)
-    outs = ("xn", "dys", "gact", "dh1", "dd", "part_chain", "part_wgrad", "vec", "dww", "m",
-            "dw1")
+    outs = (*(k for k, _ in _VEC), "dww", "m", "xn", "dys", "dz2", "gact", "dh1", "dd", "dxn",
+            "stats", "part_vec", "part_db1", "part_dww", "part_mm")
+    st = plan.stencil
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_block_backward(
             x.data_ptr(), d.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in ins),
-            dx.data_ptr(), *(buf[k].data_ptr() for k in outs), b, h, w, c, WGRAD_CHUNK,
-            float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp, plan.split, plan.split_px,
-            buf["part_mm"].data_ptr() if plan.workspace["part_mm"] else None)
+            dx.data_ptr(), *(buf[k].data_ptr() if buf[k].numel() else None for k in outs),
+            b, h, w, c, float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp, plan.px,
+            plan.split, plan.split_px, plan.ksplit, st.th, st.tw)
     if err != 0:
         raise RuntimeError(f"fused_block_bwd kernel launch failed: cudaError {err}")
     fused_block_bwd.launches += 1
     m, dw1 = buf["m"][:c, :4 * c], buf["dw1"][:4 * c, :c]
-    return dx, _grads(buf["dww"], buf["vec"], m, dw1, w2, b2, gamma, dt)
+    return dx, _grads(buf["dww"], *(buf[k] for k, _ in _VEC), m, dw1, w2c[:c, :4 * c], b2,
+                      gamma, dt)
 
 
 fused_block_bwd.launches = 0

@@ -11,9 +11,11 @@ run (non-zero exit) on any error or mismatch:
  2. build: every CUDA kernel of the two paths below, from the sources in
     the checkout, with nvcc for sm_90a, one nvcc per source, in parallel;
     per instantiation, registers, static shared memory and spills (nvcc
-    -Xptxas -v) and the count of HMMA (tensor-core) instructions in the
-    library's SASS (cuobjdump -sass). Fails if a bf16 tensor-core
-    instantiation has no HMMA, or one the main path launches spills;
+    -Xptxas -v) and the counts of tensor-core instructions in the
+    library's SASS (cuobjdump -sass): HMMA (mma.sync, K1) and HGMMA
+    (wgmma, K2's products). Fails if K1's tensor-core instantiations have
+    no HMMA or K2's wgmma ones no HGMMA, or one the main path launches
+    spills;
  3. kernels: each kernel against its plain PyTorch version on the card,
     in f32 and bf16, at the paths' shapes and at the widths the factories
     use, with the tolerances stated in KERNEL_TOL: the fused block (K1) in
@@ -37,9 +39,14 @@ run (non-zero exit) on any error or mismatch:
     stage-3/4 block, with a finite loss; the trained model's eval forward
     launches K1 12 times in serving mode; one step's gradients with the
     fused blocks against the unfused ones (drop path off), bf16 and f32;
- 6. times (CUDA events after warm-up): each kernel and its plain version at
-    the checked shapes beside the least time the card could take; the
-    unfused bf16 block (unfused_ms) at the main path's shapes;
+ 6. times (CUDA events after warm-up; a kernel's the median of 5 runs of 20
+    calls): each kernel and its plain version at
+    the checked shapes beside the least time the card could take; one
+    profiled K2 call at each main-path shape, which must show every launch
+    of its plan and none of the kernels the Hopper redesign replaced; the
+    unfused bf16 block's forward (K1's unfused_ms) and autograd's backward
+    of it (K2's unfused_ms) at the main path's shapes, each the median of
+    5 runs with its spread;
     end-to-end clips/s of the bf16 serving forward at B=16 and B=64 and of
     the training step; one torch.profiler trace of the serving forward and
     one of a training step (device time by kernel, idle share);
@@ -347,6 +354,16 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+REPEATS = 5  # cuda_ms runs of a kernel or the unfused block; the median is kept
+
+
+def median_ms(fn, iters: int):
+    """Median and (min, max) of REPEATS cuda_ms runs of fn: a run where the
+    shared host held the launches back moves the spread, not the median."""
+    runs = sorted(cuda_ms(fn, iters=iters) for _ in range(REPEATS))
+    return runs[len(runs) // 2], (runs[0], runs[-1])
+
+
 # ---------------------------------------------------------------------------
 # phase 2: build
 # ---------------------------------------------------------------------------
@@ -391,8 +408,9 @@ def ptxas_report(log_text: str):
     return rep
 
 
-def hmma_counts(lib: Path):
-    """{mangled kernel: number of HMMA instructions} from cuobjdump -sass."""
+def mma_counts(lib: Path):
+    """{mangled kernel: (HMMA, HGMMA) instruction counts} from cuobjdump
+    -sass: mma.sync shows as HMMA, Hopper's warpgroup wgmma as HGMMA."""
     out = subprocess.run([_toolkit("cuobjdump"), "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
     counts, cur = {}, None
@@ -400,10 +418,12 @@ def hmma_counts(lib: Path):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and "HMMA" in ln:
-            counts[cur] += 1
-    return counts
+            counts[cur] = [0, 0]
+        elif cur is not None:
+            op = re.search(r"\b(HGMMA|HMMA)\.", ln)
+            if op:
+                counts[cur][op.group(1) == "HGMMA"] += 1
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def kernel_name(demangled: str) -> str:
@@ -414,24 +434,29 @@ def kernel_name(demangled: str) -> str:
     return re.sub(r"^void ", "", s).split("(")[0]
 
 
-def main_path_kernels():
-    """Names (as kernel_name gives them) of the bf16 tensor-core
-    instantiations the two paths launch at the main-path widths (C = 384
-    and 768, B = 16)."""
-    from audioset_convnext_inf_torch.ops import fused_block as FB, fused_block_bwd as FBB
+# K2's bf16 launches (ops/fused_block_bwd.py's plan) as kernel_name gives
+# them: the same instantiations at every width
+K2_MAIN_PATH = ("prep_kernel", "chain_h_kernel", "gemm_kernel<0>", "ln_bwd_kernel",
+                "gemm_kernel<1>", "dw_bwd_kernel<__nv_bfloat16>", "sum_parts_kernel")
 
-    names = {"wgrad_mma_kernel"}
+
+def main_path_kernels():
+    """Names (as kernel_name gives them) of the bf16 instantiations the two
+    paths launch at the main-path widths (C = 384 and 768, B = 16)."""
+    from audioset_convnext_inf_torch.ops import fused_block as FB
+
+    names = set(K2_MAIN_PATH)
     for name, b, h, w, c, _ in K1_CASES:
         if name in K1_MAIN_PATH:
             p = FB.launch_plan(c, torch.bfloat16, b * h * w)
-            q = FBB.launch_plan(c, torch.bfloat16, b * h * w)
             ncls = FB.width_class(p.cp)
             names |= {f"fused_block_mma_kernel<{p.mt}, {ncls}, {mode}>" for mode in (0, 1)}
-            names.add(f"chain_mma_kernel<{q.mt}, {ncls}>")
     return names
 
 
-TC_KERNELS = ("fused_block_mma_kernel", "chain_mma_kernel", "wgrad_mma_kernel")
+# tensor-core kernels: K1's on mma.sync (HMMA), K2's products on wgmma (HGMMA)
+HMMA_KERNELS = ("fused_block_mma_kernel",)
+HGMMA_KERNELS = ("chain_h_kernel", "gemm_kernel")
 
 
 def log_main_path_plans():
@@ -443,18 +468,22 @@ def log_main_path_plans():
     for name, b, h, w, c, _ in K1_CASES:
         if name in K1_MAIN_PATH:
             p = FB.launch_plan(c, torch.bfloat16, b * h * w)
-            q = FBB.launch_plan(c, torch.bfloat16, b * h * w)
+            q = FBB.launch_plan(c, torch.bfloat16, b, h, w)
+            st = q.stencil
             log(f"  plan {name} (C={c}, {b * h * w} pixels): K1 {p.mt} px/block, {p.ctas} blocks, "
                 f"{p.smem_bytes} B dynamic smem, {p.acc_regs} accumulator registers; K2 chain "
-                f"{q.mt} px/block, {q.chain_ctas} blocks, {q.chain_smem} B; products {q.split} "
-                f"pixel ranges, {q.wgrad_ctas} blocks, {q.wgrad_smem} B")
+                f"{q.mt} px x 128 hidden units/block, {q.chain_ctas} blocks, {q.chain_smem} B; "
+                f"dxn {q.ksplit} reduction range(s), {q.dxn_ctas} blocks; weight-gradient "
+                f"products {q.split} pixel ranges, {q.wgrad_ctas} blocks, {q.wgrad_smem} B; "
+                f"stencil {st.th}x{st.tw} px x 64 channels, {q.stencil_ctas} blocks, {st.smem} B; "
+                f"launches {', '.join(f'{k} x{n}' for k, n in q.launches)}")
 
 
 def build_kernels(names):
     """Build every kernel library in parallel; print each instantiation's
-    registers, static shared memory, spills and HMMA count. Fails if a bf16
-    tensor-core instantiation has no HMMA, or one the main path launches
-    spills or is missing."""
+    registers, static shared memory, spills and HMMA / HGMMA counts. Fails
+    if K1's tensor-core instantiations have no HMMA or K2's wgmma ones no
+    HGMMA, or if one the main path launches spills or is missing."""
     from audioset_convnext_inf_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -467,17 +496,20 @@ def build_kernels(names):
     for name, path in zip(names, paths):
         report = path.with_suffix(".log")
         rep = ptxas_report(report.read_text() if report.exists() else "")
-        hmma = hmma_counts(path)
-        pretty = _demangle(sorted(set(rep) | set(hmma)))
+        mma = mma_counts(path)
+        pretty = _demangle(sorted(set(rep) | set(mma)))
         for mangled in sorted(pretty, key=lambda m: kernel_name(pretty[m])):
             kname = kernel_name(pretty[mangled])
             seen.add(kname)
             r = rep.get(mangled, {})
-            n_hmma = hmma.get(mangled, 0)
+            n_hmma, n_hgmma = mma.get(mangled, (0, 0))
             log(f"  {name}: {kname}: {r.get('regs')} registers, {r.get('smem', 0)} B static smem, "
-                f"{r.get('spill', 0)} B spilled, {n_hmma} HMMA{' (main path)' if kname in main else ''}")
-            if kname.startswith(TC_KERNELS) and n_hmma == 0:
+                f"{r.get('spill', 0)} B spilled, {n_hmma} HMMA, {n_hgmma} HGMMA"
+                f"{' (main path)' if kname in main else ''}")
+            if kname.startswith(HMMA_KERNELS) and n_hmma == 0:
                 bad.append(f"{kname} has no HMMA instruction")
+            if kname.startswith(HGMMA_KERNELS) and n_hgmma == 0:
+                bad.append(f"{kname} has no HGMMA instruction")
             if kname in main and r.get("spill", 0):
                 bad.append(f"{kname} spills {r['spill']} B on the main path")
         _build.load(name)
@@ -663,18 +695,18 @@ def check_k2(device):
 
 
 def time_kernel(label, fn, plain, counter, flops, nbytes, dtype):
-    """Kernel and plain version by CUDA events; launches made here are put
-    back off the count."""
+    """Kernel (median of REPEATS runs of 20 calls) and plain version by
+    CUDA events; launches made here are put back off the count."""
     before = counter.launches
-    ms = cuda_ms(fn, iters=20)
+    ms, spread = median_ms(fn, iters=20)
     plain_ms = cuda_ms(plain, iters=10)
     counter.launches = before
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at "
-        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    log(f"  {label}: kernel {ms:.4f} ms (median of {REPEATS}, {spread[0]:.4f}-{spread[1]:.4f}), "
+        f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at {flops / ms / 1e9:.1f} TFLOP/s")
     return row
 
 
@@ -699,8 +731,12 @@ def time_k1_save(device):
 
 
 def time_k2(device):
+    """K2 and its plain version at each K2 case; at the main path's shapes
+    also one profiled call, which must show each launch of the plan
+    (ops/fused_block_bwd.py's launch list) and none of the stencil kernels
+    the Hopper redesign replaced."""
     from audioset_convnext_inf_torch.ops.fused_block_bwd import (
-        CUDA_LAUNCHES, fused_block_bwd, fused_block_bwd_reference)
+        CUDA_LAUNCHES, fused_block_bwd, fused_block_bwd_reference, launch_plan)
 
     per_shape = {}
     for name, b, h, w, c in K2_CASES:
@@ -712,9 +748,20 @@ def time_k2(device):
             lambda: fused_block_bwd_reference(x, d, dy, *wts, s),
             fused_block_bwd, *k2_work(b, h, w, c, dtype), dtype)
         if name in K1_MAIN_PATH:  # where one call's time goes, launch by launch
-            before = fused_block_bwd.launches
-            profile_run(lambda: fused_block_bwd(x, d, dy, *wts, s), f"K2 {name}", top=CUDA_LAUNCHES)
+            before, seen = fused_block_bwd.launches, []
+            traced = profile_run(lambda: fused_block_bwd(x, d, dy, *wts, s), f"K2 {name}",
+                                 top=CUDA_LAUNCHES + 3, names=seen)
             fused_block_bwd.launches = before
+            if traced is None:
+                log(f"  K2 {name}: launch names not checked (no device events)")
+                continue
+            want = [k for k, _ in launch_plan(c, dtype, b, h, w).launches]
+            missing = [k for k in want if not any(f"{k}(" in n or f"{k}<" in n for n in seen)]
+            old = [n for n in seen if "dw_wgrad_kernel" in n or "dw_dgrad_kernel" in n]
+            if missing or old:
+                raise AssertionError(f"K2 {name} profile: missing {missing}, old kernels {old}")
+            log(f"  K2 {name}: the profile shows the plan's {len(want)} launches "
+                f"({', '.join(dict.fromkeys(want))}) and no dw_wgrad_kernel / dw_dgrad_kernel")
     return per_shape
 
 
@@ -735,19 +782,45 @@ def unfused_block(c, args, device):
 def time_unfused(device):
     """The unfused bf16 block (_block_apply(..., "xla_approx"): cuDNN
     depthwise conv, LN, two cuBLAS products, GELU, several launches) at the
-    main path's shapes: the yardstick for which stages K1 should take."""
+    main path's shapes: the yardstick for which stages K1 should take, and
+    autograd's backward of the same block, with K1's weights and K2's dy
+    and drop-path scales (k2_inputs), the yardstick K2 replaces. The
+    backward is torch.autograd.grad over one graph (retain_graph), the
+    forward outside the timed window. Each is the median of
+    REPEATS cuda_ms runs, spread printed. Returns ({shape: forward
+    ms}, {shape: backward ms})."""
     from audioset_convnext_inf_torch.models.convnext import _block_apply
 
-    per_shape = {}
+    fwd, bwd = {}, {}
     for name, b, h, w, c, _ in K1_CASES:
         if name not in K1_MAIN_PATH:
             continue
         x, args = k1_inputs(b, h, w, c, True, torch.bfloat16, device, SEED)
         blk = unfused_block(c, args, device)
         with torch.no_grad():
-            per_shape[name] = cuda_ms(lambda: _block_apply(x, blk, "xla_approx"), iters=20)
-        log(f"  unfused bf16 block {name:13s} B={b} H={h} W={w} C={c}: {per_shape[name]:.4f} ms")
-    return per_shape
+            fwd[name], spread = median_ms(lambda: _block_apply(x, blk, "xla_approx"), iters=20)
+        log(f"  unfused bf16 block {name:13s} B={b} H={h} W={w} C={c}: forward {fwd[name]:.4f} ms "
+            f"(median of {REPEATS}, {spread[0]:.4f}-{spread[1]:.4f})")
+        xb, _, dy, _, s = k2_inputs(b, h, w, c, torch.bfloat16, device, SEED)
+        xg = xb.detach().requires_grad_(True)
+        inputs = [xg, *blk.parameters()]
+        y = _block_apply(xg, blk, "xla_approx", s)
+        bwd[name], spread = median_ms(
+            lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True), iters=20)
+        log(f"  autograd backward of the unfused bf16 block {name:13s}: {bwd[name]:.4f} ms "
+            f"(median of {REPEATS}, {spread[0]:.4f}-{spread[1]:.4f}; {len(inputs)} "
+            f"gradients, the forward outside the window)")
+        del y, xg, inputs
+    return fwd, bwd
+
+
+def compare_yardsticks(k1_save, k2, fwd, bwd):
+    """K1 save mode beside the unfused forward and K2 beside autograd's
+    backward of the unfused block, at the main path's shapes."""
+    for name in K1_MAIN_PATH:
+        log(f"  {name}: K1 save {k1_save[name]['ms']:.4f} ms vs unfused forward {fwd[name]:.4f} ms "
+            f"({fwd[name] / k1_save[name]['ms']:.2f}x); K2 {k2[name]['ms']:.4f} ms vs autograd "
+            f"backward {bwd[name]:.4f} ms ({bwd[name] / k2[name]['ms']:.2f}x)")
 
 
 # ---------------------------------------------------------------------------
@@ -909,11 +982,12 @@ def time_end_to_end(model, label: str):
             f"{batch / dt:.1f} clips/s")
 
 
-def profile_run(fn, label: str, top: int = 10):
+def profile_run(fn, label: str, top: int = 10, names=None):
     """One traced call of fn (after one untraced): device time by kernel
     name, and the device's idle share of the traced wall time (union of
     kernel and copy intervals). Returns (wall ms, device-busy ms, idle
-    share), or None when the profiler saw no device event."""
+    share), or None when the profiler saw no device event; the kernel
+    names seen go into the list ``names`` where one is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -932,6 +1006,8 @@ def profile_run(fn, label: str, top: int = 10):
     for e in dev:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    if names is not None:
+        names.extend(by_name)
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s0, e0 in spans[1:]:
@@ -3554,9 +3630,10 @@ def _entry(name, source, replaces, launches, results, per_shape, mode, per_call,
            err_cases=None):
     """One kernel's line: the main path's shapes, summed over the launches
     one call of the path makes (``per_call`` per shape); ``unfused_ms`` is
-    the unfused bf16 block's time over the same launches (several PyTorch
-    calls, no library_ms); max_abs_err over the bf16 checks at
-    ``err_cases`` (default: the shapes of ``per_call``)."""
+    the unfused bf16 block's time over the same launches (K1: its forward;
+    K2: autograd's backward of it; several PyTorch calls, no library_ms);
+    max_abs_err over the bf16 checks at ``err_cases`` (default: the shapes
+    of ``per_call``)."""
     totals = {key: sum(per_call[s] * per_shape[s][key] for s in per_call)
               for key in ("ms", "plain_ms", "bound_ms")}
     unfused_ms = sum(per_call[s] * unfused[s] for s in per_call) if unfused else None
@@ -3640,7 +3717,8 @@ def run_phases() -> int:
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     k2_shape = time_k2(device)
-    unfused = time_unfused(device)
+    unfused, unfused_bwd = time_unfused(device)
+    compare_yardsticks(save_shape, k2_shape, unfused, unfused_bwd)
     time_end_to_end(serve, "bf16 serving")
     profile_forward(serve, BATCH)
     time_training(trainer, batch)
@@ -3722,7 +3800,7 @@ def run_phases() -> int:
                train_launches[2] + cli_launches[2] + nccl_launches[2] + pair_launches[1]
                + learn_bwd,
                k2_results, k2_shape, "training backward (phases 5, 9, 10(a-b), 15(a))",
-               K1_MAIN_PATH),
+               K1_MAIN_PATH, unfused_bwd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,9 +18,8 @@ plain version within the kernel tolerance of chip_smoke.py. Variants:
   k1/mma        K1 without its mma.sync instructions (operands kept)
   k1/prefetch   K1 loading only the first weight tiles of its ring
   k1/wide16     K1 with 16 instead of 32 pixels per block above C=384
-  k2/none       K2 as the package builds it
-  k2/chain32    K2 with 32 instead of 64 pixels per chain block up to C=384
-  k2/wide16     K2 with 16 instead of 32 pixels per chain block above C=384
+  k2/none       K2 as the package builds it (its plan does not follow the
+                MT_* macros: the chain is 128-pixel wgmma tiles at every width)
 
 The last line is one JSON object {"card": ..., "ms": {variant: {shape: ms}}}.
 """
@@ -50,8 +49,6 @@ VARIANTS = {
     "k1/prefetch": ("fused_block", ("ABLATE_PREFETCH",)),
     "k1/wide16": ("fused_block", ("MT_WIDE=16",)),
     "k2/none": ("fused_block_bwd", ()),
-    "k2/chain32": ("fused_block_bwd", ("MT_CLASS3=32",)),
-    "k2/wide16": ("fused_block_bwd", ("MT_WIDE=16",)),
 }
 PLAN_MACROS = ("MT_CLASS3", "MT_WIDE")
 
@@ -71,15 +68,6 @@ def k1_plan(c, npix, defines):
     plan = FB.launch_plan(c, torch.bfloat16, npix)
     mt = plan_mt(defines, FB.width_class(plan.cp))
     return plan._replace(mt=mt, ctas=-(-npix // mt)) if mt else plan
-
-
-def k2_plan(c, npix, defines):
-    plan = FBB.launch_plan(c, torch.bfloat16, npix)
-    mt = plan_mt(defines, FB.width_class(plan.cp))
-    if not mt:
-        return plan
-    ws = dict(plan.workspace, part_chain=-(-npix // mt) * 8 * c)
-    return plan._replace(mt=mt, chain_ctas=-(-npix // mt), workspace=ws)
 
 
 def check(got, ref, variant, name):
@@ -107,7 +95,7 @@ def time_variant(variant: str, device) -> dict:
             out[f"{name} save"] = cs.cuda_ms(save, iters=20)
         else:
             x, d, dy, wts, s = cs.k2_inputs(b, h, w, c, torch.bfloat16, device, cs.SEED)
-            plan = k2_plan(c, npix, defines)
+            plan = FBB.launch_plan(c, torch.bfloat16, b, h, w)
             fn = lambda: FBB._backward_cuda(x, d, dy, *wts, s, 1e-6, plan, defines)  # noqa: E731
             if checked:
                 check(fn()[0], FBB.fused_block_bwd_reference(x, d, dy, *wts, s)[0], variant, name)

@@ -11,6 +11,10 @@ import pytest
 from audioset_convnext_inf_torch.ops import _build
 
 KERNELS = ("fused_block", "fused_block_bwd")
+# what each kernel compiles from csrc/: K1 the mma.sync header, K2 also the
+# Hopper one (wgmma, TMA, mbarrier)
+SOURCES = {"fused_block": ["fused_block.cu", "mma_bf16.cuh"],
+           "fused_block_bwd": ["fused_block_bwd.cu", "mma_bf16.cuh", "wgmma_bf16.cuh"]}
 
 
 @pytest.fixture
@@ -34,7 +38,14 @@ def _append(path, text="\n// edited\n"):
 
 @pytest.mark.parametrize("name", KERNELS)
 def test_sources_list_the_kernel_and_the_shared_header(name):
-    assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "mma_bf16.cuh"]
+    assert [p.name for p in _build.sources(name)] == SOURCES[name]
+
+
+def test_editing_the_hopper_header_changes_only_k2s_library(csrc, before):
+    """K2's library name hashes wgmma_bf16.cuh; K1 does not include it."""
+    _append(csrc / "wgmma_bf16.cuh")
+    assert _build.library_path("fused_block_bwd") != before["fused_block_bwd"]
+    assert _build.library_path("fused_block") == before["fused_block"]
 
 
 @pytest.mark.parametrize("name", KERNELS)

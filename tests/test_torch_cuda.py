@@ -105,8 +105,13 @@ def _bwd_case(rng, shape, dtype):
     (torch.float32, (2, 7, 7, 1024)),     # widest: the most shared memory
     (torch.bfloat16, (16, 63, 14, 384)),  # tiny stage-3 shape
     (torch.bfloat16, (3, 5, 7, 384)),     # 105 pixels: a ragged last chain block
-    (torch.bfloat16, (2, 7, 7, 1024)),    # widest bf16 chain (205 KB shared memory)
+    (torch.bfloat16, (2, 7, 7, 1024)),    # widest bf16 chain: four dxn reduction ranges
     (torch.bfloat16, (3, 5, 4, 1)),       # C=1: padded tiles, many split ranges
+    (torch.bfloat16, (1, 9, 11, 200)),    # B=1, odd H and W, C not a multiple of 128
+    (torch.float32, (1, 9, 11, 200)),
+    (torch.bfloat16, (2, 37, 45, 96)),    # stencil tiles in both directions, ragged
+    (torch.float32, (2, 37, 45, 96)),
+    (torch.bfloat16, (1, 33, 7, 72)),     # C % 8 == 0 under one 64-channel slab
 ])
 def test_fused_block_bwd_matches_plain_version_and_is_deterministic(dtype, shape):
     """dx and the nine gradients within the kernel tolerance of the plain
@@ -138,18 +143,31 @@ def test_launch_plans_agree_with_the_kernels():
     k1, k2 = FB._lib(), FBB._lib()
     for c in WIDTHS:
         for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            p, q = FB.launch_plan(c, dt, 3472), FBB.launch_plan(c, dt, 3472)
+            p, q = FB.launch_plan(c, dt, 3472), FBB.launch_plan(c, dt, 16, 31, 7)
             assert k1.fused_block_plan_smem(c, code, p.mt, p.cp) == p.smem_bytes, (c, dt)
             assert k2.fused_block_bwd_plan_smem(c, code, q.mt, q.cp) == q.chain_smem, (c, dt)
             assert k1.fused_block_plan_smem(c, code, 48, p.cp) == -1
             assert k2.fused_block_bwd_plan_smem(c, code, q.mt, q.cp + 8) == -1
+            if code:
+                assert k2.fused_block_bwd_ln_smem(q.cp) == q.ln_smem
     assert k2.fused_block_bwd_wgrad_smem() == FBB.WGRAD_SMEM
+    for h, w in ((63, 14), (31, 7), (5, 4), (100, 70)):
+        for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            st = FBB.launch_plan(96, dt, 2, h, w).stencil
+            assert k2.fused_block_bwd_stencil_smem(h, w, code, st.th, st.tw) == st.smem
+            assert k2.fused_block_bwd_stencil_smem(h, w, code, st.th + 1, st.tw) == -1
     rng = np.random.RandomState(3)
     args = _block_args(rng, 384)
     x = torch.from_numpy(rng.randn(2, 5, 5, 384).astype(np.float32)).cuda().to(torch.bfloat16)
     bad = FB.launch_plan(384, torch.bfloat16, 50)._replace(mt=32)
     with pytest.raises(RuntimeError, match="cudaError"):
         FB._forward_cuda(x, *args, 1e-6, None, False, bad)
+    xb, d, dy, w, s = _bwd_case(rng, (2, 5, 5, 384), torch.bfloat16)
+    q = FBB.launch_plan(384, torch.bfloat16, 2, 5, 5)
+    stencil = q.stencil._replace(th=q.stencil.th - 1)
+    for bad in (q._replace(split_px=96), q._replace(ksplit=0), q._replace(stencil=stencil)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            FBB._backward_cuda(xb, d, dy, *w, s, 1e-6, bad)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,10 @@
 """The launch plans of the fused block kernels (K1 forward, K2 backward):
-plain functions of (C, dtype, pixel count) that choose pixels per thread
-block, the channel padding of the bf16 tiles, the split of K2's
-weight-gradient products and the workspaces. Held here, for every
+plain functions of (C, dtype, pixel count; K2 the image shape) that choose
+pixels per thread block, the channel padding of the bf16 tiles, the splits
+of K2's products, its stencil tile and the workspaces. Held here, for every
 stage-3/4 width of the seven factories and C = 1 and 100, to what an H100
 block can have (232,448 bytes of shared memory, 255 registers a thread of
-which the (MT, C) accumulator takes at most 128) and to what the wrappers
+which the accumulators take at most 128) and to what the wrappers
 allocate. The kernels' own agreement with the plans (the shared memory each
 computes, refusing other plans) is checked on the card by
 tests/test_torch_cuda.py."""
@@ -18,7 +18,12 @@ from audioset_convnext_inf_torch.ops import fused_block_bwd as FBB
 
 WIDTHS = (1, 100, 160, 192, 256, 320, 384, 512, 640, 768, 1024)
 SMEM = 232_448
-NPIX = {"tiny stage 3": 16 * 63 * 14, "tiny stage 4": 16 * 31 * 7, "ragged": 3 * 5 * 7}
+SHAPES = {"tiny stage 3": (16, 63, 14), "tiny stage 4": (16, 31, 7), "ragged": (3, 5, 7)}
+NPIX = {k: b * h * w for k, (b, h, w) in SHAPES.items()}
+# chip_smoke.py's K2_CASES (B, H, W, C) and widths around them
+K2_SHAPES = [(16, 63, 14, 384), (16, 31, 7, 768), (8, 63, 14, 384), (8, 31, 7, 768),
+             (16, 63, 14, 160), (4, 13, 14, 100)]
+K2_WIDTHS = (1, 100, 160, 384, 768, FB.MAX_C)
 
 
 @pytest.mark.parametrize("c", WIDTHS)
@@ -37,44 +42,183 @@ def test_forward_plan_fits_one_block(c):
 @pytest.mark.parametrize("c", WIDTHS)
 def test_backward_plan_fits_one_block_and_its_workspaces_are_allocated(c):
     for dt in (torch.float32, torch.bfloat16):
-        for npix in NPIX.values():
-            q = FBB.launch_plan(c, dt, npix)
-            assert q.chain_smem <= SMEM and q.wgrad_smem <= SMEM and q.acc_regs <= 128, (dt, q)
-            assert q.chain_ctas * q.mt >= npix > (q.chain_ctas - 1) * q.mt
+        for shape in SHAPES.values():
+            npix = shape[0] * shape[1] * shape[2]
+            q = FBB.launch_plan(c, dt, *shape)
+            bf = dt == torch.bfloat16
+            assert max(q.chain_smem, q.wgrad_smem, q.ln_smem, q.stencil.smem) <= SMEM, (dt, q)
+            assert q.acc_regs <= 128, (dt, q)
+            mtiles = -(-npix // q.mt)
+            assert mtiles * q.mt >= npix > (mtiles - 1) * q.mt
+            # bf16: a chain block per 128 pixels and 128 of the 4cp hidden units
+            assert q.chain_ctas == (4 * q.cp // 128 if bf else 1) * mtiles
             # the split ranges cover every pixel once, none of them empty
-            assert q.split_px % 32 == 0 or dt == torch.float32
+            assert q.split_px % 64 == 0 or not bf
             assert q.split * q.split_px >= npix > (q.split - 1) * q.split_px
+            # the ksplit ranges of dxn's 4cp reduction: whole 64-deep steps, none empty
+            steps = 4 * q.cp // 64
+            per = -(-steps // q.ksplit)
+            assert q.ksplit == 1 or (bf and (q.ksplit - 1) * per < steps)
             # what the kernel source documents, in elements
-            want = {"xn": npix * q.cp, "dys": npix * q.cp, "gact": npix * 4 * q.cp,
-                    "dh1": npix * 4 * q.cp, "dd": npix * c,
-                    "part_chain": -(-npix // q.mt) * 8 * c,
-                    "part_wgrad": -(-npix // FBB.WGRAD_CHUNK) * 49 * c,
-                    "part_mm": q.split * 8 * q.cp * q.cp if dt == torch.bfloat16 else 0}
+            st = q.stencil
+            want = {"xn": npix * q.cp, "dys": npix * q.cp, "dz2": npix * q.cp if bf else 0,
+                    "gact": npix * 4 * q.cp, "dh1": npix * 4 * q.cp, "dd": npix * c,
+                    "dxn": q.ksplit * npix * q.cp if bf else 0, "stats": 2 * npix if bf else 0,
+                    "part_vec": -(-npix // q.px) * (4 if bf else 8) * c,
+                    "part_db1": mtiles * 4 * c if bf else 0,
+                    "part_dww": shape[0] * st.nth * st.ntw * 49 * c,
+                    "part_mm": q.split * 8 * q.cp * q.cp if bf else 0}
             assert q.workspace == want
             bufs = FBB.allocate(q, c, dt, "meta")
             for k, n in want.items():
                 assert bufs[k].numel() == n and bufs[k].dtype == (
-                    dt if k in ("xn", "dys", "gact", "dh1", "dd") else torch.float32), k
+                    dt if k in ("xn", "dys", "dz2", "gact", "dh1", "dd") else torch.float32), k
             assert bufs["m"].shape == (q.cp, 4 * q.cp) and bufs["dw1"].shape == (4 * q.cp, q.cp)
             # one buffer, dw1 right after m: the kernel's one sum of the splits writes both
             assert bufs["m"].is_contiguous() and bufs["dw1"].is_contiguous()
             assert bufs["m"]._base is not None and bufs["dw1"]._base is bufs["m"]._base
             assert bufs["dw1"].storage_offset() == bufs["m"].storage_offset() + 4 * q.cp * q.cp
-            assert bufs["vec"].shape == (8 * c,) and bufs["dww"].shape == (49, c)
+            assert [bufs[k].shape for k in ("sdys", "dlnb", "dlns", "dbdw", "db1")] == [
+                (c,)] * 4 + [(4 * c,)] and bufs["dww"].shape == (c, 1, 7, 7)
+            # each sum its own tensor: the custom op's outputs may not share storage
+            outs = [bufs[k] for k in ("sdys", "dlnb", "dlns", "dbdw", "db1", "dww", "m")]
+            assert len({t.untyped_storage().data_ptr() for t in outs}) == len(outs) or \
+                bufs["m"].device.type == "meta"
+
+
+@pytest.mark.parametrize("dt", (torch.bfloat16, torch.float32))
+def test_backward_launches_match_the_plan(dt):
+    """The plan lists each launch of a call with its blocks: seven in bf16
+    (CUDA_LAUNCHES, what chip_smoke.py's profile of one call shows), five in
+    f32; the sums' launch has a segment per output (sum dy*s, dlnb, dlns,
+    db_dw, db1, dW_dw and, in bf16, M | dW1) and a block per cpt * 256 / g
+    of its columns: g = 1, 2, ..., 32 threads a column, at most the
+    segment's rows, and cpt = 4 columns a thread up to 8 rows, else 1."""
+    for b, h, w, c in K2_SHAPES:
+        q = FBB.launch_plan(c, dt, b, h, w)
+        names = [n for n, _ in q.launches]
+        if dt == torch.bfloat16:
+            assert len(q.launches) == FBB.CUDA_LAUNCHES == 7
+            assert names == ["prep_kernel", "chain_h_kernel", "gemm_kernel", "ln_bwd_kernel",
+                             "gemm_kernel", "dw_bwd_kernel", "sum_parts_kernel"]
+            assert [n for _, n in q.launches][1:3] == [q.chain_ctas, q.dxn_ctas]
+            assert q.launches[4][1] == q.wgrad_ctas
+        else:
+            assert names == ["chain_kernel", "wgrad_gemm_kernel", "wgrad_gemm_kernel",
+                             "dw_bwd_kernel", "sum_parts_kernel"]
+        assert q.launches[-2][1] == q.stencil_ctas
+        bf = dt == torch.bfloat16
+        npix = b * h * w
+        vec_rows = -(-npix // q.px)
+        segments = [(vec_rows, c)] * 4 + [(-(-npix // q.mt), 4 * c)] + [
+            (b * q.stencil.nth * q.stencil.ntw, 49 * c)] + ([(q.split, 8 * q.cp * q.cp)] if bf else [])
+        blocks = 0
+        for rows, n in segments:
+            g = max(x for x in (1, 2, 4, 8, 16, 32) if x <= rows)
+            blocks += -(-n // ((4 if rows <= 8 else 1) * 256 // g))
+        assert q.launches[-1][1] == blocks
+
+
+@pytest.mark.parametrize("b,h,w,c", K2_SHAPES)
+@pytest.mark.parametrize("dt", (torch.bfloat16, torch.float32))
+def test_stencil_tiles_cover_every_pixel_and_channel(b, h, w, c, dt):
+    """The stencil launch's tiles cover each image's pixels once, in even
+    pieces of at most 16 rows and 32 columns, and its 64-channel slabs
+    every channel, at every width of K2_WIDTHS too; a tile's staging (dd
+    with a 3-pixel halo, and x) stays within the 110-KiB cap, two blocks an
+    SM."""
+    for cc in (c,) + K2_WIDTHS:
+        q = FBB.launch_plan(cc, dt, b, h, w)
+        st = q.stencil
+        assert st.nth * st.th >= h > (st.nth - 1) * st.th and st.th <= 16
+        assert st.ntw * st.tw >= w > (st.ntw - 1) * st.tw and st.tw <= 32
+        slabs = -(-cc // FBB.SLAB)
+        assert slabs * FBB.SLAB >= cc > (slabs - 1) * FBB.SLAB
+        assert q.stencil_ctas == b * st.nth * st.ntw * slabs
+        esize = 2 if dt == torch.bfloat16 else 4
+        staging = ((st.th + 6) * (st.tw + 6) + st.th * st.tw) * 64 * esize
+        assert staging <= 112640 and st.smem == staging + 49 * 64 * 4
+    # wide and tall images take several tiles each way
+    st = FBB.stencil_tile(100, 70, 4)
+    assert (st.ntw, st.tw) == (3, 24) and st.nth * st.th >= 100 and st.smem <= 112640 + 49 * 256
+
+
+def _stencil_by_tiles(x, dd, wdw, th, tw):
+    """The kernel's staging and index arithmetic, tile by tile, in f64:
+    dd staged with a 3-pixel halo of zeros (staged row r + 6 - ky, column q
+    + 6 - kx for output (r, q) and tap (ky, kx)); dx = sum_taps w * dd, and
+    the tiles' partials of sum x * dd added in tile order."""
+    b, h, w, c = x.shape
+    dx = np.zeros_like(x)
+    parts = []
+    for img in range(b):
+        for h0 in range(0, h, th):
+            for w0 in range(0, w, tw):
+                ds = np.zeros((th + 6, tw + 6, c))
+                for sr in range(th + 6):
+                    for sq in range(tw + 6):
+                        hh, ww = h0 - 3 + sr, w0 - 3 + sq
+                        if 0 <= hh < h and 0 <= ww < w:
+                            ds[sr, sq] = dd[img, hh, ww]
+                xs = np.zeros((th, tw, c))
+                rows, cols = min(th, h - h0), min(tw, w - w0)
+                xs[:rows, :cols] = x[img, h0:h0 + rows, w0:w0 + cols]
+                acc = np.zeros((th, tw, c))
+                part = np.zeros((7, 7, c))
+                for ky in range(7):
+                    for kx in range(7):
+                        win = ds[6 - ky:6 - ky + th, 6 - kx:6 - kx + tw]
+                        acc += wdw[ky, kx] * win
+                        part[ky, kx] = (xs * win).sum((0, 1))
+                dx[img, h0:h0 + rows, w0:w0 + cols] = acc[:rows, :cols]
+                parts.append(part)
+    return dx, sum(parts)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(1, 63, 14, 3), (1, 31, 7, 2), (2, 13, 14, 3),
+                                     (1, 40, 70, 2), (1, 5, 4, 1)])
+def test_stencil_tiling_gives_both_depthwise_gradients(b, h, w, c):
+    """The tiles of the bf16 plan, emulated with the kernel's index
+    arithmetic, give dx = the flipped-kernel convolution of dd and dW_dw =
+    sum x(shifted) * dd of the whole image (the plain version's two
+    stencils), halos and ragged edge tiles included."""
+    rng = np.random.RandomState(h * w + c)
+    x, dd = rng.randn(b, h, w, c), rng.randn(b, h, w, c)
+    wdw = rng.randn(7, 7, c)
+    st = FBB.launch_plan(c, torch.bfloat16, b, h, w).stencil
+    dx, dww = _stencil_by_tiles(x, dd, wdw, st.th, st.tw)
+    ddt = torch.from_numpy(dd).permute(0, 3, 1, 2)
+    flipped = torch.from_numpy(wdw).permute(2, 0, 1).flip(-1, -2)[:, None]
+    want = torch.nn.functional.conv2d(ddt, flipped, padding=3, groups=c).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(dx, want.numpy(), rtol=1e-10, atol=1e-10)
+    xp = np.pad(x, ((0, 0), (3, 3), (3, 3), (0, 0)))
+    want_w = np.stack([np.stack([(xp[:, ky:ky + h, kx:kx + w] * dd).sum((0, 1, 2))
+                                 for kx in range(7)]) for ky in range(7)])
+    np.testing.assert_allclose(dww, want_w, rtol=1e-10, atol=1e-10)
 
 
 def test_main_path_plans():
-    """The two main-path shapes in bf16 take no weight padding; stage 3
-    runs 64-pixel forward and chain blocks (221 of each) and seven split
-    ranges of the weight-gradient products (252 blocks per product); stage 4
-    32-pixel blocks (109 of each) and two ranges (288 per product)."""
-    s3, s4 = NPIX["tiny stage 3"], NPIX["tiny stage 4"]
-    p3, p4 = FB.launch_plan(384, torch.bfloat16, s3), FB.launch_plan(768, torch.bfloat16, s4)
+    """The two main-path shapes in bf16 take no weight padding. K1: stage 3
+    runs 64-pixel blocks (221), stage 4 32-pixel blocks (109). K2: the chain
+    as 128-pixel x 128-hidden-unit wgmma blocks (1332 and 672), the dxn
+    product whole at stage 3 (333 blocks) and in two reduction ranges at
+    stage 4 (336), so both fill the card's 132 SMs; seven and two pixel
+    ranges of the weight-gradient products (252 and 288 blocks per
+    product)."""
+    s3, s4 = SHAPES["tiny stage 3"], SHAPES["tiny stage 4"]
+    p3 = FB.launch_plan(384, torch.bfloat16, NPIX["tiny stage 3"])
+    p4 = FB.launch_plan(768, torch.bfloat16, NPIX["tiny stage 4"])
     assert (p3.mt, p3.cp, p3.ctas, p3.acc_regs) == (64, 384, 221, 96)
     assert (p4.mt, p4.cp, p4.ctas, p4.acc_regs) == (32, 768, 109, 96)
-    q3, q4 = FBB.launch_plan(384, torch.bfloat16, s3), FBB.launch_plan(768, torch.bfloat16, s4)
-    assert (q3.mt, q3.chain_ctas, q3.split, q3.wgrad_ctas) == (64, 221, 7, 2 * 252)
-    assert (q4.mt, q4.chain_ctas, q4.split, q4.wgrad_ctas) == (32, 109, 2, 2 * 288)
+    q3, q4 = FBB.launch_plan(384, torch.bfloat16, *s3), FBB.launch_plan(768, torch.bfloat16, *s4)
+    assert (q3.mt, q3.chain_ctas, q3.ksplit, q3.dxn_ctas, q3.split, q3.wgrad_ctas) == (
+        128, 1332, 1, 333, 7, 2 * 252)
+    assert (q4.mt, q4.chain_ctas, q4.ksplit, q4.dxn_ctas, q4.split, q4.wgrad_ctas) == (
+        128, 672, 2, 336, 2, 2 * 288)
+    for q in (q3, q4):
+        assert min(q.chain_ctas, q.dxn_ctas) >= 2 * FBB.SMS
+    assert (q3.stencil.th, q3.stencil.tw, q3.stencil_ctas) == (16, 14, 16 * 4 * 6)
+    assert (q4.stencil.th, q4.stencil.tw, q4.stencil_ctas) == (16, 7, 16 * 2 * 12)
 
 
 def test_plans_refuse_what_the_kernels_cannot_run():
@@ -85,17 +229,19 @@ def test_plans_refuse_what_the_kernels_cannot_run():
         with pytest.raises(ValueError, match="C="):
             FB.launch_plan(c, torch.bfloat16, 100)
         with pytest.raises(ValueError, match="C="):
-            FBB.launch_plan(c, torch.float32, 100)
+            FBB.launch_plan(c, torch.float32, 4, 5, 5)
     with pytest.raises(TypeError):
         FB.launch_plan(96, torch.float16, 100)
     with pytest.raises(TypeError):
-        FBB.launch_plan(96, torch.float16, 100)
+        FBB.launch_plan(96, torch.float16, 4, 5, 5)
     for c in WIDTHS:
         cp, mt, ncls = FB.bf16_tiling(c)
         assert mt == (64 if cp <= 384 else 32) and mt * ncls // 2 <= 128
-        p, q = FB.launch_plan(c, torch.bfloat16, 100), FBB.launch_plan(c, torch.bfloat16, 100)
-        assert (p.mt, p.cp) == (q.mt, q.cp) == (mt, cp)
-        assert FB.launch_plan(c, torch.float32, 100).mt == FBB.launch_plan(c, torch.float32, 100).mt == 16
+        p = FB.launch_plan(c, torch.bfloat16, 100)
+        q = FBB.launch_plan(c, torch.bfloat16, 4, 5, 5)
+        assert (p.mt, p.cp) == (mt, cp) and (q.mt, q.cp) == (128, cp)
+        assert FB.launch_plan(c, torch.float32, 100).mt == FBB.launch_plan(
+            c, torch.float32, 4, 5, 5).mt == 16
 
 
 @pytest.mark.parametrize("c", (1, 100, 160, 384))
@@ -127,12 +273,13 @@ def test_tile_weights_pad_with_zeros_that_change_no_product(c):
             == wb.data_ptr()
 
 
-@pytest.mark.parametrize("c,npix", [(384, 16 * 63 * 14), (768, 16 * 31 * 7), (100, 1000)])
-def test_split_ranges_sum_to_the_full_weight_gradient(c, npix):
+@pytest.mark.parametrize("c,shape", [(384, (16, 63, 14)), (768, (16, 31, 7)), (100, (8, 5, 25))])
+def test_split_ranges_sum_to_the_full_weight_gradient(c, shape):
     """The bf16 weight-gradient products sum split partials over the
     plan's pixel ranges in order: the ranges tile [0, npix), so the sum of
     the partials is the whole product (checked in f64 on a narrow slice)."""
-    q = FBB.launch_plan(c, torch.bfloat16, npix)
+    npix = shape[0] * shape[1] * shape[2]
+    q = FBB.launch_plan(c, torch.bfloat16, *shape)
     rng = np.random.RandomState(0)
     a, b = rng.randn(npix, 8), rng.randn(npix, 16)
     parts = [a[s * q.split_px:(s + 1) * q.split_px].T @ b[s * q.split_px:(s + 1) * q.split_px]
