@@ -1,7 +1,7 @@
 // Fused ConvNeXt block forward for Hopper (sm_90a), NHWC layout.
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas_fused_block.py::_kernel,
-// in both its modes. One launch computes a whole block:
+// in both its modes. One call computes a whole block:
 //
 //   d   = round(dwconv7x7(x) + b_dw)                 f32 sum, pad 3
 //   xn  = round(LN(d) * ln_w + ln_b)                 f32 stats E[x^2]-E[x]^2
@@ -18,56 +18,115 @@
 // in T; biases, LN affine and gamma in f32. Any C in [1, 1024].
 //
 // What bounds it on an H100: the two products, 8*C^2 multiply-adds per
-// pixel against 49*C for the stencil, make the block compute-bound (at
-// C=384, B=16 a stage-3 launch is ~68 GFLOP against ~45 MB of traffic).
+// pixel against 49*C for the stencil: 2*N*(49*C + 8*C^2) operations, 33.8
+// GFLOP at B=16 stage 3 (N=14112, C=384) and 33.0 at stage 4 (N=3472,
+// C=768), 0.034 ms at the bf16 tensor-core peak, against about 23 MB of
+// x, out and weights (0.007 ms at 3.35 TB/s): operations bound it. What
+// stands between a kernel and that bound is the weight stream: 8*C^2
+// bf16 bytes a block of pixels must read from L2 (2.4 MB at C=384, 9.4
+// MB at C=768). A box of weights fetched from L2 feeds as many pixel rows
+// as share it; at 128 rows it carries 128 operations a byte, below the
+// ~170 a byte the tensor cores need from each SM's share of L2 (about 24
+// bytes a clock), so the design shares each box as widely as the
+// registers allow. Past that, a block's time goes to the stencil on the
+// CUDA cores, to the first product (its 64-wide wgmma reads both operands
+// from shared memory) and to GELU (PERF.md, Findings).
 //
-// bf16 (the serving and training paths): fused_block_mma_kernel<MT, NCMAX,
-// TRAIN>. One block of 256 threads takes MT consecutive pixels (flattened
-// over b, h, w; MT = 64 up to C = 384, 32 above: the launch plan of
-// mma_bf16.cuh, which the wrapper's mirrors):
-//   1. the 7x7 stencil on the CUDA cores: a thread takes a channel pair
-//      and a run of up to 8 pixels of one image row and walks each input
-//      row once (bf16x2 loads of x through L1/L2, the run's sums and the
-//      row's taps in registers); d rounded to bf16 into shared memory (and
-//      to d_out in save mode). Loading all 49 taps per output instead made
-//      the stencil two thirds of the kernel: the shared-memory carve-out
-//      leaves L1 too small for the 7x7 halo;
-//   2. LayerNorm, one warp per pixel, xn (bf16) written over d;
-//   3. the 4C hidden units in chunks of 128: h = xn . W1[chunk]^T on the
-//      tensor cores (mma.sync m16n8k16, bf16 in, f32 sums), + b1, GELU
-//      (tanhf), rounded to bf16 into shared memory, then
-//      acc += h . W2[:, chunk]^T on the tensor cores. W1 and W2 stream as
-//      bf16 tiles of 128 rows x 64 through a 3-stage cp.async ring
-//      (mma_bf16.cuh's Ring; the first tiles are in flight during the
-//      stencil); the (MT, 4C) hidden
-//      never leaves the chip, as on the TPU;
-//   4. the (MT, C) f32 sum lives in registers, split over the 8 warps by
-//      output channel (MT*NCMAX/2 per thread, NCMAX = ceil(C/128) rounded
-//      up to a width class); + b2, * gamma, * s, + x, one rounding,
-//      straight from the registers.
-// The channel count is padded to CP = 128*ceil(C/128) for the tiles: the
-// wrapper hands over W1 (4CP, CP) and W2 (CP, 4CP), zero-padded when
-// C != CP, so every 16-byte copy is aligned and in bounds.
+// bf16 (the serving and training paths): fused_block_wgmma_kernel<NB,
+// TRAIN>, 384 threads: two consumer warpgroups and a producer warpgroup,
+// all of which compute the stencil and LN first. A block takes MT = 64
+// consecutive pixels (flattened over b, h, w), NB *
+// 128 of the output channels (output slice o, blockIdx.y) and a range of
+// the 4C hidden units (blockIdx.z); blocks come in clusters of two with
+// neighbouring pixel tiles and the same slice and range.
+//   1. The stencil, from x staged in shared memory: the tile's image rows
+//      with their 3-row halo and 3-column padding, with the slab's 49 taps
+//      and bias, as many channels at a time as the h tiles and the ring
+//      hold, in 16-byte loads of 8 channels, 8 loads in flight a thread
+//      (tiles of very wide rows stage one row segment at a time); no weight
+//      box is in flight before both CTAs of the cluster are done with it. A
+//      thread takes four channels and a run of up to 7 pixels of one row and
+//      walks each staged row once, the run's sums and the row's 7 taps in
+//      registers; the taps are added in the order dy, dx, one FMA each, so
+//      d does not depend on the tiling. d (bf16) goes into the xn tile, and
+//      in save mode to d_out.
+//   2. LayerNorm, one warp a pixel, in place: xn is written straight into
+//      the 128-byte swizzled K-major layout wgmma reads (sw128_offset),
+//      one 64 x 64 box per 64 channels, zero beyond C and beyond N.
+//   3. The hidden units in chunks of 128. The producer (one thread; its
+//      warpgroup hands its registers to the consumers by setmaxnreg)
+//      streams the weights by TMA in 128-row x 64 boxes (W1 boxes: hidden
+//      units x 64 channels of C; W2 boxes: output channels x 64 hidden
+//      units, both K-major as stored) into a ring of `stages` one-box
+//      slots, a full and an empty mbarrier each. Each box is fetched once
+//      per cluster and multicast into both CTAs (the two take turns): 128
+//      pixel rows per box read from L2. For each chunk:
+//        h = xn . W1[chunk]^T on wgmma m64n64k16, each warpgroup 64 of the
+//        chunk's hidden units over all 64 pixels; + b1, GELU (tanhf),
+//        rounded to bf16 into a swizzled h tile (two buffers), exchanged
+//        between the warpgroups under a named barrier;
+//        acc += h . W2[slice, chunk]^T, each warpgroup half of the slice's
+//        output channels in two pieces that each lie inside one W2 box
+//        (m64n128k16 and m64n64k16 at NB = 3, two m64n128k16 at NB = 4).
+//      A warpgroup keeps one box's products in flight while it issues the
+//      next box's (unless the next box is late: then it frees the last one
+//      first); a slot is released once both warpgroups of both CTAs have
+//      waited for the products that read it (one arrive each on both CTAs'
+//      empty barrier).
+//   4. The (64, 64 NB) f32 sum of a warpgroup lives in registers (32 NB a
+//      thread: 96 at NB = 3, 128 at NB = 4, beside 32 for h, within the 232
+//      registers setmaxnreg gives a consumer thread). With one
+//      hidden range: + b2, * gamma, * s, + x, one rounding, from the
+//      registers. With several: each block writes its f32 partial, and
+//      fused_block_sum_kernel adds them in range order and finishes.
+// The plan (bf16_plan): NB = 3 up to CP = 768, else 4 (the
+// registers of a (64, C) f32 sum cap a block's slice: 64 x 768 would take
+// 192 registers a thread in each of two warpgroups beside everything else);
+// output slices CP / (128 NB) rounded up: one up to C = 384, two above (the
+// slices each recompute h); pixel tiles rounded up to pairs; the hidden
+// chunks split into ranges when the tiles and slices alone would fill
+// under half the card's 132 SMs (one clip, small batches). It depends on C
+// and N only, so a pixel's result never depends on its neighbours' values.
+// Every cross-block sum is added in the plan's fixed order: no atomics.
+// Channels are padded to CP = 128*ceil(C/128): the wrapper hands over W1
+// (4CP, CP) and W2 (CP, 4CP), zero-padded when C != CP.
 //
 // f32 (the f32 parity config never launches it; kept for the f32 kernel
 // tests): fused_block_f32_kernel keeps the first version's scheme, 16
 // pixels per block, weight tiles staged through shared memory, products as
 // f32 FMAs on the CUDA cores. TF32 tensor cores would break its 1e-4 f32
 // tolerance.
+//
+// scripts/ablate_fused_block_torch.py rebuilds this file with -D macros:
+// ABLATE_STENCIL (no stencil arithmetic: d left zero), ABLATE_MMA
+// (wgmma_bf16.cuh: the products are comments), ABLATE_PREFETCH (the
+// producer loads only the first `stages` boxes; later ones reuse what the
+// ring holds) and
+// K1_SPLIT=n (n hidden ranges whatever the pixel count; the wrapper's
+// launch_plan takes the same override). The package's build defines none.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <climits>
+
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
-using namespace mma_bf16;  // bf16, the tile primitives and the launch plan
+using mma_bf16::bf16;
+using mma_bf16::MAX_SMEM;
+using mma_bf16::allow_smem;
+using mma_bf16::pack_bf16x2;
+using mma_bf16::padded_c;
+using namespace wgmma_bf16;
 
 constexpr int K = 7;        // dwconv kernel size
 constexpr int P = 3;        // dwconv padding
-constexpr int NT = 256;     // threads per block
+constexpr int NT = 256;     // threads per block of the f32 kernel
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
@@ -77,280 +136,599 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: the plan
 // ---------------------------------------------------------------------------
 
-constexpr int SEG = 8;          // longest run of row pixels one stencil item covers
+constexpr int MT = 64;                      // pixels of a tile: one warpgroup's rows
+constexpr int NH = 128;                     // hidden units of a chunk
+constexpr int CLUSTER = 2;                  // CTAs that share each weight box
+constexpr int SMS = 132;                    // an H100's SMs
+constexpr int NT_BF = 384;                  // two consumer warpgroups + the producer's
+constexpr int PRODUCER = 8;                 // the producer's first warp: lane 0 issues the loads
+constexpr uint32_t CONSUMER_REGS = 232;     // setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65536
+constexpr uint32_t PRODUCER_REGS = 40;
+constexpr int STAGE_CAP = 12;               // most slots of the weight ring
+constexpr uint32_t BOXB = 128 * BOX * 2;    // bytes of a 128-row weight box
+constexpr uint32_t XBOX = MT * BOX * 2;     // bytes of a 64 x 64 box of xn or h
+constexpr uint32_t HT_BYTES = 2 * (NH / BOX) * XBOX;  // two h buffers; the stencil's staging before
+constexpr size_t STATIC_RESERVE = 2048;     // static shared memory the kernel may take
+constexpr int RUN = 7;                      // pixels of a stencil row run
+constexpr int MAX_RUNS = 128;               // runs of a tile (64 pixels: at most 74)
+constexpr int TAP_BYTES = (K * K + 1) * 8 * 4;  // a channel group's staged taps and bias
 
-size_t mma_smem_bytes(int mt, int cp) {
-  return sizeof(bf16) * ((size_t)mt * (cp + 8) + (size_t)mt * HLD + (size_t)STAGES * STAGE);
+struct Plan {
+  int nb, out_split, tiles, per, hidden_split, chunks, stages;
+  size_t smem;
+};
+
+// The launch for C channels and npix pixels (ops/fused_block.py's
+// launch_plan mirrors it; `split` > 0 forces the hidden ranges).
+Plan bf16_plan(int C, long long npix, int split) {
+  Plan p{};
+  const int cp = padded_c(C);
+  p.nb = cp <= 768 ? 3 : 4;
+  p.out_split = (cp + 128 * p.nb - 1) / (128 * p.nb);
+  long long tiles = (npix + MT - 1) / MT;
+  tiles += tiles & 1;
+  p.tiles = (int)std::min<long long>(tiles, INT_MAX);
+  p.chunks = 4 * cp / NH;
+  const long long base = tiles * p.out_split;
+  int want = 1;
+  if (split > 0) {
+    want = std::min(split, p.chunks);
+  } else if (base > 0 && base < SMS / 2) {
+    want = (int)std::min<long long>(p.chunks, SMS / base);
+  }
+  p.per = (p.chunks + want - 1) / want;
+  p.hidden_split = (p.chunks + p.per - 1) / p.per;
+  const size_t fixed = SW_ATOM + (size_t)MT * cp * 2 + HT_BYTES;
+  p.stages = (int)std::min<size_t>(STAGE_CAP, (MAX_SMEM - STATIC_RESERVE - fixed) / BOXB);
+  p.smem = fixed + (size_t)p.stages * BOXB;
+  return p;
 }
 
-template <int MT, int NCMAX, bool TRAIN>
-__global__ void __launch_bounds__(NT, MT <= 16 ? 2 : 1) fused_block_mma_kernel(
-    const bf16* __restrict__ x, bf16* __restrict__ out,
-    const float* __restrict__ dww, const float* __restrict__ dwb,
-    const float* __restrict__ lnw, const float* __restrict__ lnb,
-    const bf16* __restrict__ w1, const float* __restrict__ b1,
-    const bf16* __restrict__ w2, const float* __restrict__ b2,
-    const float* __restrict__ gamma, const float* __restrict__ dps, bf16* __restrict__ d_out,
-    int B, int H, int W, int C, int cp, float eps) {
-  constexpr int MI = MT / 16;           // m16 tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int XLD = cp + 8;               // padded row of xs (bf16)
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [MT][XLD] d, then xn
-  bf16* hs = xs + MT * XLD;                      // [MT][HLD] GELU output of the chunk
-  bf16* ring = hs + MT * HLD;                    // [STAGES][STAGE] weight tiles
+#ifdef K1_SPLIT
+constexpr int FORCED_SPLIT = K1_SPLIT;
+#else
+constexpr int FORCED_SPLIT = 0;
+#endif
+
+// ---------------------------------------------------------------------------
+// bf16: the kernel
+// ---------------------------------------------------------------------------
+
+struct Bf16Args {
+  const bf16* x; bf16* out; const float *dww, *dwb, *lnw, *lnb, *b1, *b2, *gamma, *dps;
+  bf16* d_out; float* part;
+  int B, H, W, C, cp, npix, per, chunks, stages; float eps;
+};
+
+__device__ __forceinline__ unsigned char* align_atom(unsigned char* p) {
+  return p + ((SW_ATOM - (smem_u32(p) & (SW_ATOM - 1))) & (SW_ATOM - 1));
+}
+
+// byte offset of (pixel row m, channel c) in the xn tile: 64-channel boxes
+__device__ __forceinline__ uint32_t xn_offset(int m, int c) {
+  return (uint32_t)(c >> 6) * XBOX + sw128_offset(m, c & 63);
+}
+
+__device__ __forceinline__ uint64_t kdesc(const unsigned char* tile, int k) {
+  return sw128_desc(tile + 32 * k, 16, SW_ATOM);
+}
+
+__device__ __forceinline__ void consumer_bar() {  // the two consumer warpgroups
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <int NB, bool TRAIN>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT_BF, 1)
+fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
+                         const __grid_constant__ CUtensorMap tw2, const Bf16Args a) {
+  // a warpgroup's output channels: a 128-wide piece (acc0) and a 64-wide
+  // (NB = 3) or 128-wide (NB = 4) piece (acc1), each inside one W2 box
+  constexpr int N1 = NB == 3 ? 64 : 128;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGE_CAP], empty[STAGE_CAP];
+  __shared__ int run_tab[MAX_RUNS];            // run: first pixel (from p0) << 8 | length
+  __shared__ int band_first[MAX_RUNS + 1];     // first run of each staging band
+  __shared__ int n_bands;
+  unsigned char* xs = align_atom(smem_raw);    // xn tile: cp / 64 boxes of 64 x 64
+  unsigned char* ht = xs + (size_t)MT * a.cp * 2;  // h tiles (2 x 2 boxes)
+  unsigned char* ring = ht + HT_BYTES;         // `stages` slots of one weight box
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int HW = H * W;
-  const long long npix = (long long)B * HW;
-  const long long p0 = (long long)blockIdx.x * MT;
-  const int hidden = 4 * C;
-  const int kc = cp / KT;               // W1 tiles per chunk (= W2 tiles per chunk)
-  const int nc = cp / TR;               // 128-channel output blocks
-  const int tpc = 2 * kc;               // tiles per chunk
-  const int ntiles = (4 * cp / NH) * tpc;
+  const uint32_t rank = cluster_ctarank();
+  const int C = a.C, cp = a.cp, npix = a.npix;
+  const int p0 = blockIdx.x * MT;
+  const int valid = max(0, min(MT, npix - p0));
+  const int o = blockIdx.y, z = blockIdx.z;
+  const int c_begin = z * a.per, c_end = min(c_begin + a.per, a.chunks);
+  const int KB = cp / BOX;                     // W1 boxes of a chunk (64 channels each)
+  const int BPC = KB + 2 * NB;                 // boxes of a chunk: W1, then 2 x NB of W2
+  const int T = (c_end - c_begin) * BPC;
+  const int orow0 = o * 128 * NB;              // first output channel of the slice
+  const int stages = a.stages;
 
-  // tile t of the stream: per chunk, kc tiles of W1[chunk rows][k0:k0+64],
-  // then for each output block cb two tiles W2[cb rows][chunk half]
-  auto load_tile = [&](int t, bf16* dst) {
-    const int chunk = t / tpc, i = t - chunk * tpc;
-    const bf16* src;
-    int ld;
-    if (i < kc) {
-      src = w1 + (long long)chunk * NH * cp + i * KT;
-      ld = cp;
-    } else {
-      const int ii = i - kc;
-      src = w2 + (long long)(ii >> 1) * TR * 4 * cp + chunk * NH + (ii & 1) * KT;
-      ld = 4 * cp;
-    }
-#pragma unroll
-    for (int q = 0; q < TR * KT / 8 / NT; ++q) {
-      const int idx = tid + q * NT, r = idx >> 3, ch = idx & 7;
-      cp_async16(dst + r * TLD + ch * 8, src + (long long)r * ld + ch * 8);
-    }
-  };
-  Ring<STAGES, STAGE> tiles(ring, ntiles);
-  tiles.prime(load_tile);  // in flight during the stencil
-
-  // ---- 1: 7x7 depthwise stencil ------------------------------------------
-  // Work item = a run of up to SEG consecutive pixels of one image row x a
-  // channel pair. The thread walks each of the 7 input rows once, keeping
-  // the run's sums and the row's 7 tap weights in registers, so an output
-  // costs about 12 loads of x instead of 49; the sums take the taps in
-  // the order dy, dx as before (out-of-image taps add +-0).
-  __shared__ int seg_tab[MT];  // run: first pixel (from p0) << 8 | length
-  __shared__ int seg_n;
-  const long long p_end = p0 + MT < npix ? p0 + MT : npix;
   if (tid == 0) {
-    int n = 0;
-    for (long long p = p0; p < p_end;) {
-      const int w = (int)(p % W);
-      const int len = (int)min((long long)min(SEG, W - w), p_end - p);
-      seg_tab[n++] = ((int)(p - p0) << 8) | len;
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CLUSTER * 2);       // both warpgroups of both CTAs
+    }
+    mbar_fence_init();
+  }
+
+  // ---- 1: the 7x7 depthwise stencil from staged x ----------------------------
+  // The staging takes the h tiles and the ring: no weight box is in flight
+  // before both CTAs have finished with it (the cluster_sync below).
+  for (int i = tid; i < MT * cp / 8; i += NT_BF)
+    reinterpret_cast<uint4*>(xs)[i] = make_uint4(0u, 0u, 0u, 0u);
+  const int W = a.W, H = a.H, rows_all = a.B * H;
+  const int BUF = HT_BYTES + stages * BOXB;
+  if (tid == 0) {
+    // row segments of the tile, cut into runs; one staging band for the
+    // whole tile where it fits 4 channel groups, else a band per segment
+    int nr = 0, nb = 0;
+    int p = p0, w = valid > 0 ? p0 - (p0 / W) * W : 0;
+    band_first[0] = 0;
+    while (p < p0 + valid) {
+      const int len = min(W - w, p0 + valid - p);
+      band_first[nb++] = nr;
+      for (int r = 0; r < len; r += RUN) run_tab[nr++] = ((p - p0 + r) << 8) | min(RUN, len - r);
       p += len;
+      w = 0;
     }
-    seg_n = n;
-  }
-  for (int i = (int)(p_end - p0) * XLD + tid; i < MT * XLD; i += NT) xs[i] = __float2bfloat16_rn(0.f);
-  __syncthreads();
-  const bool vec = (C % 2 == 0) && ((reinterpret_cast<uintptr_t>(x) & 3) == 0);
-  const int npair = (C + 1) / 2;
-#ifdef ABLATE_STENCIL
-  const int n_items = 0;  // d left zero
-#else
-  const int n_items = seg_n * npair;
-#endif
-  for (int it = tid; it < n_items; it += NT) {
-    const int s = it / npair, c = (it - s * npair) * 2;
-    const int m0 = seg_tab[s] >> 8, len = seg_tab[s] & 255;
-    const long long p = p0 + m0, row = p / W;
-    const int w0 = (int)(p - row * W);
-    const int b = (int)(row / H), h = (int)(row - (long long)b * H);
-    const bool two = c + 1 < C;
-    float a0[SEG], a1[SEG];
-#pragma unroll
-    for (int j = 0; j < SEG; ++j) {
-      a0[j] = dwb[c];
-      a1[j] = two ? dwb[c + 1] : 0.f;
-    }
-    for (int dy = 0; dy < K; ++dy) {
-      const int hh = h + dy - P;
-      if (hh < 0 || hh >= H) continue;
-      const bf16* xr = x + ((long long)b * H + hh) * W * C + c;
-      float k0[K], k1[K];
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx) {
-        const float* wt = dww + (dy * K + dx) * C + c;
-        k0[dx] = wt[0];
-        k1[dx] = two ? wt[1] : 0.f;
+    band_first[nb] = nr;
+    if (nb > 1) {
+      const int last = p0 + valid - 1;
+      const int ra = p0 / W, rz = last / W;
+      if (((rz - ra + 1 + 2 * P) * (W + 2 * P) * 16 + TAP_BYTES) * 4 <= BUF) {  // one band
+        band_first[1] = nr;
+        nb = 1;
       }
+    }
+    n_bands = nb;
+  }
+  __syncthreads();
+  const bool vec = C % 8 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0;
+  const bool vec4 = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(a.dww) |
+                                    reinterpret_cast<uintptr_t>(a.dwb)) & 15) == 0;
+  const bool pairs_out = C % 2 == 0 && (reinterpret_cast<uintptr_t>(a.d_out) & 3) == 0;
+  const bool store_d = TRAIN && o == 0 && z == 0;
+  const int groups = (C + 7) / 8;              // 8-channel groups holding real channels
+  bf16* stg = reinterpret_cast<bf16*>(ht);     // [staged pixel][slab channels]
+  for (int bd = 0; bd < n_bands; ++bd) {
+    const int r0 = band_first[bd], r1 = band_first[bd + 1];
+    const int pa = p0 + (run_tab[r0] >> 8);
+    const int pz = p0 + (run_tab[r1 - 1] >> 8) + (run_tab[r1 - 1] & 255) - 1;
+    const int ra = pa / W, rz = pz / W;
+    const int col_lo = ra == rz ? pa - ra * W - P : -P;
+    const int cols = ra == rz ? pz - pa + 1 + 2 * P : W + 2 * P;
+    const int spx = (rz - ra + 1 + 2 * P) * cols;  // staged pixels
+    const int G = min(groups, BUF / (spx * 16 + TAP_BYTES));  // channel groups a pass
+    for (int g0 = 0; g0 < groups; g0 += G) {
+      const int ng = min(G, groups - g0), slab = 8 * ng, c0 = 8 * g0;
+      float* taps = reinterpret_cast<float*>(stg + spx * slab);  // [49][slab], then [slab] bias
+      // 8 loads in flight a thread before any store: the block has few
+      // warps to hide L2's latency with
+      const int nt4 = (K * K + 1) * slab / 4;  // the taps and bias, 4 channels a load
+#pragma unroll 1
+      for (int i0 = tid; i0 < nt4; i0 += 8 * NT_BF) {
+        float4 v[8];
 #pragma unroll
-      for (int k = 0; k < SEG + K - 1; ++k) {
-        const int ww = w0 - P + k;
-        float v0 = 0.f, v1 = 0.f;
-        if (k < len + K - 1 && ww >= 0 && ww < W) {
-          const bf16* xp = xr + (long long)ww * C;
-          if (vec) {
-            const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xp));
-            v0 = v.x;
-            v1 = v.y;
-          } else {
-            v0 = __bfloat162float(xp[0]);
-            v1 = two ? __bfloat162float(xp[1]) : 0.f;
+        for (int u = 0; u < 8; ++u) {
+          const int i = i0 + u * NT_BF;
+          v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < nt4) {
+            const int tap = i / (slab / 4), c = c0 + 4 * (i - tap * (slab / 4));
+            const float* src = tap < K * K ? a.dww + tap * C + c : a.dwb + c;
+            if (vec4 && c < C) {
+              v[u] = *reinterpret_cast<const float4*>(src);
+            } else {
+              v[u].x = c < C ? src[0] : 0.f;
+              v[u].y = c + 1 < C ? src[1] : 0.f;
+              v[u].z = c + 2 < C ? src[2] : 0.f;
+              v[u].w = c + 3 < C ? src[3] : 0.f;
+            }
           }
         }
 #pragma unroll
-        for (int j = 0; j < SEG; ++j) {
-          const int dx = k - j;
-          if (dx >= 0 && dx < K) {
-            a0[j] += v0 * k0[dx];
-            a1[j] += v1 * k1[dx];
+        for (int u = 0; u < 8; ++u)
+          if (i0 + u * NT_BF < nt4) reinterpret_cast<float4*>(taps)[i0 + u * NT_BF] = v[u];
+      }
+      const int nx = spx * ng;                 // x: 8 channels a load
+#pragma unroll 1
+      for (int i0 = tid; i0 < nx; i0 += 8 * NT_BF) {
+        uint4 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = i0 + u * NT_BF;
+          v[u] = make_uint4(0u, 0u, 0u, 0u);
+          if (i < nx) {
+            const int px = i / ng, g = i - px * ng;
+            const int sr = px / cols, sc = px - sr * cols;
+            const int gr = ra - P + sr, gw = col_lo + sc, c = c0 + 8 * g;
+            if (gr >= 0 && gr < rows_all && gw >= 0 && gw < W) {
+              const bf16* src = a.x + ((long long)gr * W + gw) * C + c;
+              if (vec) {
+                v[u] = *reinterpret_cast<const uint4*>(src);
+              } else {
+                float f[8];
+#pragma unroll
+                for (int e = 0; e < 8; ++e) f[e] = c + e < C ? __bfloat162float(src[e]) : 0.f;
+                v[u] = make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                                  pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = i0 + u * NT_BF;
+          if (i < nx) {
+            const int px = i / ng;
+            *reinterpret_cast<uint4*>(stg + px * slab + 8 * (i - px * ng)) = v[u];
           }
         }
       }
-    }
+      __syncthreads();
+#ifndef ABLATE_STENCIL
+      // a thread: four channels (two pairs) x a run of up to RUN pixels
+      const int nquad = slab / 4;
+      for (int it = tid; it < (r1 - r0) * nquad; it += NT_BF) {
+        const int rr = it / nquad, qd = it - rr * nquad;
+        const int c = c0 + 4 * qd;
+        if (c >= C) continue;
+        const int m0 = run_tab[r0 + rr] >> 8, len = run_tab[r0 + rr] & 255;
+        const int pp = p0 + m0, grow = pp / W, w0 = pp - grow * W;
+        const int h = grow % H;
+        const float4 bias = *reinterpret_cast<const float4*>(taps + K * K * slab + 4 * qd);
+        float acc[4][RUN];
 #pragma unroll
-    for (int j = 0; j < SEG; ++j) {
-      if (j >= len) break;
-      const __nv_bfloat162 dv = __floats2bfloat162_rn(a0[j], two ? a1[j] : 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(xs + (m0 + j) * XLD + c) = dv;
-      if constexpr (TRAIN) {
-        d_out[(p + j) * C + c] = dv.x;
-        if (two) d_out[(p + j) * C + c + 1] = dv.y;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- 2: LayerNorm, one warp per pixel -----------------------------------
-  const float inv_c = 1.0f / (float)C;
-  for (int m = warp; m < MT; m += NT / 32) {
-    bf16* row = xs + m * XLD;
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = __bfloat162float(row[c]);
-      s += v;
-      ss += v * v;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mean = s * inv_c;
-    const float var = fmaxf(ss * inv_c - mean * mean, 0.f);
-    const float rstd = rsqrtf(var + eps);
-    for (int c = lane; c < cp; c += 32) {
-      const float v = (__bfloat162float(row[c]) - mean) * rstd;
-      row[c] = __float2bfloat16_rn(c < C ? v * lnw[c] + lnb[c] : 0.f);
-    }
-  }
-
-  // ---- 3: the MLP over hidden chunks on the tensor cores ------------------
-  float acc[NCMAX][MI][2][4];
-#pragma unroll
-  for (int cb = 0; cb < NCMAX; ++cb)
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[cb][mi][nn][e] = 0.f;
-
-  const int ar = a_row(lane), ac = a_col(lane), br = b_row(lane), bc = b_col(lane);
-  const int g = lane >> 2, tq = lane & 3;
-  for (int chunk = 0; chunk < 4 * cp / NH; ++chunk) {
-    // 3a: h (MT x 128) = xn . W1[chunk]^T; warp owns hidden units warp*16..+16
-    float h[MI][2][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) h[mi][0][e] = h[mi][1][e] = 0.f;
-    for (int i = 0; i < kc; ++i) {
-      const bf16* tile = tiles.next(load_tile);
-#pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk) {
-        uint32_t b[4];
-        ldmatrix_x4(b, tile + (warp * 16 + br) * TLD + kk * 16 + bc);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          uint32_t a[4];
-          ldmatrix_x4(a, xs + (mi * 16 + ar) * XLD + i * KT + kk * 16 + ac);
-          mma_16816(h[mi][0], a, b[0], b[1]);
-          mma_16816(h[mi][1], a, b[2], b[3]);
+        for (int j = 0; j < RUN; ++j) {
+          acc[0][j] = bias.x;  // zero beyond C
+          acc[1][j] = bias.y;
+          acc[2][j] = bias.z;
+          acc[3][j] = bias.w;
         }
-      }
-    }
-    // 3b: + b1, GELU, one rounding, into hs (read after the next tile's sync)
+        for (int dy = 0; dy < K; ++dy) {
+          const int hh = h + dy - P;
+          if (hh < 0 || hh >= H) continue;
+          float kt[4][K];
 #pragma unroll
-    for (int nn = 0; nn < 2; ++nn) {
-      const int jl = warp * 16 + nn * 8 + 2 * tq;
-      const int j = chunk * NH + jl;
-      const float bj0 = j < hidden ? b1[j] : 0.f;
-      const float bj1 = j + 1 < hidden ? b1[j + 1] : 0.f;
+          for (int dx = 0; dx < K; ++dx) {
+            const float4 wt = *reinterpret_cast<const float4*>(taps + (dy * K + dx) * slab + 4 * qd);
+            kt[0][dx] = wt.x;
+            kt[1][dx] = wt.y;
+            kt[2][dx] = wt.z;
+            kt[3][dx] = wt.w;
+          }
+          // staged row grow - ra + dy is image row hh; staged column
+          // w0 - 3 + k - col_lo feeds run pixel j through tap dx = k - j
+          const bf16* srow = stg + ((grow - ra + dy) * cols + (w0 - P - col_lo)) * slab + 4 * qd;
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
+          for (int k = 0; k < RUN + K - 1; ++k) {
+            if (k < len + K - 1) {
+              const uint2 u = *reinterpret_cast<const uint2*>(srow + k * slab);
+              const float v[4] = {__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                                  __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u)};
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = mi * 16 + g + half * 8;
-          *reinterpret_cast<uint32_t*>(hs + row * HLD + jl) =
-              pack_bf16x2(gelu_tanh(h[mi][nn][2 * half] + bj0),
-                          gelu_tanh(h[mi][nn][2 * half + 1] + bj1));
+              for (int j = 0; j < RUN; ++j) {
+                const int dx = k - j;
+                if (dx >= 0 && dx < K) {
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) acc[e][j] += v[e] * kt[e][dx];
+                }
+              }
+            }
+          }
         }
-    }
-    // 3c: acc[:, cb block] += h . W2[cb block, chunk]^T
 #pragma unroll
-    for (int cb = 0; cb < NCMAX; ++cb) {
-      if (cb < nc) {
+        for (int j = 0; j < RUN; ++j) {
+          if (j >= len) break;
 #pragma unroll
-        for (int kh = 0; kh < 2; ++kh) {
-          const bf16* tile = tiles.next(load_tile);
-#pragma unroll
-          for (int kk = 0; kk < KT / 16; ++kk) {
-            uint32_t b[4];
-            ldmatrix_x4(b, tile + (warp * 16 + br) * TLD + kk * 16 + bc);
-#pragma unroll
-            for (int mi = 0; mi < MI; ++mi) {
-              uint32_t a[4];
-              ldmatrix_x4(a, hs + (mi * 16 + ar) * HLD + kh * KT + kk * 16 + ac);
-              mma_16816(acc[cb][mi][0], a, b[0], b[1]);
-              mma_16816(acc[cb][mi][1], a, b[2], b[3]);
+          for (int e = 0; e < 4; e += 2) {
+            if (c + e >= C) break;
+            const bool two = c + e + 1 < C;
+            const __nv_bfloat162 dv = __floats2bfloat162_rn(acc[e][j], two ? acc[e + 1][j] : 0.f);
+            *reinterpret_cast<__nv_bfloat162*>(xs + xn_offset(m0 + j, c + e)) = dv;
+            if (store_d) {
+              bf16* dp = a.d_out + (long long)(pp + j) * C + c + e;
+              if (pairs_out) {
+                *reinterpret_cast<__nv_bfloat162*>(dp) = dv;
+              } else {
+                dp[0] = dv.x;
+                if (two) dp[1] = dv.y;
+              }
             }
           }
         }
       }
+#endif
+      __syncthreads();
     }
   }
-  cp_async_wait<0>();
 
-  // ---- 4: bias, layer scale, residual, one rounding, from the registers ---
-#pragma unroll
-  for (int cb = 0; cb < NCMAX; ++cb) {
-    if (cb >= nc) continue;
-#pragma unroll
-    for (int nn = 0; nn < 2; ++nn)
-#pragma unroll
-      for (int e1 = 0; e1 < 2; ++e1) {
-        const int c = cb * TR + warp * 16 + nn * 8 + 2 * tq + e1;
-        if (c >= C) continue;
-        const float bc2 = b2[c];
-        const float gc = gamma != nullptr ? gamma[c] : 1.f;
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const long long p = p0 + mi * 16 + g + half * 8;
-            if (p >= npix) continue;
-            float y = acc[cb][mi][nn][2 * half + e1] + bc2;
-            if (gamma != nullptr) y *= gc;
-            if constexpr (TRAIN) y *= dps[p / HW];
-            const long long off = p * C + c;
-            out[off] = __float2bfloat16_rn(__bfloat162float(x[off]) + y);
-          }
-      }
+  // ---- 2: LayerNorm, one warp a pixel, in place in the swizzled tile ---------
+  float* lnw_s = reinterpret_cast<float*>(ht);  // the LN affine, staged
+  float* lnb_s = lnw_s + cp;
+  for (int c = tid; c < cp; c += NT_BF) {
+    lnw_s[c] = c < C ? a.lnw[c] : 0.f;
+    lnb_s[c] = c < C ? a.lnb[c] : 0.f;
   }
+  __syncthreads();
+  const float inv_c = 1.0f / (float)C;
+  for (int m = warp; m < valid; m += NT_BF / 32) {
+    float s = 0.f, ss = 0.f;
+    for (int g = lane; g < cp / 8; g += 32) {
+      const uint4 u = *reinterpret_cast<const uint4*>(xs + xn_offset(m, 8 * g));
+      const uint32_t wv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // a bf16 is the top half of its f32
+        const float lo = __uint_as_float(wv[i] << 16), hi = __uint_as_float(wv[i] & 0xffff0000u);
+        s += lo + hi;
+        ss += lo * lo + hi * hi;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    }
+    const float mean = s * inv_c;
+    const float var = fmaxf(ss * inv_c - mean * mean, 0.f);
+    const float rstd = rsqrtf(var + a.eps);
+    for (int g = lane; g < groups; g += 32) {
+      uint4* ptr = reinterpret_cast<uint4*>(xs + xn_offset(m, 8 * g));
+      const uint4 u = *ptr;
+      const uint32_t wv[4] = {u.x, u.y, u.z, u.w};
+      const float4* lw = reinterpret_cast<const float4*>(lnw_s + 8 * g);
+      const float4* lb = reinterpret_cast<const float4*>(lnb_s + 8 * g);
+      const float4 w0 = lw[0], w1 = lw[1], b0 = lb[0], b1 = lb[1];
+      const float wts[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      const float bss[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float xv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * g + 2 * i;
+        const float v0 = (__uint_as_float(wv[i] << 16) - mean) * rstd;
+        const float v1 = (__uint_as_float(wv[i] & 0xffff0000u) - mean) * rstd;
+        xv[2 * i] = c < C ? v0 * wts[2 * i] + bss[2 * i] : 0.f;
+        xv[2 * i + 1] = c + 1 < C ? v1 * wts[2 * i + 1] + bss[2 * i + 1] : 0.f;
+      }
+      *ptr = make_uint4(pack_bf16x2(xv[0], xv[1]), pack_bf16x2(xv[2], xv[3]),
+                        pack_bf16x2(xv[4], xv[5]), pack_bf16x2(xv[6], xv[7]));
+    }
+  }
+  fence_proxy_async();  // xn is read by wgmma
+  cluster_sync();       // both CTAs: barriers initialised, staging done, xn written
+
+  if (warp >= PRODUCER) {
+    // ---- the producer: box t of the stream into slot t % stages, once both
+    // CTAs released the slot's previous box; the CTAs take turns to load a
+    // box, multicast into both ----------------------------------------------------
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == PRODUCER && lane == 0) {
+      for (int t = 0; t < T; ++t) {
+        const int slot = t % stages, ci = t / BPC, i = t - ci * BPC, chunk = c_begin + ci;
+        if (t >= stages) mbar_wait(&empty[slot], ((t / stages) - 1) & 1);
+        uint64_t* bar = &full[slot];
+        int c0, c1;
+        const CUtensorMap* map;
+        if (i < KB) {  // W1 rows of the chunk x 64 channels
+          map = &tw1;
+          c0 = i * BOX;
+          c1 = chunk * NH;
+        } else {       // W2 rows of the slice x 64 hidden units of the chunk
+          const int j = i - KB, hk = j / NB, b = j - hk * NB;
+          map = &tw2;
+          c0 = chunk * NH + hk * BOX;
+          c1 = orow0 + 128 * b;
+        }
+        bool load = i < KB || c1 < cp;  // a W2 box past cp only feeds channels never stored
+#ifdef ABLATE_PREFETCH
+        load = load && t < stages;
+#endif
+        if (load) {
+          mbar_expect_tx(bar, BOXB);
+          if ((uint32_t)(t % CLUSTER) == rank)
+            tma_load_2d_mc(ring + (size_t)slot * BOXB, map, bar, c0, c1, 0x3);
+        } else {
+          mbar_arrive(bar);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // ---- 3: the consumers ---------------------------------------------------------
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp >> 2, q = lane & 3;
+    const int r0 = 16 * (warp & 3) + (lane >> 2);  // accumulator rows r0, r0 + 8
+    const int hidden = 4 * C;
+    // the W2 boxes of a k-slice this warpgroup reads: piece 0 (128 rows) from
+    // box pa, piece 1 (N1 rows) from box pb at row offset ob
+    const int pa = 2 * wg, pb = NB == 3 ? 1 : 2 * wg + 1, ob = NB == 3 ? 64 * wg : 0;
+    // (NB = 3: piece 0 from box 0 or 2, piece 1 the first or second half of
+    // box 1; NB = 4: boxes 0 and 1, or 2 and 3)
+    float acc0[64], acc1[N1 / 2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < N1 / 2; ++i) acc1[i] = 0.f;
+    int slot = 0;
+    uint32_t phase = 0;
+    auto take = [&]() {  // the next box of the stream, once it has landed
+      const int s = slot;
+      mbar_wait(&full[s], phase);
+      if (++slot == stages) {
+        slot = 0;
+        phase ^= 1;
+      }
+      return s;
+    };
+    auto give = [&](int s) {  // this warpgroup is done with slot s: tell both CTAs
+      if ((tid & 127) == 0) {
+        mbar_arrive(&empty[s]);
+        mbar_arrive_cluster(&empty[s], rank ^ 1);
+      }
+    };
+    for (int chunk = c_begin; chunk < c_end; ++chunk) {
+      // h (64 x 64: this warpgroup's half of the chunk) = xn . W1[rows]^T;
+      // one box's products stay in flight while the next box's are issued
+      float h[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) h[i] = 0.f;
+      int held = -1;
+      for (int kb = 0; kb < KB; ++kb) {
+        if (held >= 0 && !mbar_test(&full[slot], phase)) {
+          wgmma_wait<0>();  // the next box is late: free the last one first
+          give(held);
+          held = -1;
+        }
+        const int s = take();
+        const unsigned char* wb = ring + (size_t)s * BOXB + wg * XBOX;
+        fence_acc(h);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BOX / 16; ++kk)
+          wgmma_m64n64k16<0, 0>(h, kdesc(xs + kb * XBOX, kk), kdesc(wb, kk));
+        wgmma_commit();
+        if (held >= 0) {
+          wgmma_wait<1>();
+          give(held);
+        }
+        held = s;
+        fence_acc(h);
+      }
+      wgmma_wait<0>();
+      give(held);
+      fence_acc(h);
+      // + b1, GELU, one rounding, into this warpgroup's box of the h tile
+      unsigned char* hb = ht + ((chunk - c_begin) & 1) * (2 * XBOX);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 8 * i + 2 * q;
+        const int j = chunk * NH + wg * 64 + col;
+        const float bj0 = j < hidden ? a.b1[j] : 0.f;
+        const float bj1 = j + 1 < hidden ? a.b1[j + 1] : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = r0 + 8 * hh;
+          *reinterpret_cast<uint32_t*>(hb + wg * XBOX + sw128_offset(row, col)) =
+              pack_bf16x2(gelu_tanh(h[4 * i + 2 * hh] + bj0), gelu_tanh(h[4 * i + 2 * hh + 1] + bj1));
+        }
+      }
+      fence_proxy_async();
+      consumer_bar();  // both halves of the chunk's h are in the tile
+      // acc += h . W2[this warpgroup's rows of the slice, chunk]^T, one
+      // 64-deep k-slice (NB boxes) at a time
+      int prev[NB];
+      // hold a k-slice only where the ring keeps NB more boxes for the next chunk
+      const bool hold = stages >= 3 * NB;
+      for (int hk = 0; hk < NH / BOX; ++hk) {
+        int sl[NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) sl[b] = take();
+        const int sa = wg ? sl[2] : sl[0], sb = NB == 3 || wg == 0 ? sl[1] : sl[NB - 1];
+        const unsigned char* wa = ring + (size_t)sa * BOXB;
+        const unsigned char* wbp = ring + (size_t)sb * BOXB + ob * 128;
+        fence_acc(acc0);
+        fence_acc(acc1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BOX / 16; ++kk) {
+          const uint64_t da = kdesc(hb + hk * XBOX, kk);
+          wgmma_m64n128k16<0, 0>(acc0, da, kdesc(wa, kk));
+          if constexpr (NB == 3) {
+            wgmma_m64n64k16<0, 0>(acc1, da, kdesc(wbp, kk));
+          } else {
+            wgmma_m64n128k16<0, 0>(acc1, da, kdesc(wbp, kk));
+          }
+        }
+        wgmma_commit();
+        if (hk == 0 && hold) {
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+          if (hk == 1 && hold) {
+#pragma unroll
+            for (int b = 0; b < NB; ++b) give(prev[b]);
+          }
+#pragma unroll
+          for (int b = 0; b < NB; ++b) give(sl[b]);
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) prev[b] = sl[b];
+        fence_acc(acc0);
+        fence_acc(acc1);
+      }
+    }
+
+    // ---- 4: + b2, * gamma, * s, + x, one rounding; or the f32 partial ------------
+    const bool finish = gridDim.z == 1;
+    const int HW = H * W;
+    const bool pairs_x = C % 2 == 0 && ((reinterpret_cast<uintptr_t>(a.x) |
+                                         reinterpret_cast<uintptr_t>(a.out)) & 3) == 0;
+    // column n of a piece at channel base cb
+    auto emit = [&](int cb, int n, float y0, float y1, int hh) {
+      const int c = cb + n;
+      const int m = r0 + 8 * hh;
+      if (c >= C || m >= valid) return;
+      const int p = p0 + m;
+      if (!finish) {
+        *reinterpret_cast<float2*>(a.part + ((long long)z * npix + p) * cp + c) = make_float2(y0, y1);
+        return;
+      }
+      const bool two = c + 1 < C;
+      y0 += a.b2[c];
+      y1 += two ? a.b2[c + 1] : 0.f;
+      if (a.gamma != nullptr) {
+        y0 *= a.gamma[c];
+        y1 *= two ? a.gamma[c + 1] : 1.f;
+      }
+      if constexpr (TRAIN) {
+        const float sc = a.dps[p / HW];
+        y0 *= sc;
+        y1 *= sc;
+      }
+      const long long off = (long long)p * C + c;
+      if (pairs_x) {
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.x + off));
+        *reinterpret_cast<__nv_bfloat162*>(a.out + off) = __floats2bfloat162_rn(xv.x + y0, xv.y + y1);
+      } else {
+        a.out[off] = __float2bfloat16_rn(__bfloat162float(a.x[off]) + y0);
+        if (two) a.out[off + 1] = __float2bfloat16_rn(__bfloat162float(a.x[off + 1]) + y1);
+      }
+    };
+    const int cb0 = orow0 + 128 * pa, cb1 = orow0 + 128 * pb + ob;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        emit(cb0, 8 * i + 2 * q, acc0[4 * i + 2 * hh], acc0[4 * i + 2 * hh + 1], hh);
+#pragma unroll
+    for (int i = 0; i < N1 / 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        emit(cb1, 8 * i + 2 * q, acc1[4 * i + 2 * hh], acc1[4 * i + 2 * hh + 1], hh);
+  }
+  cluster_sync();  // neither CTA leaves while the other may still signal its barriers
+}
+
+// out = round(x + ((sum of the ranges' partials in range order + b2) * gamma)
+// * s[b]), one thread an element: the hidden ranges' fixed-order sum.
+template <bool TRAIN>
+__global__ void __launch_bounds__(NT) fused_block_sum_kernel(
+    const float* __restrict__ part, int splits, const bf16* __restrict__ x, bf16* __restrict__ out,
+    const float* __restrict__ b2, const float* __restrict__ gamma, const float* __restrict__ dps,
+    int npix, int HW, int C, int cp) {
+  const long long i = (long long)blockIdx.x * NT + threadIdx.x;
+  if (i >= (long long)npix * C) return;
+  const int p = (int)(i / C), c = (int)(i - (long long)p * C);
+  float s = part[(long long)p * cp + c];
+  for (int r = 1; r < splits; ++r) s += part[((long long)r * npix + p) * cp + c];
+  float y = s + b2[c];
+  if (gamma != nullptr) y *= gamma[c];
+  if constexpr (TRAIN) y *= dps[p / HW];
+  out[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + y);
 }
 
 // ---------------------------------------------------------------------------
@@ -528,36 +906,42 @@ __global__ void __launch_bounds__(NT) fused_block_f32_kernel(
 struct Args {
   const void* x; void* out; const float* dww; const float* dwb; const float* lnw;
   const float* lnb; const void* w1; const float* b1; const void* w2; const float* b2;
-  const float* gamma; const float* s; void* d_out; int B, H, W, C, cp; float eps;
+  const float* gamma; const float* s; void* d_out; float* part; int B, H, W, C, cp; float eps;
 };
 
-template <int MT, int NCMAX, bool TRAIN>
-int launch_mma(const Args& a, size_t smem, cudaStream_t st) {
+template <int NB, bool TRAIN>
+int launch_wgmma(const Args& a, const Plan& p, cudaStream_t st) {
   static std::atomic<int> granted[32];
-  cudaError_t err = allow_smem(fused_block_mma_kernel<MT, NCMAX, TRAIN>, smem, granted);
+  cudaError_t err = allow_smem(fused_block_wgmma_kernel<NB, TRAIN>, p.smem, granted);
   if (err != cudaSuccess) return (int)err;
-  const long long npix = (long long)a.B * a.H * a.W;
-  fused_block_mma_kernel<MT, NCMAX, TRAIN><<<(unsigned)((npix + MT - 1) / MT), NT, smem, st>>>(
-      static_cast<const bf16*>(a.x), static_cast<bf16*>(a.out), a.dww, a.dwb, a.lnw, a.lnb,
-      static_cast<const bf16*>(a.w1), a.b1, static_cast<const bf16*>(a.w2), a.b2, a.gamma, a.s,
-      static_cast<bf16*>(a.d_out), a.B, a.H, a.W, a.C, a.cp, a.eps);
+  const int cp = a.cp, npix = a.B * a.H * a.W;
+  CUtensorMap w1, w2;  // 128-row x 64 boxes of W1 (4cp, cp) and W2 (cp, 4cp)
+  if ((err = encode_tmap_2d(&w1, a.w1, cp, 4 * cp, BOX, 128)) != cudaSuccess) return (int)err;
+  if ((err = encode_tmap_2d(&w2, a.w2, 4 * cp, cp, BOX, 128)) != cudaSuccess) return (int)err;
+  const auto cb = [](const void* q) { return static_cast<const bf16*>(q); };
+  const Bf16Args ka{cb(a.x), static_cast<bf16*>(a.out), a.dww, a.dwb, a.lnw, a.lnb, a.b1, a.b2,
+                    a.gamma, a.s, static_cast<bf16*>(a.d_out), a.part, a.B, a.H, a.W, a.C, cp,
+                    npix, p.per, p.chunks, p.stages, a.eps};
+  fused_block_wgmma_kernel<NB, TRAIN><<<dim3(p.tiles, p.out_split, p.hidden_split), NT_BF,
+                                        p.smem, st>>>(w1, w2, ka);
+  if ((err = cudaGetLastError()) != cudaSuccess || p.hidden_split == 1) return (int)err;
+  const long long n = (long long)npix * a.C;
+  fused_block_sum_kernel<TRAIN><<<(unsigned)((n + NT - 1) / NT), NT, 0, st>>>(
+      a.part, p.hidden_split, cb(a.x), static_cast<bf16*>(a.out), a.b2, a.gamma, a.s, npix,
+      a.H * a.W, a.C, cp);
   return (int)cudaGetLastError();
 }
 
 template <bool TRAIN>
-int launch_bf16(const Args& a, size_t smem, cudaStream_t st) {
-  switch (ncmax(a.cp)) {
-    case 3: return launch_mma<plan_mt(384), 3, TRAIN>(a, smem, st);
-    case 6: return launch_mma<plan_mt(768), 6, TRAIN>(a, smem, st);
-    default: return launch_mma<plan_mt(1024), 8, TRAIN>(a, smem, st);
-  }
+int launch_bf16(const Args& a, const Plan& p, cudaStream_t st) {
+  return p.nb == 3 ? launch_wgmma<3, TRAIN>(a, p, st) : launch_wgmma<4, TRAIN>(a, p, st);
 }
 
 template <bool TRAIN>
 int launch_f32(const Args& a, size_t smem, cudaStream_t st) {
   static std::atomic<int> granted[32];
   cudaError_t err = allow_smem(fused_block_f32_kernel<TRAIN>, smem, granted);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const long long npix = (long long)a.B * a.H * a.W;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   fused_block_f32_kernel<TRAIN><<<(unsigned)((npix + M16 - 1) / M16), NT, smem, st>>>(
@@ -568,45 +952,58 @@ int launch_f32(const Args& a, size_t smem, cudaStream_t st) {
 
 }  // namespace
 
-// Shared memory in bytes of one block under the launch plan (mt pixels per
-// block, channels padded to cp), or -1 if the kernel cannot run that plan.
-// dtype: 0 = float32 (mt = 16, cp = C), 1 = bfloat16 (plan_ok in
-// mma_bf16.cuh: cp = 128*ceil(C/128), mt = 64 for cp <= 384, else 32).
-extern "C" long long fused_block_plan_smem(int C, int dtype, int mt, int cp) {
-  if (C < 1 || C > 1024) return -1;
+// Shared memory in bytes of one block under the launch plan, or -1 if the
+// kernel cannot run that plan. dtype 0 = float32: mt = 16, cp = C, one
+// slice, one range, stages 0. dtype 1 = bfloat16: the plan bf16_plan
+// gives C and npix (mt = 64, cp = 128*ceil(C/128), out_split output
+// slices, hidden_split ranges of `per` chunks of 128 hidden units, `stages`
+// ring stages), and npix below 2^31 - 128.
+extern "C" long long fused_block_plan_smem(int C, int dtype, long long npix, int mt, int cp,
+                                           int out_split, int hidden_split, int per, int stages) {
+  if (C < 1 || C > 1024 || npix < 0) return -1;
   size_t smem;
   if (dtype == 0) {
-    if (mt != M16 || cp != C) return -1;
+    if (mt != M16 || cp != C || out_split != 1 || hidden_split != 1 || per != 0 || stages != 0)
+      return -1;
     smem = f32_smem_bytes(C);
   } else if (dtype == 1) {
-    if (!plan_ok(C, mt, cp)) return -1;
-    smem = mma_smem_bytes(mt, cp);
+    const Plan p = bf16_plan(C, npix, FORCED_SPLIT);
+    if (npix > INT_MAX - 2 * MT || mt != MT || cp != padded_c(C) || out_split != p.out_split ||
+        hidden_split != p.hidden_split || per != p.per || stages != p.stages || p.stages < 1)
+      return -1;
+    smem = p.smem;
   } else {
     return -1;
   }
-  return smem <= MAX_SMEM ? (long long)smem : -1;
+  return smem + (dtype == 1 ? STATIC_RESERVE : 0) <= MAX_SMEM ? (long long)smem : -1;
 }
 
 // Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16.
 // gamma may be null; s and d_out are both given (save mode) or both null.
-// mt and cp are the wrapper's launch plan (see fused_block_plan_smem); in
-// bf16, w1 is (4cp, cp) and w2 (cp, 4cp), zero beyond C and 4C.
-// Returns the cudaError_t of the launch (0 = launched).
+// The plan's numbers are the wrapper's (see fused_block_plan_smem); in
+// bf16, w1 is (4cp, cp) and w2 (cp, 4cp), zero beyond C and 4C, and `part`
+// is an f32 (hidden_split, npix, cp) workspace when hidden_split > 1 (else
+// null). Returns the first cudaError_t of the launches (0 = launched).
 extern "C" int fused_block_forward(
     const void* x, void* out, const void* dww, const void* dwb,
     const void* lnw, const void* lnb, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* gamma, const void* s, void* d_out,
-    int B, int H, int W, int C, float eps, int dtype, void* stream, int mt, int cp) {
+    int B, int H, int W, int C, float eps, int dtype, void* stream, int mt, int cp,
+    int out_split, int hidden_split, int per, int stages, void* part) {
   if (B < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
-  const long long smem = fused_block_plan_smem(C, dtype, mt, cp);
+  const long long npix = (long long)B * H * W;
+  const long long smem =
+      fused_block_plan_smem(C, dtype, npix, mt, cp, out_split, hidden_split, per, stages);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   if ((s == nullptr) != (d_out == nullptr)) return (int)cudaErrorInvalidValue;
-  if ((long long)B * H * W == 0) return 0;
+  if (dtype == 1 && (hidden_split > 1) != (part != nullptr)) return (int)cudaErrorInvalidValue;
+  if (npix == 0) return 0;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const Args a{x, out, f(dww), f(dwb), f(lnw), f(lnb), w1, f(b1), w2, f(b2), f(gamma), f(s),
-               d_out, B, H, W, C, cp, eps};
+               d_out, static_cast<float*>(part), B, H, W, C, cp, eps};
   const bool train = s != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return train ? launch_f32<true>(a, smem, st) : launch_f32<false>(a, smem, st);
-  return train ? launch_bf16<true>(a, smem, st) : launch_bf16<false>(a, smem, st);
+  const Plan p = bf16_plan(C, npix, FORCED_SPLIT);
+  return train ? launch_bf16<true>(a, p, st) : launch_bf16<false>(a, p, st);
 }

@@ -23,9 +23,10 @@ shape ("fake") implementation, so that ``torch.export`` and
 raises; on a CPU tensor it runs ``fused_block_reference``, the same
 function in plain PyTorch. The kernel
 source says what bounds it on the card and what its design does about it.
-``launch_plan`` chooses the launch (pixels per thread block, channel
-padding of the bf16 tiles, shared memory) from (C, dtype, pixel count); the
-wrapper passes it to the kernel, which refuses a plan it cannot run.
+``launch_plan`` chooses the launch (pixel tiles and their clusters, channel
+padding of the bf16 tiles, output slices, hidden ranges, ring stages,
+shared memory) from (C, dtype, pixel count) alone; the wrapper passes it
+to the kernel, which refuses a plan it cannot run.
 """
 
 from __future__ import annotations
@@ -43,51 +44,91 @@ K = 7
 MAX_C = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# The bf16 kernels' tiles and plan, as csrc/mma_bf16.cuh sets them for K1
-# and K2 alike (the kernels refuse any other plan).
-CPAD = 128  # C is padded to a multiple of this for the tiles
-NH = 128  # hidden units per chunk
-HLD = NH + 8  # padded row of a hidden chunk (bf16)
-RING = 3 * 128 * (64 + 8)  # bf16 elements of the weight-tile ring: 3 stages of 128 x 72
+CPAD = 128  # the bf16 kernels pad C to a multiple of this for their weight tiles
+
+# The bf16 kernel's plan, as csrc/fused_block.cu's bf16_plan sets it (the
+# kernel refuses any other plan).
+MT = 64  # pixels of a tile: one consumer warpgroup's rows
+NH = 128  # hidden units of a chunk
+CLUSTER = 2  # pixel tiles of a cluster: each weight box is fetched once for both
+SMS = 132  # an H100's SMs: the hidden split aims at half of them or more
+THREADS = 384  # two consumer warpgroups and the producer's
+CONSUMER_REGS = 232  # setmaxnreg: a consumer thread's registers (the producer's keep 40)
+PRODUCER_REGS = 40
+H_REGS = 32  # f32 registers of a warpgroup's (64, 64) share of a chunk's h
+BOX_BYTES = 128 * 64 * 2  # a 128-row x 64 box of W1 or W2 (bf16)
+XBOX_BYTES = MT * 64 * 2  # a 64 x 64 box of xn or h
+HT_BYTES = 2 * (NH // 64) * XBOX_BYTES  # two h tiles; x's staging for the stencil before
+MAX_SMEM = 232_448  # shared memory one block may opt into on an H100
+STATIC_RESERVE = 2048  # static shared memory the kernel may take beside the dynamic
+STAGE_CAP = 12  # most slots of the weight ring (one box each)
 
 
-def width_class(cp: int) -> int:
-    """128-channel blocks the bf16 kernels' (MT, C) accumulator is sized
-    for: 3 up to C=384, 6 up to 768, else 8."""
-    return 3 if cp <= 384 else 6 if cp <= 768 else 8
-
-
-def bf16_tiling(c: int) -> Tuple[int, int, int]:
-    """(cp, mt, width class) of the bf16 kernels at C channels: C padded
-    to CPAD; 64 pixels per block up to C=384 (96 accumulator registers), 32
-    above (32 beat 16 at C=768 for both kernels: PERF.md, Findings)."""
-    cp = -(-c // CPAD) * CPAD
-    ncls = width_class(cp)
-    return cp, 64 if ncls == 3 else 32, ncls
+def padded_c(c: int) -> int:
+    """C padded to CPAD: the channels the bf16 kernels' tiles see."""
+    return -(-c // CPAD) * CPAD
 
 
 class LaunchPlan(NamedTuple):
-    mt: int          # output pixels per thread block
-    cp: int          # channels as the kernel's tiles see them (bf16: padded to CPAD)
-    ctas: int        # thread blocks of the launch
-    smem_bytes: int  # dynamic shared memory of one block
-    acc_regs: int    # f32 registers per thread that hold the (mt, C) sum
+    mt: int           # output pixels per thread block (per tile)
+    cp: int           # channels as the kernel's tiles see them (bf16: padded to CPAD)
+    ctas: int         # thread blocks of the main launch
+    smem_bytes: int   # dynamic shared memory of one block
+    acc_regs: int     # f32 registers per consumer thread that hold its share of the sum
+    out_blocks: int = 1     # bf16: 128-channel blocks of a block's output slice (NB)
+    out_split: int = 1      # output slices of NB * 128 channels (each recomputes h)
+    hidden_split: int = 1   # ranges of the hidden chunks, added in range order
+    per: int = 0            # bf16: 128-unit hidden chunks per range
+    stages: int = 0         # bf16: slots of the weight ring, one 128 x 64 box each
+    tiles: int = 0          # bf16: pixel tiles, rounded up to whole clusters
+    threads: int = 256      # threads of a block
+    l2_weight_bytes: int = 0  # bf16: weight bytes the call reads from L2 (one fetch per cluster)
+    launches: Tuple[Tuple[str, int], ...] = ()  # (kernel, blocks) of one call
 
 
-def launch_plan(c: int, dtype: torch.dtype, npix: int) -> LaunchPlan:
+def launch_plan(c: int, dtype: torch.dtype, npix: int, split: Optional[int] = None) -> LaunchPlan:
     """The forward kernel's launch for C channels and npix = B*H*W pixels.
-    bf16: the tensor-core kernel under ``bf16_tiling``. f32: the FMA
-    kernel, 16 pixels per block, the (16, C) sum in shared memory."""
+    bf16: 64-pixel tiles in clusters of two that share every weight box
+    (128 pixel rows per box read from L2), output slices of 384 channels up
+    to C = 768 and 512 above, and the 4C hidden units in ranges where the
+    tiles and slices alone would keep under half of the card's SMs busy
+    (``split`` forces the number of ranges: the ablation script's
+    ``K1_SPLIT`` build). f32: the FMA kernel, 16 pixels per block, the (16,
+    C) sum in shared memory."""
     if not 1 <= c <= MAX_C:
         raise ValueError(f"fused_block supports 1 <= C <= {MAX_C}, got C={c}")
     if dtype == torch.float32:
         cs = (c + 3) & ~3
-        return LaunchPlan(16, c, -(-npix // 16), 4 * (2 * 16 * cs + 16 * 64 + 64 * 65), 4)
+        ctas = -(-npix // 16)
+        return LaunchPlan(16, c, ctas, 4 * (2 * 16 * cs + 16 * 64 + 64 * 65), 4,
+                          launches=(("fused_block_f32_kernel", ctas),))
     if dtype != torch.bfloat16:
         raise TypeError(f"fused_block takes float32 or bfloat16 activations, got {dtype}")
-    cp, mt, ncls = bf16_tiling(c)
-    smem = 2 * (mt * (cp + 8) + mt * HLD + RING)
-    return LaunchPlan(mt, cp, -(-npix // mt), smem, mt * ncls // 2)
+    cp = padded_c(c)
+    nb = 3 if cp <= 768 else 4
+    out_split = -(-cp // (128 * nb))
+    tiles = -(-npix // MT)
+    tiles += tiles % CLUSTER
+    chunks = 4 * cp // NH
+    base = tiles * out_split
+    want = 1
+    if split:
+        want = min(split, chunks)
+    elif 0 < base < SMS // 2:
+        want = min(chunks, SMS // base)
+    per = -(-chunks // want)
+    hidden_split = -(-chunks // per)
+    fixed = 1024 + MT * cp * 2 + HT_BYTES  # + 1024: the kernel aligns its tiles to 1024 bytes
+    stages = min(STAGE_CAP, (MAX_SMEM - STATIC_RESERVE - fixed) // BOX_BYTES)
+    ctas = tiles * out_split * hidden_split
+    # per cluster and range: W1's rows of the range once for each slice, W2's
+    # rows of the slice (inside cp) once
+    l2 = tiles // CLUSTER * 2 * NH * cp * chunks * (out_split + 1)
+    launches = (("fused_block_wgmma_kernel", ctas),)
+    if hidden_split > 1:
+        launches += (("fused_block_sum_kernel", -(-npix * c // 256)),)
+    return LaunchPlan(MT, cp, ctas, fixed + stages * BOX_BYTES, 32 * nb, nb, out_split,
+                      hidden_split, per, stages, tiles, THREADS, l2, launches)
 
 
 def tile_weights(w1: torch.Tensor, w2: torch.Tensor, dt: torch.dtype,
@@ -182,9 +223,11 @@ def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     fn = lib.fused_block_forward
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.fused_block_plan_smem.argtypes = [ctypes.c_int] * 4
+        lib.fused_block_plan_smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [
+            ctypes.c_int] * 6
         lib.fused_block_plan_smem.restype = ctypes.c_longlong
     return lib
 
@@ -288,6 +331,8 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
     out = torch.empty_like(x)
     sc = f32(s) if save else None
     d = torch.empty_like(x) if save else None
+    part = (torch.empty(plan.hidden_split, b * h * w, plan.cp, device=x.device)
+            if dt == torch.bfloat16 and plan.hidden_split > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_block_forward(
@@ -295,7 +340,8 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
             w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(),
             g.data_ptr() if g is not None else None,
             sc.data_ptr() if save else None, d.data_ptr() if save else None,
-            b, h, w, c, float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp)
+            b, h, w, c, float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp, plan.out_split,
+            plan.hidden_split, plan.per, plan.stages, part.data_ptr() if part is not None else None)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: cudaError {err}")
     fused_block.launches += 1

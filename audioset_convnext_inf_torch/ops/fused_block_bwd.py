@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from audioset_convnext_inf_torch.ops import _build
 from audioset_convnext_inf_torch.ops.fused_block import (
-    K, MAX_C, OPS, _DTYPE_CODE, _check, bf16_tiling, tile_weights)
+    K, MAX_C, OPS, _DTYPE_CODE, _check, padded_c, tile_weights)
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
 
 _C0 = 0.7978845608028654  # sqrt(2/pi)
@@ -125,7 +125,7 @@ def launch_plan(c: int, dtype: torch.dtype, b: int, h: int, w: int) -> BwdPlan:
         wgrad_smem, ln_smem, acc_regs = 2 * 4 * 32 * 64, 0, 4  # two static 32 x 64 f32 tiles
         esize = 4
     elif dtype == torch.bfloat16:
-        cp, mt, px = bf16_tiling(c)[0], _BM, PX
+        cp, mt, px = padded_c(c), _BM, PX
         mtiles = -(-npix // _BM)
         chain_ctas = (4 * cp // _BN) * mtiles
         dxn_tiles = mtiles * (cp // _BN)

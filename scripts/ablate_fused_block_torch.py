@@ -7,19 +7,22 @@ Runs from the root of a checkout on a machine with an NVIDIA card and nvcc.
 No tool that reads time inside a kernel (ncu, nsys) is assumed, so this
 script builds the kernels again through ``ops/_build.py`` with -D macros
 that switch one part off or change the launch plan (the macros are listed
-in ``csrc/mma_bf16.cuh``), and times each build with CUDA events at the
-main path's shapes (bf16, B=16: tiny stage 3, C=384, and stage 4, C=768)
-beside the package's own build. A build with a part switched off computes
-wrong results by design; a build with another plan is first held to its
-plain version within the kernel tolerance of chip_smoke.py. Variants:
+in the note at the top of ``csrc/fused_block.cu``), and times each build
+(median of 5 runs of 20 calls, CUDA events) at the main path's shapes
+(bf16, B=16: tiny stage 3, C=384, and stage 4, C=768) beside the
+package's own build. A build with a part switched off computes wrong
+results by design; a build with another plan is first held to its plain
+version within the kernel tolerance of chip_smoke.py. Variants:
 
   k1/none       K1 as the package builds it (serving and save mode)
-  k1/stencil    K1 without its 7x7 stencil (d left zero)
-  k1/mma        K1 without its mma.sync instructions (operands kept)
-  k1/prefetch   K1 loading only the first weight tiles of its ring
-  k1/wide16     K1 with 16 instead of 32 pixels per block above C=384
-  k2/none       K2 as the package builds it (its plan does not follow the
-                MT_* macros: the chain is 128-pixel wgmma tiles at every width)
+  k1/stencil    K1 without its 7x7 stencil's arithmetic (x still staged,
+                d left zero)
+  k1/mma        K1 without its wgmma instructions (operands kept)
+  k1/prefetch   K1's producer loading only the first `stages` weight boxes
+                (later boxes reuse whatever the ring holds)
+  k1/split2     K1 with the hidden units in two ranges whatever the batch
+                (K1_SPLIT=2: another plan, f32 partials and the sum launch)
+  k2/none       K2 as the package builds it (no macro changes its plan)
 
 The last line is one JSON object {"card": ..., "ms": {variant: {shape: ms}}}.
 """
@@ -47,27 +50,16 @@ VARIANTS = {
     "k1/stencil": ("fused_block", ("ABLATE_STENCIL",)),
     "k1/mma": ("fused_block", ("ABLATE_MMA",)),
     "k1/prefetch": ("fused_block", ("ABLATE_PREFETCH",)),
-    "k1/wide16": ("fused_block", ("MT_WIDE=16",)),
+    "k1/split2": ("fused_block", ("K1_SPLIT=2",)),
     "k2/none": ("fused_block_bwd", ()),
 }
-PLAN_MACROS = ("MT_CLASS3", "MT_WIDE")
-
-
-def plan_mt(defines, ncls: int):
-    """Pixels per block a build's plan macros set for width class ncls, or
-    None where the build keeps the package's plan."""
-    want = "MT_CLASS3" if ncls == 3 else "MT_WIDE"
-    for d in defines:
-        key, _, value = d.partition("=")
-        if key == want:
-            return int(value)
-    return None
+PLAN_MACROS = ("K1_SPLIT",)
 
 
 def k1_plan(c, npix, defines):
-    plan = FB.launch_plan(c, torch.bfloat16, npix)
-    mt = plan_mt(defines, FB.width_class(plan.cp))
-    return plan._replace(mt=mt, ctas=-(-npix // mt)) if mt else plan
+    """The plan a K1 build runs: the package's, or K1_SPLIT's hidden ranges."""
+    split = [int(d.partition("=")[2]) for d in defines if d.partition("=")[0] == "K1_SPLIT"]
+    return FB.launch_plan(c, torch.bfloat16, npix, split=split[0] if split else None)
 
 
 def check(got, ref, variant, name):
@@ -91,15 +83,15 @@ def time_variant(variant: str, device) -> dict:
             save = lambda: FB._forward_cuda(x, *args, 1e-6, s, True, plan, defines)  # noqa: E731
             if checked:
                 check(serve(), FB.fused_block_reference(x, *args), variant, name)
-            out[name] = cs.cuda_ms(serve, iters=20)
-            out[f"{name} save"] = cs.cuda_ms(save, iters=20)
+            out[name] = cs.median_ms(serve, iters=20)[0]
+            out[f"{name} save"] = cs.median_ms(save, iters=20)[0]
         else:
             x, d, dy, wts, s = cs.k2_inputs(b, h, w, c, torch.bfloat16, device, cs.SEED)
             plan = FBB.launch_plan(c, torch.bfloat16, b, h, w)
             fn = lambda: FBB._backward_cuda(x, d, dy, *wts, s, 1e-6, plan, defines)  # noqa: E731
             if checked:
                 check(fn()[0], FBB.fused_block_bwd_reference(x, d, dy, *wts, s)[0], variant, name)
-            out[name] = cs.cuda_ms(fn, iters=20)
+            out[name] = cs.median_ms(fn, iters=20)[0]
     return out
 
 

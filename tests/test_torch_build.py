@@ -11,9 +11,9 @@ import pytest
 from audioset_convnext_inf_torch.ops import _build
 
 KERNELS = ("fused_block", "fused_block_bwd")
-# what each kernel compiles from csrc/: K1 the mma.sync header, K2 also the
-# Hopper one (wgmma, TMA, mbarrier)
-SOURCES = {"fused_block": ["fused_block.cu", "mma_bf16.cuh"],
+# what each kernel compiles from csrc/: the shared pieces (mma_bf16.cuh)
+# and the Hopper header (wgmma, TMA, mbarrier, clusters), both kernels
+SOURCES = {"fused_block": ["fused_block.cu", "mma_bf16.cuh", "wgmma_bf16.cuh"],
            "fused_block_bwd": ["fused_block_bwd.cu", "mma_bf16.cuh", "wgmma_bf16.cuh"]}
 
 
@@ -42,10 +42,18 @@ def test_sources_list_the_kernel_and_the_shared_header(name):
 
 
 def test_editing_the_hopper_header_changes_only_k2s_library(csrc, before):
-    """K2's library name hashes wgmma_bf16.cuh; K1 does not include it."""
+    """Editing the Hopper header rebuilds both libraries: K1 and K2 both
+    include wgmma_bf16.cuh. A header that only one kernel includes renames
+    only that kernel's library."""
     _append(csrc / "wgmma_bf16.cuh")
     assert _build.library_path("fused_block_bwd") != before["fused_block_bwd"]
-    assert _build.library_path("fused_block") == before["fused_block"]
+    assert _build.library_path("fused_block") != before["fused_block"]
+    (csrc / "only_k1.cuh").write_text("#pragma once\n")
+    _append(csrc / "fused_block.cu", '\n#include "only_k1.cuh"\n')
+    k1, k2 = _build.library_path("fused_block"), _build.library_path("fused_block_bwd")
+    _append(csrc / "only_k1.cuh")
+    assert _build.library_path("fused_block") != k1
+    assert _build.library_path("fused_block_bwd") == k2
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -93,7 +101,7 @@ def test_an_include_cycle_ends(csrc):
     (csrc / "b.cuh").write_text('#pragma once\n#include "a.cuh"\n')
     _append(csrc / "mma_bf16.cuh", '\n#include "a.cuh"\n')
     names = [p.name for p in _build.sources("fused_block")]
-    assert names == ["fused_block.cu", "mma_bf16.cuh", "a.cuh", "b.cuh"]
+    assert names == ["fused_block.cu", "mma_bf16.cuh", "wgmma_bf16.cuh", "a.cuh", "b.cuh"]
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -103,7 +111,7 @@ def test_defines_name_their_own_library(before, name):
     name."""
     stencil = _build.library_path(name, ("ABLATE_STENCIL",))
     assert stencil != before[name]
-    assert stencil != _build.library_path(name, ("MT_WIDE=16",))
+    assert stencil != _build.library_path(name, ("K1_SPLIT=2",))
     assert stencil == _build.library_path(name, ("ABLATE_STENCIL",))
     assert _build.library_path(name, ()) == before[name]
 

@@ -141,12 +141,24 @@ def test_launch_plans_agree_with_the_kernels():
     refused launch."""
     _need_card()
     k1, k2 = FB._lib(), FBB._lib()
+
+    def k1_smem(c, code, npix, p):
+        return k1.fused_block_plan_smem(c, code, npix, p.mt, p.cp, p.out_split, p.hidden_split,
+                                        p.per, p.stages)
+
     for c in WIDTHS:
         for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            p, q = FB.launch_plan(c, dt, 3472), FBB.launch_plan(c, dt, 16, 31, 7)
-            assert k1.fused_block_plan_smem(c, code, p.mt, p.cp) == p.smem_bytes, (c, dt)
+            for npix in (217, 1736, 3472, 14112):
+                p = FB.launch_plan(c, dt, npix)
+                assert k1_smem(c, code, npix, p) == p.smem_bytes, (c, dt, npix)
+                assert k1_smem(c, code, npix, p._replace(mt=48)) == -1
+                if code:
+                    for bad in (p._replace(hidden_split=p.hidden_split + 1),
+                                p._replace(out_split=p.out_split + 1),
+                                p._replace(stages=p.stages - 1)):
+                        assert k1_smem(c, code, npix, bad) == -1, (c, npix, bad)
+            q = FBB.launch_plan(c, dt, 16, 31, 7)
             assert k2.fused_block_bwd_plan_smem(c, code, q.mt, q.cp) == q.chain_smem, (c, dt)
-            assert k1.fused_block_plan_smem(c, code, 48, p.cp) == -1
             assert k2.fused_block_bwd_plan_smem(c, code, q.mt, q.cp + 8) == -1
             if code:
                 assert k2.fused_block_bwd_ln_smem(q.cp) == q.ln_smem

@@ -1,13 +1,14 @@
 """The launch plans of the fused block kernels (K1 forward, K2 backward):
 plain functions of (C, dtype, pixel count; K2 the image shape) that choose
-pixels per thread block, the channel padding of the bf16 tiles, the splits
-of K2's products, its stencil tile and the workspaces. Held here, for every
-stage-3/4 width of the seven factories and C = 1 and 100, to what an H100
-block can have (232,448 bytes of shared memory, 255 registers a thread of
-which the accumulators take at most 128) and to what the wrappers
-allocate. The kernels' own agreement with the plans (the shared memory each
-computes, refusing other plans) is checked on the card by
-tests/test_torch_cuda.py."""
+K1's pixel tiles, clusters, output slices, hidden ranges and weight ring,
+the channel padding of the bf16 tiles, the splits of K2's products, its
+stencil tile and the workspaces. Held here, for every stage-3/4 width of
+the seven factories and C = 1 and 100, to what an H100 block can have
+(232,448 bytes of shared memory, 65,536 registers an SM: K1's consumer
+threads within their setmaxnreg budget, K2's accumulators at most 128 a
+thread) and to what the wrappers allocate. The kernels' own agreement with
+the plans (the shared memory each computes, refusing other plans) is
+checked on the card by tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -26,19 +27,50 @@ K2_SHAPES = [(16, 63, 14, 384), (16, 31, 7, 768), (8, 63, 14, 384), (8, 31, 7, 7
 K2_WIDTHS = (1, 100, 160, 384, 768, FB.MAX_C)
 
 
+def _k1_ranges(p):
+    """K1's hidden ranges as lists of 128-unit chunks, in range order."""
+    chunks = 4 * p.cp // FB.NH
+    return [list(range(z * p.per, min((z + 1) * p.per, chunks))) for z in range(p.hidden_split)]
+
+
 @pytest.mark.parametrize("c", WIDTHS)
 def test_forward_plan_fits_one_block(c):
+    """Every K1 plan fits one H100 block: shared memory (with the static
+    part the kernel may add), the consumers' accumulators within their
+    setmaxnreg budget and the three warpgroups within the SM's registers;
+    its tiles cover every pixel once (in whole clusters), its output slices
+    every channel and its hidden ranges every hidden unit once; the plan is
+    a function of C and the pixel count alone."""
+    assert 2 * 128 * FB.CONSUMER_REGS + 128 * FB.PRODUCER_REGS <= 65536
     for dt in (torch.float32, torch.bfloat16):
         for npix in NPIX.values():
             p = FB.launch_plan(c, dt, npix)
-            assert p.smem_bytes <= SMEM and p.acc_regs <= 128, (dt, p)
-            assert p.ctas * p.mt >= npix > (p.ctas - 1) * p.mt
-    p = FB.launch_plan(c, torch.bfloat16, NPIX["tiny stage 3"])
-    assert p.cp % FB.CPAD == 0 and 0 <= p.cp - c < FB.CPAD
-    assert p.acc_regs == p.mt * FB.width_class(p.cp) // 2
-    assert FB.launch_plan(c, torch.float32, 100).cp == c  # the f32 kernel takes C as it is
-
-
+            assert p == FB.launch_plan(c, dt, npix)
+            if dt == torch.float32:
+                assert p.smem_bytes <= SMEM and p.acc_regs <= 128, p
+                assert p.ctas * p.mt >= npix > (p.ctas - 1) * p.mt
+                assert p.cp == c and (p.out_split, p.hidden_split) == (1, 1)
+                continue
+            assert p.smem_bytes + FB.STATIC_RESERVE <= SMEM, p
+            assert p.acc_regs + FB.H_REGS <= FB.CONSUMER_REGS, p
+            assert p.cp % FB.CPAD == 0 and 0 <= p.cp - c < FB.CPAD
+            # pixels: 64-pixel tiles, whole clusters of two, no tile without a pixel but the pad
+            assert p.mt == 64 and p.tiles % FB.CLUSTER == 0
+            tiles = -(-npix // 64)
+            assert p.tiles - tiles == tiles % 2
+            # output channels: slices of 128 * out_blocks cover cp, none empty
+            width = 128 * p.out_blocks
+            assert p.out_split * width >= p.cp > (p.out_split - 1) * width
+            assert p.acc_regs == width // 4  # (64, width / 2) f32 a warpgroup
+            # hidden units: the ranges take every 128-unit chunk once, in order
+            ranges = _k1_ranges(p)
+            assert sum(ranges, []) == list(range(4 * p.cp // FB.NH)) and all(ranges)
+            assert p.ctas == p.tiles * p.out_split * p.hidden_split
+            assert [k for k, _ in p.launches] == ["fused_block_wgmma_kernel"] + (
+                ["fused_block_sum_kernel"] if p.hidden_split > 1 else [])
+            assert p.launches[0][1] == p.ctas
+            # the weight ring: at least the NB boxes of a k-slice of W2 and one W1 box
+            assert p.stages >= p.out_blocks
 @pytest.mark.parametrize("c", WIDTHS)
 def test_backward_plan_fits_one_block_and_its_workspaces_are_allocated(c):
     for dt in (torch.float32, torch.bfloat16):
@@ -198,18 +230,31 @@ def test_stencil_tiling_gives_both_depthwise_gradients(b, h, w, c):
 
 
 def test_main_path_plans():
-    """The two main-path shapes in bf16 take no weight padding. K1: stage 3
-    runs 64-pixel blocks (221), stage 4 32-pixel blocks (109). K2: the chain
-    as 128-pixel x 128-hidden-unit wgmma blocks (1332 and 672), the dxn
-    product whole at stage 3 (333 blocks) and in two reduction ranges at
-    stage 4 (336), so both fill the card's 132 SMs; seven and two pixel
-    ranges of the weight-gradient products (252 and 288 blocks per
-    product)."""
+    """The two main-path shapes in bf16 take no weight padding. K1: 64-pixel
+    tiles in clusters of two that share every weight box; stage 3 one
+    output slice (222 blocks, 1.7 waves of the 132 SMs), stage 4 two
+    slices of 384 channels (112 blocks: 108 or more SMs busy), no hidden
+    split at B=16; 262 MB and 396 MB of weights read from L2 a call,
+    against the 521 MB and 1.03 GB of the mma.sync kernel's 221 and 109
+    blocks that each read all of W1 and W2. K2: the chain as 128-pixel x
+    128-hidden-unit wgmma blocks (1332 and 672), the dxn product whole at
+    stage 3 (333 blocks) and in two reduction ranges at stage 4 (336), so
+    both fill the card's 132 SMs; seven and two pixel ranges of the
+    weight-gradient products (252 and 288 blocks per product)."""
     s3, s4 = SHAPES["tiny stage 3"], SHAPES["tiny stage 4"]
     p3 = FB.launch_plan(384, torch.bfloat16, NPIX["tiny stage 3"])
     p4 = FB.launch_plan(768, torch.bfloat16, NPIX["tiny stage 4"])
-    assert (p3.mt, p3.cp, p3.ctas, p3.acc_regs) == (64, 384, 221, 96)
-    assert (p4.mt, p4.cp, p4.ctas, p4.acc_regs) == (32, 768, 109, 96)
+    assert (p3.mt, p3.cp, p3.ctas, p3.out_split, p3.hidden_split, p3.stages) == (
+        64, 384, 222, 1, 1, 9)
+    assert (p4.mt, p4.cp, p4.ctas, p4.out_split, p4.hidden_split, p4.stages) == (
+        64, 768, 112, 2, 1, 6)
+    assert p3.acc_regs == p4.acc_regs == 96 and p4.ctas >= 108
+    assert (p3.l2_weight_bytes, p4.l2_weight_bytes) == (261_881_856, 396_361_728)
+    old = (221 * 8 * 384 ** 2 * 2, 109 * 8 * 768 ** 2 * 2)  # every block read all of W1 and W2
+    assert p3.l2_weight_bytes < old[0] / 1.9 and p4.l2_weight_bytes < old[1] / 2.5
+    # one clip (B=1) at stage 4: 4 tiles x 2 slices, the hidden units in 12 ranges
+    clip = FB.launch_plan(768, torch.bfloat16, 31 * 7)
+    assert (clip.ctas, clip.hidden_split, clip.per) == (96, 12, 2)
     q3, q4 = FBB.launch_plan(384, torch.bfloat16, *s3), FBB.launch_plan(768, torch.bfloat16, *s4)
     assert (q3.mt, q3.chain_ctas, q3.ksplit, q3.dxn_ctas, q3.split, q3.wgrad_ctas) == (
         128, 1332, 1, 333, 7, 2 * 252)
@@ -219,6 +264,17 @@ def test_main_path_plans():
         assert min(q.chain_ctas, q.dxn_ctas) >= 2 * FBB.SMS
     assert (q3.stencil.th, q3.stencil.tw, q3.stencil_ctas) == (16, 14, 16 * 4 * 6)
     assert (q4.stencil.th, q4.stencil.tw, q4.stencil_ctas) == (16, 7, 16 * 2 * 12)
+
+
+# K1's hidden ranges by pixel count at the main path's widths: (first pixel
+# count, ranges). Results compare bit for bit only at equal pixel counts
+# (the Evaluator, the service and the bundles do): B=16 and more take one
+# range at both stages, B=8 two at stage 4, one clip 6 and 12.
+K1_HIDDEN_SPLITS = {
+    384: [(1, 12), (641, 6), (1409, 4), (2049, 3), (2817, 2), (4097, 1)],
+    768: [(1, 24), (129, 12), (257, 8), (513, 6), (641, 5), (769, 4), (1025, 3), (1409, 2),
+          (2049, 1)],
+}
 
 
 def test_plans_refuse_what_the_kernels_cannot_run():
@@ -235,13 +291,25 @@ def test_plans_refuse_what_the_kernels_cannot_run():
     with pytest.raises(TypeError):
         FBB.launch_plan(96, torch.float16, 4, 5, 5)
     for c in WIDTHS:
-        cp, mt, ncls = FB.bf16_tiling(c)
-        assert mt == (64 if cp <= 384 else 32) and mt * ncls // 2 <= 128
+        cp = FB.padded_c(c)
         p = FB.launch_plan(c, torch.bfloat16, 100)
         q = FBB.launch_plan(c, torch.bfloat16, 4, 5, 5)
-        assert (p.mt, p.cp) == (mt, cp) and (q.mt, q.cp) == (128, cp)
+        assert (p.mt, p.cp, p.out_blocks) == (64, cp, 3 if cp <= 768 else 4)
+        assert (q.mt, q.cp) == (128, cp)
         assert FB.launch_plan(c, torch.float32, 100).mt == FBB.launch_plan(
             c, torch.float32, 4, 5, 5).mt == 16
+    # K1's hidden split changes with the pixel count only where named
+    for c, steps in K1_HIDDEN_SPLITS.items():
+        seen, prev = [], None
+        for npix in range(1, 5000):
+            hs = FB.launch_plan(c, torch.bfloat16, npix).hidden_split
+            if hs != prev:
+                seen.append((npix, hs))
+                prev = hs
+        assert seen == steps, c
+        assert FB.launch_plan(c, torch.bfloat16, 16 * (63 * 14 if c == 384 else 31 * 7)).hidden_split == 1
+    # the ablation's forced split (K1_SPLIT) is the same plan with n ranges
+    assert FB.launch_plan(384, torch.bfloat16, NPIX["tiny stage 3"], split=2).hidden_split == 2
 
 
 @pytest.mark.parametrize("c", (1, 100, 160, 384))
@@ -286,3 +354,30 @@ def test_split_ranges_sum_to_the_full_weight_gradient(c, shape):
              for s in range(q.split)]
     np.testing.assert_allclose(sum(parts), a.T @ b, rtol=1e-12, atol=1e-10)
     assert all(len(a[s * q.split_px:(s + 1) * q.split_px]) for s in range(q.split))
+
+
+@pytest.mark.parametrize("c,npix", [(384, 882), (768, 217), (768, 1736), (100, 728)])
+def test_hidden_ranges_sum_to_the_unsplit_product(c, npix):
+    """Where K1 splits the hidden units (one clip, B=8 at stage 4, narrow
+    widths), each range's f32 partial of gelu(h) . W2^T is added in range
+    order (fused_block_sum_kernel): the ranges take every hidden unit once,
+    so the sum is the unsplit product within f32 rounding (a narrow slice
+    of pixels, checked against f64)."""
+    p = FB.launch_plan(c, torch.bfloat16, npix)
+    assert p.hidden_split > 1
+    rng = np.random.RandomState(c + npix)
+    hid = 4 * p.cp
+    g = rng.randn(8, hid).astype(np.float32)   # gelu(h) of 8 pixels, zero beyond 4C
+    g[:, 4 * c:] = 0.0
+    w2 = (rng.randn(p.cp, hid) / np.sqrt(hid)).astype(np.float32)
+    parts = []
+    for chunks in _k1_ranges(p):
+        cols = np.concatenate([np.arange(k * FB.NH, (k + 1) * FB.NH) for k in chunks])
+        parts.append(g[:, cols] @ w2[:, cols].T)
+    total = parts[0].copy()
+    for part in parts[1:]:  # range order, in f32
+        total += part
+    want = g.astype(np.float64) @ w2.T.astype(np.float64)
+    np.testing.assert_allclose(total, want, rtol=1e-4, atol=1e-5)
+    assert sorted(np.concatenate([np.arange(k * FB.NH, (k + 1) * FB.NH)
+                                  for r in _k1_ranges(p) for k in r]).tolist()) == list(range(hid))
