@@ -20,6 +20,7 @@ each, no collectives: each clip is answered on its own):
 from __future__ import annotations
 
 import collections
+import itertools
 from typing import Any, Dict, Iterable, Optional, Sequence
 
 import numpy as np
@@ -28,6 +29,7 @@ import torch
 from audioset_convnext_inf_torch.engine import metrics as M
 from audioset_convnext_inf_torch.models.api import resolve_device
 from audioset_convnext_inf_torch.parallel.mesh import Replicas
+from audioset_convnext_inf_torch.utils.profiling import span
 
 
 class Evaluator:
@@ -67,7 +69,12 @@ class Evaluator:
             launch, n = in_flight.popleft()
             probs_chunks.append(launch.wait()["clipwise_output"].numpy()[:n])
 
-        for batch in loader:
+        batches = iter(loader)
+        for k in itertools.count():
+            with span("eval.wait_batch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             if "fbank" in batch:
                 x = np.asarray(batch["fbank"], np.float32)[..., None]
             else:
@@ -77,7 +84,8 @@ class Evaluator:
             n = batch.get("valid", x.shape[0])
             if "target" in batch:
                 target_chunks.append(np.asarray(batch["target"])[:n])
-            in_flight.append((self.replicas.launch(x), n))
+            with span("eval.launch", {"batch": k}):
+                in_flight.append((self.replicas.launch(x), n))
             if len(in_flight) >= 2:
                 drain_one()
         while in_flight:

@@ -49,6 +49,7 @@ from audioset_convnext_inf_torch.parallel.mesh import (
     batch_sharding,
     replicate,
 )
+from audioset_convnext_inf_torch.utils.profiling import span
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -312,33 +313,34 @@ def make_train_step(model, train_cfg: TrainConfig, optimizer: Optimizer,
 
     def train_step(waveform: torch.Tensor, target: torch.Tensor, step_idx: int) -> torch.Tensor:
         gen = _step_generator(train_cfg.seed, step_idx)
-        waveform = decode_pcm_if_int16(waveform)
-        n, rows, shard = waveform.shape[0], slice(None), None  # the global batch, our rows
-        if group:
-            n *= mesh.world_size
-            if train_cfg.mixup_alpha > 0 and n % (2 * mesh.world_size):
-                raise ValueError(f"mixup pairs adjacent clips: a global batch of {n} clips does "
-                                 f"not split into pairs over {mesh.world_size} processes")
-            rows = batch_sharding(mesh, n)
         was_training = model.training
         model.train()
         try:
-            if group:
-                fused = F.fused_train_route(model, model.cfg) and mesh.world_size > 1
-                shard = F.Shard(rows, n, reduce_mean,
-                                _rank_generator(train_cfg.seed, step_idx, mesh.rank)
-                                if fused else None)
-            mixup_lambda = None
-            if train_cfg.mixup_alpha > 0:
-                mixup_lambda = get_mixup_lambda(gen, n, train_cfg.mixup_alpha)[rows]
-                mixup_lambda = mixup_lambda.to(waveform.device)
-                target = do_mixup(target, mixup_lambda)
-            for p in params.values():
-                p.grad = None
-            out = F.forward_train(model, waveform, model.cfg, model.frontend, gen,
-                                  mixup_lambda, compute_dtype, shard=shard)
-            loss = loss_fn(out, {"target": target})
-            with fp32_precision("highest"):
+            with span("train.forward"):
+                waveform = decode_pcm_if_int16(waveform)
+                n, rows, shard = waveform.shape[0], slice(None), None  # the global batch, ours
+                if group:
+                    n *= mesh.world_size
+                    if train_cfg.mixup_alpha > 0 and n % (2 * mesh.world_size):
+                        raise ValueError(f"mixup pairs adjacent clips: a global batch of {n} "
+                                         f"clips does not split into pairs over "
+                                         f"{mesh.world_size} processes")
+                    rows = batch_sharding(mesh, n)
+                    fused = F.fused_train_route(model, model.cfg) and mesh.world_size > 1
+                    shard = F.Shard(rows, n, reduce_mean,
+                                    _rank_generator(train_cfg.seed, step_idx, mesh.rank)
+                                    if fused else None)
+                mixup_lambda = None
+                if train_cfg.mixup_alpha > 0:
+                    mixup_lambda = get_mixup_lambda(gen, n, train_cfg.mixup_alpha)[rows]
+                    mixup_lambda = mixup_lambda.to(waveform.device)
+                    target = do_mixup(target, mixup_lambda)
+                for p in params.values():
+                    p.grad = None
+                out = F.forward_train(model, waveform, model.cfg, model.frontend, gen,
+                                      mixup_lambda, compute_dtype, shard=shard)
+                loss = loss_fn(out, {"target": target})
+            with span("train.backward"), fp32_precision("highest"):
                 loss.backward()
         finally:
             model.train(was_training)
@@ -346,10 +348,12 @@ def make_train_step(model, train_cfg: TrainConfig, optimizer: Optimizer,
                  for n, p in params.items()}
         loss = loss.detach()
         if group:  # one flat buffer, the parameters' order, the loss last
-            loss = loss.reshape(1).clone()
-            reduce_mean(list(grads.values()) + [loss])
-            loss = loss[0]
-        optimizer.step(grads)
+            with span("train.allreduce"):
+                loss = loss.reshape(1).clone()
+                reduce_mean(list(grads.values()) + [loss])
+                loss = loss[0]
+        with span("train.optimizer"):
+            optimizer.step(grads)
         return loss
 
     return train_step
@@ -407,12 +411,15 @@ class Trainer:
         """Run one step; return the loss as a device scalar (no sync).
         int16 PCM crosses to the device as int16 and decodes there. In a
         process group the batch is this rank's rows of the global batch."""
-        wav = torch.as_tensor(np.asarray(waveform))
-        if wav.dtype != torch.int16:
-            wav = wav.to(torch.float32)
-        wav = wav.to(self.device, non_blocking=True)
-        tgt = torch.as_tensor(np.asarray(target, np.float32)).to(self.device, non_blocking=True)
-        loss = self._step_fn(wav, tgt, self.step_index)
+        with span("train.step", {"step": self.step_index}):
+            wav = torch.as_tensor(np.asarray(waveform))
+            if wav.dtype != torch.int16:
+                wav = wav.to(torch.float32)
+            tgt = torch.as_tensor(np.asarray(target, np.float32))
+            with span("train.h2d"):
+                wav = wav.to(self.device, non_blocking=True)
+                tgt = tgt.to(self.device, non_blocking=True)
+            loss = self._step_fn(wav, tgt, self.step_index)
         self.step_index += 1
         return loss
 

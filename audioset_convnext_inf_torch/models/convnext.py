@@ -37,6 +37,7 @@ from audioset_convnext_inf_torch.ops.fused_block import fused_block
 from audioset_convnext_inf_torch.ops.fused_block_train import FusedBlockTrain
 from audioset_convnext_inf_torch.ops.mixup import do_mixup
 from audioset_convnext_inf_torch.ops.specaugment import draw_stripes, spec_augment
+from audioset_convnext_inf_torch.utils.profiling import span
 
 # Stage indices whose blocks run the fused kernel in the bf16 serving
 # config: the JAX package's set (its _FUSED_STAGE_TILES keys). The fused and
@@ -256,26 +257,27 @@ def forward_features(
     prev_fused = False
     for i in range(4):
         ds = model.downsample_layers[i]
-        if i == 0:
-            x = ds[1](_stem_conv(x, ds[0], cfg))
-            tap("stem", x)
-        else:
-            # after a fused stage the JAX package downsamples by patch GEMM
-            # (one bf16 rounding); otherwise by conv (its conv2d rounding)
-            x = L.conv2d(ds[0](x), ds[1].weight, ds[1].bias, stride=(2, 2),
-                         acc_f32=prev_fused)
-            tap(f"downsample {i}", x)
         stage_fused = (fused or fused_train) and i in FUSED_STAGES
-        for j, blk in enumerate(model.stages[i]):
-            s = scales[cur + j]
-            if stage_fused:
-                x = _fused_block_train(x, blk, s) if train else _fused_block(x, blk)
-            elif remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    _block_apply, x, blk, cfg.block_impl, s, use_reentrant=False)
+        with span(f"model.stage{i + 1}"):  # downsample i (the stem) and stage i's blocks
+            if i == 0:
+                x = ds[1](_stem_conv(x, ds[0], cfg))
+                tap("stem", x)
             else:
-                x = _block_apply(x, blk, cfg.block_impl, s)
-            tap(f"stage {i + 1} block {j}" + (" (fused)" if stage_fused else ""), x)
+                # after a fused stage the JAX package downsamples by patch GEMM
+                # (one bf16 rounding); otherwise by conv (its conv2d rounding)
+                x = L.conv2d(ds[0](x), ds[1].weight, ds[1].bias, stride=(2, 2),
+                             acc_f32=prev_fused)
+                tap(f"downsample {i}", x)
+            for j, blk in enumerate(model.stages[i]):
+                s = scales[cur + j]
+                if stage_fused:
+                    x = _fused_block_train(x, blk, s) if train else _fused_block(x, blk)
+                elif remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        _block_apply, x, blk, cfg.block_impl, s, use_reentrant=False)
+                else:
+                    x = _block_apply(x, blk, cfg.block_impl, s)
+                tap(f"stage {i + 1} block {j}" + (" (fused)" if stage_fused else ""), x)
         cur += len(model.stages[i])
         prev_fused = stage_fused
 
@@ -316,44 +318,47 @@ def _frontend_and_bn0(
     SpecAugment draws are the global batch's (``mixup_lambda`` is already
     this process's rows).
     """
-    x = waveform_or_spec
-    if x.ndim == 1:
-        x = x[None, :]
-    if x.ndim == 2:
-        if not train and cfg.frontend.top_db is None:
-            spec = frontend(x, affine=model.bn0.fold(cfg.bn_eps))
-            return spec.permute(0, 2, 3, 1).to(compute_dtype)
-        a = cfg.augment
-        if train and generator is not None:
-            if a.use_pydub_augment:
-                x = A.gain_augment(x, A.draw_gain(generator, a.gain_augment_db))
-            if a.use_roll_augment:
-                x = A.roll_augment(x, A.draw_roll(generator, a.roll_shift_range))
-            if a.use_speed_perturb:
-                x = A.speed_perturb(x, A.draw_speed(generator, x.shape[-1],
-                                                    a.speed_perturb_rates, a.speed_perturb_p))
-        x = frontend(x).permute(0, 2, 3, 1)
-    x = x.to(compute_dtype)
-    bn = model.bn0
-    if train:
-        x = L.batch_norm_train(x[..., 0], bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                               eps=cfg.bn_eps, axis=2,
-                               all_reduce=None if shard is None else shard.all_reduce)[..., None]
-    else:
-        x = L.batch_norm_apply(x[..., 0], bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                               eps=cfg.bn_eps, axis=2)[..., None]
-    if train and cfg.augment.use_spec_augment and generator is not None:
-        draws = None
-        if shard is not None:
-            sa = cfg.augment.spec_augment
-            draws = tuple(tuple(t[shard.rows] for t in draw_stripes(generator, shard.total, w, k))
-                          for w, k in ((sa.time_drop_width, sa.time_stripes_num),
-                                       (sa.freq_drop_width, sa.freq_stripes_num)))
-        x = spec_augment(x, time_axis=1, freq_axis=2, cfg=cfg.augment.spec_augment,
-                         generator=generator, draws=draws)
-    if train and mixup_lambda is not None:
-        x = do_mixup(x, mixup_lambda)
-    return x
+    with span("model.frontend"):
+        x = waveform_or_spec
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.ndim == 2:
+            if not train and cfg.frontend.top_db is None:
+                spec = frontend(x, affine=model.bn0.fold(cfg.bn_eps))
+                return spec.permute(0, 2, 3, 1).to(compute_dtype)
+            a = cfg.augment
+            if train and generator is not None:
+                if a.use_pydub_augment:
+                    x = A.gain_augment(x, A.draw_gain(generator, a.gain_augment_db))
+                if a.use_roll_augment:
+                    x = A.roll_augment(x, A.draw_roll(generator, a.roll_shift_range))
+                if a.use_speed_perturb:
+                    x = A.speed_perturb(x, A.draw_speed(generator, x.shape[-1],
+                                                        a.speed_perturb_rates, a.speed_perturb_p))
+            x = frontend(x).permute(0, 2, 3, 1)
+        x = x.to(compute_dtype)
+        bn = model.bn0
+        if train:
+            x = L.batch_norm_train(x[..., 0], bn.weight, bn.bias, bn.running_mean,
+                                   bn.running_var, eps=cfg.bn_eps, axis=2,
+                                   all_reduce=None if shard is None else shard.all_reduce)
+        else:
+            x = L.batch_norm_apply(x[..., 0], bn.weight, bn.bias, bn.running_mean,
+                                   bn.running_var, eps=cfg.bn_eps, axis=2)
+        x = x[..., None]
+        if train and cfg.augment.use_spec_augment and generator is not None:
+            draws = None
+            if shard is not None:
+                sa = cfg.augment.spec_augment
+                draws = tuple(
+                    tuple(t[shard.rows] for t in draw_stripes(generator, shard.total, w, k))
+                    for w, k in ((sa.time_drop_width, sa.time_stripes_num),
+                                 (sa.freq_drop_width, sa.freq_stripes_num)))
+            x = spec_augment(x, time_axis=1, freq_axis=2, cfg=cfg.augment.spec_augment,
+                             generator=generator, draws=draws)
+        if train and mixup_lambda is not None:
+            x = do_mixup(x, mixup_lambda)
+        return x
 
 
 def forward(

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from audioset_convnext_inf_torch.ops import _build
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
+from audioset_convnext_inf_torch.utils.profiling import span
 
 K = 7
 MAX_C = 1024
@@ -323,16 +324,17 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
     def f32(t):
         return t.detach().to(torch.float32).contiguous()
 
-    dww = f32(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
-    args = (f32(dw_b), f32(ln_w), f32(ln_b))
-    w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
-    b1c, b2c = f32(b1), f32(b2)
-    g = f32(gamma) if gamma is not None else None
-    out = torch.empty_like(x)
-    sc = f32(s) if save else None
-    d = torch.empty_like(x) if save else None
-    part = (torch.empty(plan.hidden_split, b * h * w, plan.cp, device=x.device)
-            if dt == torch.bfloat16 and plan.hidden_split > 1 else None)
+    with span("fused_block.prep"):
+        dww = f32(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
+        args = (f32(dw_b), f32(ln_w), f32(ln_b))
+        w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
+        b1c, b2c = f32(b1), f32(b2)
+        g = f32(gamma) if gamma is not None else None
+        out = torch.empty_like(x)
+        sc = f32(s) if save else None
+        d = torch.empty_like(x) if save else None
+        part = (torch.empty(plan.hidden_split, b * h * w, plan.cp, device=x.device)
+                if dt == torch.bfloat16 and plan.hidden_split > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_block_forward(

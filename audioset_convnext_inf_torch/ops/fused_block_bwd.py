@@ -36,6 +36,7 @@ from audioset_convnext_inf_torch.ops import _build
 from audioset_convnext_inf_torch.ops.fused_block import (
     K, MAX_C, OPS, _DTYPE_CODE, _check, padded_c, tile_weights)
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
+from audioset_convnext_inf_torch.utils.profiling import span
 
 _C0 = 0.7978845608028654  # sqrt(2/pi)
 _C1 = 0.044715
@@ -389,10 +390,11 @@ def _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
             return t.detach()
         return t.detach().to(torch.float32).contiguous()
 
-    w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
-    ins = (f32(dw_w), f32(ln_w), f32(ln_b), w1c, f32(b1), w2c, f32(gamma), f32(s))
-    dx = torch.empty_like(x)
-    buf = allocate(plan, c, dt, x.device)
+    with span("fused_block_bwd.prep"):
+        w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
+        ins = (f32(dw_w), f32(ln_w), f32(ln_b), w1c, f32(b1), w2c, f32(gamma), f32(s))
+        dx = torch.empty_like(x)
+        buf = allocate(plan, c, dt, x.device)
     outs = (*(k for k, _ in _VEC), "dww", "m", "xn", "dys", "dz2", "gact", "dh1", "dd", "dxn",
             "stats", "part_vec", "part_db1", "part_dww", "part_mm")
     st = plan.stencil

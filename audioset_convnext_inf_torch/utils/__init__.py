@@ -10,9 +10,9 @@ from audioset_convnext_inf_torch.utils.logging_utils import (
     get_sub_filepaths,
 )
 from audioset_convnext_inf_torch.utils.profiling import (
-    StepTimer,
     count_flops,
     count_parameters,
+    span,
     trace,
 )
 
@@ -22,8 +22,8 @@ __all__ = [
     "get_filename",
     "get_sub_filepaths",
     "MetricLogger",
-    "StepTimer",
     "count_flops",
     "count_parameters",
+    "span",
     "trace",
 ]

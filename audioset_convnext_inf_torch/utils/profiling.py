@@ -6,7 +6,8 @@ pytorch_utils.py:179-312):
 
  - :func:`trace`: a ``torch.profiler`` run that writes a Chrome trace into
    ``log_dir``;
- - :class:`StepTimer`: an EMA of the step time, and clips/s;
+ - :func:`span`: a named range of the program, seen by a profiler that is
+   running and costing one check when none is;
  - :func:`count_flops`: ``torch.utils.flop_counter.FlopCounterMode`` over one
    call, with the per-op counts (the fused block kernel has a formula of its
    own, registered here, since the counter cannot see inside a custom op);
@@ -21,7 +22,6 @@ import collections
 import contextlib
 import os
 import tempfile
-import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
@@ -47,23 +47,32 @@ def trace(log_dir: Optional[str] = None):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-class StepTimer:
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.step_time: Optional[float] = None
-        self._last: Optional[float] = None
+_OFF = contextlib.nullcontext()
 
-    def tick(self) -> Optional[float]:
-        now = time.perf_counter()
-        if self._last is not None:
-            dt = now - self._last
-            self.step_time = dt if self.step_time is None else (
-                self.ema * self.step_time + (1 - self.ema) * dt)
-        self._last = now
-        return self.step_time
 
-    def clips_per_sec(self, batch_size: int) -> Optional[float]:
-        return batch_size / self.step_time if self.step_time else None
+def span(name: str, args: Optional[Dict[str, Any]] = None):
+    """``with span(name, args):`` marks a range of the program for a
+    ``torch.profiler`` that is running: a function-scope record function,
+    which the Chrome trace holds as a ``cpu_op`` event named ``name``, on
+    the clock of the card's kernel and copy events, with ``args`` (ints,
+    floats, strings) among its arguments where the profiler records inputs
+    (``record_shapes=True``). So each device interval can be put down
+    to the span open on the host when it was launched.
+
+    With no profiler running, and while ``torch.export`` or
+    ``torch.compile`` traces, it is one shared null context: an untraced run
+    pays a single check, and no traced program holds a profiler op.
+
+    The port's spans: ``train.step`` (``step``), and within it
+    ``train.h2d``, ``train.forward``, ``train.backward``,
+    ``train.allreduce`` (with a process group), ``train.optimizer``;
+    ``eval.wait_batch`` and ``eval.launch`` (``batch``); the model's
+    ``model.frontend`` and ``model.stage1`` ... ``model.stage4``; the
+    fused blocks' host work before each launch, ``fused_block.prep`` and
+    ``fused_block_bwd.prep``."""
+    if not torch.autograd._profiler_enabled() or torch.compiler.is_compiling():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name, (), args or {})
 
 
 _FLOP_FORMULAS_REGISTERED = False

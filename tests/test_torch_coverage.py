@@ -23,6 +23,9 @@ _FUNCTIONAL = ("JAX functional init/apply pairs over parameter pytrees; the port
                "an nn.Module (its constructor draws the weights, its forward applies them)")
 _PALLAS = ("the Pallas TPU kernel wrapper: its counterparts are ops/fused_block.py and "
            "ops/fused_block_bwd.py over csrc/*.cu")
+_STEP_TIMER = ("an EMA of the step time, the wrong statistic for a measured window, which "
+               "nothing called: the port times its steps by utils.profiling.span ranges that "
+               "a running profiler reads")
 
 # module path -> {name: reason}
 ALLOWED = {
@@ -80,6 +83,7 @@ ALLOWED = {
     },
     "ops/mixup.py": {"Array": _ALIASES},
     "ops/specaugment.py": {"Array": _ALIASES},
+    "utils/profiling.py": {"StepTimer": _STEP_TIMER},
     "ops/pallas_fused_block.py": {n: _PALLAS for n in ("Array", "K", "P", "SUB",
                                                        "fused_block_hwbc")},
     "ops/pallas_fused_block_bwd.py": {n: _PALLAS for n in ("Array", "K", "P", "SUB",
@@ -120,7 +124,10 @@ def test_port_has_every_public_name(module):
 
 
 def test_package_exports_match():
-    """The ``__all__`` of the packages' ``__init__`` files are the same."""
+    """The ``__all__`` of the packages' ``__init__`` files are the same, but
+    for what a package re-exports from a module whose name ALLOWED leaves
+    out of the port (``utils.StepTimer``)."""
+    left_out = {"utils/__init__.py": set(ALLOWED["utils/profiling.py"])}
     for init in ("__init__.py", "data/__init__.py", "utils/__init__.py", "ops/__init__.py"):
         def exported(pkg):
             for node in ast.parse((pkg / init).read_text()).body:
@@ -129,4 +136,4 @@ def test_package_exports_match():
                     return set(ast.literal_eval(node.value))
             return set()
 
-        assert exported(JAX_PKG) <= exported(PORT_PKG), init
+        assert exported(JAX_PKG) - left_out.get(init, set()) <= exported(PORT_PKG), init

@@ -198,6 +198,34 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.cuda
+def test_a_traced_bf16_forward_holds_a_prep_span_per_fused_block():
+    """Under the profiler, convnext_tiny's bf16 forward shows one
+    ``fused_block.prep`` range a K1 launch (9 + 3 blocks), one span each of
+    the frontend and the four stages, and the card's kernels."""
+    _need_card()
+    from torch.autograd import DeviceType
+
+    from audioset_convnext_inf_torch.models import convnext_tiny
+
+    with pytest.warns(UserWarning, match="auto-switched"):
+        model = convnext_tiny(compute_dtype=torch.bfloat16)
+    pcm = np.zeros((2, 32000), np.int16)
+    model.forward(pcm)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    FB.fused_block.launches = 0
+    with torch.profiler.profile(activities=acts) as prof:
+        model.forward(pcm)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    assert names.count("fused_block.prep") == FB.fused_block.launches == 12
+    for span in ("model.frontend", "model.stage1", "model.stage2", "model.stage3",
+                 "model.stage4"):
+        assert names.count(span) == 1, span
+    assert any(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+@pytest.mark.cuda
 def test_from_pretrained_round_trip_on_the_card(tmp_path):
     """A bf16 serving convnext_atto written as safetensors and as a native
     directory loads on the card with bit-equal outputs."""

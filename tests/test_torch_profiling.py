@@ -105,16 +105,6 @@ def test_count_flops_is_twice_the_reckoned_macs(dtype):
           f"(ratio {got['flops'] / max(xla.get('flops', 1), 1):.3f})")
 
 
-def test_step_timer(monkeypatch):
-    clock = iter([10.0, 10.5, 11.5, 12.0])
-    monkeypatch.setattr(P.time, "perf_counter", lambda: next(clock))
-    t = P.StepTimer(ema=0.5)
-    assert t.tick() is None and t.clips_per_sec(8) is None
-    assert t.tick() == 0.5 and t.clips_per_sec(8) == 16.0
-    assert t.tick() == 0.75
-    assert t.tick() == 0.625
-
-
 def test_profile_ops_and_trace_on_the_cpu(tmp_path):
     cfg = ConvNeXtConfig(**SMALL)
     model = ConvNeXt(cfg, device="cpu")
