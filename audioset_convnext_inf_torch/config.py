@@ -118,7 +118,8 @@ class ConvNeXtConfig:
     ln_eps: float = 1e-6
     bn_eps: float = 1e-5
     # "xla": exact erf GELU (f32 parity); "xla_approx": tanh GELU, and at
-    # eval stages 3-4 run the fused block kernel (ops/fused_block.py).
+    # eval stages 3-4 run the fused block kernel (ops/fused_block.py), with
+    # bf16 activations stages 1-2 too, at the unfused block's rounding points.
     block_impl: str = "xla"
     # Training: recompute the plain blocks in the backward
     # (torch.utils.checkpoint) instead of keeping their activations.

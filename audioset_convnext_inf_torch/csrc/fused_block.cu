@@ -13,6 +13,18 @@
 // training ("save") mode passes the per-sample drop-path scale s (B,) and
 // a d_out buffer, which receives d exactly as rounded before the LN; the
 // serving mode passes neither (s = 1, d not stored).
+// The unfused-rounding mode (bf16 serving only, template flag UNF) rounds
+// where the unfused block of ops does (ops/nhwc.py::convnext_block, the
+// JAX package's _block_apply), so that it computes that function:
+//
+//   d   = round(round(dwconv7x7(x)) + b_dw)          taps given in bf16
+//   xn  = round(LN(d) * ln_w + ln_b)                 as above
+//   h   = round(gelu_tanh(round(xn . W1^T + b1)))     ATen's GELU expression
+//   y   = round(round(h . W2^T + b2) * gamma)         gamma given in bf16
+//   out = round(x + y)
+//
+// Only the stencil's and the two epilogues' arithmetic differ; the
+// products, the ring and the TMA schedule are the same.
 // Weights arrive in the reference layouts: dww (49, C) f32 tap-major (the
 // wrapper transposes the (C,1,7,7) conv weight), W1 (4C, C) and W2 (C, 4C)
 // in T; biases, LN affine and gamma in f32. Any C in [1, 1024].
@@ -33,7 +45,7 @@
 // from shared memory) and to GELU (PERF.md, Findings).
 //
 // bf16 (the serving and training paths): fused_block_wgmma_kernel<NB,
-// TRAIN>, 384 threads: two consumer warpgroups and a producer warpgroup,
+// TRAIN, UNF>, 384 threads: two consumer warpgroups and a producer warpgroup,
 // all of which compute the stencil and LN first. A block takes MT = 64
 // consecutive pixels (flattened over b, h, w), NB *
 // 128 of the output channels (output slice o, blockIdx.y) and a range of
@@ -66,26 +78,34 @@
 //        rounded to bf16 into a swizzled h tile (two buffers), exchanged
 //        between the warpgroups under a named barrier;
 //        acc += h . W2[slice, chunk]^T, each warpgroup half of the slice's
-//        output channels in two pieces that each lie inside one W2 box
-//        (m64n128k16 and m64n64k16 at NB = 3, two m64n128k16 at NB = 4).
+//        output channels in one or two pieces that each lie inside one W2
+//        box (m64n64k16 at NB = 1, m64n128k16 at NB = 2, m64n128k16 and
+//        m64n64k16 at NB = 3, two m64n128k16 at NB = 4).
 //      A warpgroup keeps one box's products in flight while it issues the
 //      next box's (unless the next box is late: then it frees the last one
 //      first); a slot is released once both warpgroups of both CTAs have
 //      waited for the products that read it (one arrive each on both CTAs'
 //      empty barrier).
 //   4. The (64, 64 NB) f32 sum of a warpgroup lives in registers (32 NB a
-//      thread: 96 at NB = 3, 128 at NB = 4, beside 32 for h, within the 232
+//      thread: 32 to 128 at NB = 1 to 4, beside 32 for h, within the 232
 //      registers setmaxnreg gives a consumer thread). With one
 //      hidden range: + b2, * gamma, * s, + x, one rounding, from the
 //      registers. With several: each block writes its f32 partial, and
 //      fused_block_sum_kernel adds them in range order and finishes.
-// The plan (bf16_plan): NB = 3 up to CP = 768, else 4 (the
+// The plan (bf16_plan): NB = CP / 128 below CP = 384 (one slice of all
+// the channels there are: 3 blocks would run the second product over 3x
+// the channels at C = 96), 3 up to CP = 768, else 4 (the
 // registers of a (64, C) f32 sum cap a block's slice: 64 x 768 would take
 // 192 registers a thread in each of two warpgroups beside everything else);
 // output slices CP / (128 NB) rounded up: one up to C = 384, two above (the
-// slices each recompute h); pixel tiles rounded up to pairs; the hidden
+// slices each recompute h); pixel tiles rounded up to pairs; the chunks
+// that hold real hidden units, ceil(4C / 128) (the padded ones add only
+// zeros: 4C = 384 takes 3 chunks, not 4 CP / 128 = 4); the hidden
 // chunks split into ranges when the tiles and slices alone would fill
-// under half the card's 132 SMs (one clip, small batches). It depends on C
+// under half the card's 132 SMs (one clip, small batches); at NB = 1 two
+// blocks an SM (a block alone there waits on one latency after another:
+// staging, stencil, LN, four short chunks, the epilogue), so the ring
+// takes what fits in half an SM's shared memory. It depends on C
 // and N only, so a pixel's result never depends on its neighbours' values.
 // Every cross-block sum is added in the plan's fixed order: no atomics.
 // Channels are padded to CP = 128*ceil(C/128): the wrapper hands over W1
@@ -134,6 +154,18 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.0f + tanhf(k0 * (x + k1 * (x * x * x)))));
 }
 
+// the unfused-rounding mode's GELU: the expression of ATen's tanh GELU
+__device__ __forceinline__ float gelu_tanh_aten(float x) {
+  const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
+  const float k1 = 0.044715f;
+  const float x_cube = x * x * x;
+  return 0.5f * x * (1.0f + tanhf(k0 * (x + k1 * x_cube)));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 
 // ---------------------------------------------------------------------------
 // bf16: the plan
@@ -147,6 +179,34 @@ constexpr int NT_BF = 384;                  // two consumer warpgroups + the pro
 constexpr int PRODUCER = 8;                 // the producer's first warp: lane 0 issues the loads
 constexpr uint32_t CONSUMER_REGS = 232;     // setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65536
 constexpr uint32_t PRODUCER_REGS = 40;
+// NB = 1 (CP = 128): two blocks an SM, so that one block's stencil, LN and
+// epilogue run beside the other's products: 80 registers a thread at
+// launch, the producer's 32 and the consumers' 104 after setmaxnreg, the
+// ring within half an SM's shared memory
+constexpr uint32_t NARROW_CONSUMER_REGS = 104;
+constexpr uint32_t NARROW_PRODUCER_REGS = 32;
+constexpr size_t SM_SMEM = 233472;          // shared memory of an SM; each block takes 1 KB more
+constexpr size_t NARROW_SMEM = SM_SMEM / 2 - 1024;  // a block's share of two, static included
+template <int NB> __host__ __device__ constexpr int blocks_per_sm() { return NB == 1 ? 2 : 1; }
+template <int NB> __host__ __device__ constexpr uint32_t consumer_regs() {
+  return NB == 1 ? NARROW_CONSUMER_REGS : CONSUMER_REGS;
+}
+template <int NB> __host__ __device__ constexpr uint32_t producer_regs() {
+  return NB == 1 ? NARROW_PRODUCER_REGS : PRODUCER_REGS;
+}
+// registers a thread at launch: all the SM's, shared by the blocks it holds
+template <int NB> __host__ __device__ constexpr uint32_t launch_regs() {
+  return 65536 / (NT_BF * blocks_per_sm<NB>()) / 8 * 8;
+}
+// setmaxnreg.inc takes only what the block's own setmaxnreg.dec released:
+// the consumers may gain no more than the producer warpgroup gives up,
+// else they wait for it forever
+template <int NB> __host__ __device__ constexpr bool registers_balance() {
+  return 2 * 128 * (consumer_regs<NB>() - launch_regs<NB>()) <=
+         128 * (launch_regs<NB>() - producer_regs<NB>());
+}
+static_assert(registers_balance<1>() && registers_balance<2>() && registers_balance<3>() &&
+              registers_balance<4>(), "setmaxnreg: the consumers' gain exceeds the producer's release");
 constexpr int STAGE_CAP = 12;               // most slots of the weight ring
 constexpr uint32_t BOXB = 128 * BOX * 2;    // bytes of a 128-row weight box
 constexpr uint32_t XBOX = MT * BOX * 2;     // bytes of a 64 x 64 box of xn or h
@@ -166,12 +226,12 @@ struct Plan {
 Plan bf16_plan(int C, long long npix, int split) {
   Plan p{};
   const int cp = padded_c(C);
-  p.nb = cp <= 768 ? 3 : 4;
+  p.nb = cp < 384 ? cp / 128 : cp <= 768 ? 3 : 4;
   p.out_split = (cp + 128 * p.nb - 1) / (128 * p.nb);
   long long tiles = (npix + MT - 1) / MT;
   tiles += tiles & 1;
   p.tiles = (int)std::min<long long>(tiles, INT_MAX);
-  p.chunks = 4 * cp / NH;
+  p.chunks = (4 * C + NH - 1) / NH;  // the chunks that hold real hidden units
   const long long base = tiles * p.out_split;
   int want = 1;
   if (split > 0) {
@@ -182,7 +242,8 @@ Plan bf16_plan(int C, long long npix, int split) {
   p.per = (p.chunks + want - 1) / want;
   p.hidden_split = (p.chunks + p.per - 1) / p.per;
   const size_t fixed = SW_ATOM + (size_t)MT * cp * 2 + HT_BYTES;
-  p.stages = (int)std::min<size_t>(STAGE_CAP, (MAX_SMEM - STATIC_RESERVE - fixed) / BOXB);
+  const size_t budget = (p.nb == 1 ? NARROW_SMEM : MAX_SMEM) - STATIC_RESERVE;
+  p.stages = (int)std::min<size_t>(STAGE_CAP, (budget - fixed) / BOXB);
   p.smem = fixed + (size_t)p.stages * BOXB;
   return p;
 }
@@ -220,13 +281,16 @@ __device__ __forceinline__ void consumer_bar() {  // the two consumer warpgroups
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-template <int NB, bool TRAIN>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT_BF, 1)
+template <int NB, bool TRAIN, bool UNF>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT_BF, blocks_per_sm<NB>())
 fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
                          const __grid_constant__ CUtensorMap tw2, const Bf16Args a) {
-  // a warpgroup's output channels: a 128-wide piece (acc0) and a 64-wide
-  // (NB = 3) or 128-wide (NB = 4) piece (acc1), each inside one W2 box
-  constexpr int N1 = NB == 3 ? 64 : 128;
+  static_assert(NB >= 1 && NB <= 4 && !(TRAIN && UNF), "a plan's NB; UNF is a serving mode");
+  // a warpgroup's output channels: piece 0 (acc0), 64 wide at NB = 1, else
+  // 128; piece 1 (acc1), 64 wide at NB = 3, 128 at NB = 4, none below;
+  // each inside one W2 box
+  constexpr int N0 = NB == 1 ? 64 : 128;
+  constexpr int N1 = NB == 3 ? 64 : NB == 4 ? 128 : 0;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGE_CAP], empty[STAGE_CAP];
   __shared__ int run_tab[MAX_RUNS];            // run: first pixel (from p0) << 8 | length
@@ -381,15 +445,13 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
         const int m0 = run_tab[r0 + rr] >> 8, len = run_tab[r0 + rr] & 255;
         const int pp = p0 + m0, grow = pp / W, w0 = pp - grow * W;
         const int h = grow % H;
-        const float4 bias = *reinterpret_cast<const float4*>(taps + K * K * slab + 4 * qd);
+        const float4 b4 = *reinterpret_cast<const float4*>(taps + K * K * slab + 4 * qd);
+        const float bias[4] = {b4.x, b4.y, b4.z, b4.w};  // zero beyond C
         float acc[4][RUN];
 #pragma unroll
-        for (int j = 0; j < RUN; ++j) {
-          acc[0][j] = bias.x;  // zero beyond C
-          acc[1][j] = bias.y;
-          acc[2][j] = bias.z;
-          acc[3][j] = bias.w;
-        }
+        for (int j = 0; j < RUN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[e][j] = UNF ? 0.f : bias[e];  // UNF: bias after a rounding
         for (int dy = 0; dy < K; ++dy) {
           const int hh = h + dy - P;
           if (hh < 0 || hh >= H) continue;
@@ -429,7 +491,12 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
           for (int e = 0; e < 4; e += 2) {
             if (c + e >= C) break;
             const bool two = c + e + 1 < C;
-            const __nv_bfloat162 dv = __floats2bfloat162_rn(acc[e][j], two ? acc[e + 1][j] : 0.f);
+            float v0 = acc[e][j], v1 = two ? acc[e + 1][j] : 0.f;
+            if constexpr (UNF) {
+              v0 = round_bf16(v0) + bias[e];
+              v1 = round_bf16(v1) + bias[e + 1];
+            }
+            const __nv_bfloat162 dv = __floats2bfloat162_rn(v0, v1);
             *reinterpret_cast<__nv_bfloat162*>(xs + xn_offset(m0 + j, c + e)) = dv;
             if (store_d) {
               bf16* dp = a.d_out + (long long)(pp + j) * C + c + e;
@@ -505,7 +572,7 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
     // ---- the producer: box t of the stream into slot t % stages, once both
     // CTAs released the slot's previous box; the CTAs take turns to load a
     // box, multicast into both ----------------------------------------------------
-    setmaxnreg_dec<PRODUCER_REGS>();
+    setmaxnreg_dec<producer_regs<NB>()>();
     if (warp == PRODUCER && lane == 0) {
       for (int t = 0; t < T; ++t) {
         const int slot = t % stages, ci = t / BPC, i = t - ci * BPC, chunk = c_begin + ci;
@@ -539,20 +606,22 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
     __syncwarp();
   } else {
     // ---- 3: the consumers ---------------------------------------------------------
-    setmaxnreg_inc<CONSUMER_REGS>();
+    setmaxnreg_inc<consumer_regs<NB>()>();
     const int wg = warp >> 2, q = lane & 3;
     const int r0 = 16 * (warp & 3) + (lane >> 2);  // accumulator rows r0, r0 + 8
     const int hidden = 4 * C;
-    // the W2 boxes of a k-slice this warpgroup reads: piece 0 (128 rows) from
-    // box pa, piece 1 (N1 rows) from box pb at row offset ob
-    const int pa = 2 * wg, pb = NB == 3 ? 1 : 2 * wg + 1, ob = NB == 3 ? 64 * wg : 0;
-    // (NB = 3: piece 0 from box 0 or 2, piece 1 the first or second half of
-    // box 1; NB = 4: boxes 0 and 1, or 2 and 3)
-    float acc0[64], acc1[N1 / 2];
+    // the W2 boxes of a k-slice this warpgroup reads: piece 0 (N0 rows) from
+    // box pa at row offset oa, piece 1 (N1 rows) from box pb at row offset ob
+    const int pa = NB == 1 ? 0 : NB == 2 ? wg : 2 * wg, oa = NB == 1 ? 64 * wg : 0;
+    const int pb = NB == 3 ? 1 : 2 * wg + 1, ob = NB == 3 ? 64 * wg : 0;
+    // (NB = 1: piece 0 the first or second half of box 0; NB = 2: box 0 or
+    // 1; NB = 3: piece 0 from box 0 or 2, piece 1 the first or second half
+    // of box 1; NB = 4: boxes 0 and 1, or 2 and 3)
+    float acc0[N0 / 2], acc1[N1 > 0 ? N1 / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc0[i] = 0.f;
+    for (int i = 0; i < N0 / 2; ++i) acc0[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < N1 / 2; ++i) acc1[i] = 0.f;
+    for (int i = 0; i < (N1 > 0 ? N1 / 2 : 1); ++i) acc1[i] = 0.f;
     int slot = 0;
     uint32_t phase = 0;
     auto take = [&]() {  // the next box of the stream, once it has landed
@@ -612,8 +681,10 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int row = r0 + 8 * hh;
+          const float v0 = h[4 * i + 2 * hh] + bj0, v1 = h[4 * i + 2 * hh + 1] + bj1;
           *reinterpret_cast<uint32_t*>(hb + wg * XBOX + sw128_offset(row, col)) =
-              pack_bf16x2(gelu_tanh(h[4 * i + 2 * hh] + bj0), gelu_tanh(h[4 * i + 2 * hh + 1] + bj1));
+              UNF ? pack_bf16x2(gelu_tanh_aten(round_bf16(v0)), gelu_tanh_aten(round_bf16(v1)))
+                  : pack_bf16x2(gelu_tanh(v0), gelu_tanh(v1));
         }
       }
       fence_proxy_async();
@@ -627,19 +698,28 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
         int sl[NB];
 #pragma unroll
         for (int b = 0; b < NB; ++b) sl[b] = take();
-        const int sa = wg ? sl[2] : sl[0], sb = NB == 3 || wg == 0 ? sl[1] : sl[NB - 1];
-        const unsigned char* wa = ring + (size_t)sa * BOXB;
+        // (ternaries, not sl[pa]: a run-time index would put sl in local memory)
+        int sa = sl[0], sb = sl[0];
+        if constexpr (NB == 2) sa = wg ? sl[1] : sl[0];
+        if constexpr (NB >= 3) sa = wg ? sl[2] : sl[0];
+        if constexpr (NB == 3) sb = sl[1];
+        if constexpr (NB == 4) sb = wg ? sl[3] : sl[1];
+        const unsigned char* wa = ring + (size_t)sa * BOXB + oa * 128;
         const unsigned char* wbp = ring + (size_t)sb * BOXB + ob * 128;
         fence_acc(acc0);
-        fence_acc(acc1);
+        if constexpr (N1 > 0) fence_acc(acc1);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BOX / 16; ++kk) {
           const uint64_t da = kdesc(hb + hk * XBOX, kk);
-          wgmma_m64n128k16<0, 0>(acc0, da, kdesc(wa, kk));
-          if constexpr (NB == 3) {
-            wgmma_m64n64k16<0, 0>(acc1, da, kdesc(wbp, kk));
+          if constexpr (N0 == 128) {
+            wgmma_m64n128k16<0, 0>(acc0, da, kdesc(wa, kk));
           } else {
+            wgmma_m64n64k16<0, 0>(acc0, da, kdesc(wa, kk));
+          }
+          if constexpr (N1 == 64) {
+            wgmma_m64n64k16<0, 0>(acc1, da, kdesc(wbp, kk));
+          } else if constexpr (N1 == 128) {
             wgmma_m64n128k16<0, 0>(acc1, da, kdesc(wbp, kk));
           }
         }
@@ -658,11 +738,12 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
 #pragma unroll
         for (int b = 0; b < NB; ++b) prev[b] = sl[b];
         fence_acc(acc0);
-        fence_acc(acc1);
+        if constexpr (N1 > 0) fence_acc(acc1);
       }
     }
 
-    // ---- 4: + b2, * gamma, * s, + x, one rounding; or the f32 partial ------------
+    // ---- 4: + b2, * gamma, * s, + x, one rounding (UNF: a rounding after
+    // each step); or the f32 partial ------------------------------------------------
     const bool finish = gridDim.z == 1;
     const int HW = H * W;
     const bool pairs_x = C % 2 == 0 && ((reinterpret_cast<uintptr_t>(a.x) |
@@ -680,9 +761,17 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
       const bool two = c + 1 < C;
       y0 += a.b2[c];
       y1 += two ? a.b2[c + 1] : 0.f;
+      if constexpr (UNF) {
+        y0 = round_bf16(y0);
+        y1 = round_bf16(y1);
+      }
       if (a.gamma != nullptr) {
         y0 *= a.gamma[c];
         y1 *= two ? a.gamma[c + 1] : 1.f;
+        if constexpr (UNF) {
+          y0 = round_bf16(y0);
+          y1 = round_bf16(y1);
+        }
       }
       if constexpr (TRAIN) {
         const float sc = a.dps[p / HW];
@@ -698,24 +787,27 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
         if (two) a.out[off + 1] = __float2bfloat16_rn(__bfloat162float(a.x[off + 1]) + y1);
       }
     };
-    const int cb0 = orow0 + 128 * pa, cb1 = orow0 + 128 * pb + ob;
+    const int cb0 = orow0 + 128 * pa + oa, cb1 = orow0 + 128 * pb + ob;
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < N0 / 8; ++i)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
         emit(cb0, 8 * i + 2 * q, acc0[4 * i + 2 * hh], acc0[4 * i + 2 * hh + 1], hh);
+    if constexpr (N1 > 0) {
 #pragma unroll
-    for (int i = 0; i < N1 / 8; ++i)
+      for (int i = 0; i < N1 / 8; ++i)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        emit(cb1, 8 * i + 2 * q, acc1[4 * i + 2 * hh], acc1[4 * i + 2 * hh + 1], hh);
+        for (int hh = 0; hh < 2; ++hh)
+          emit(cb1, 8 * i + 2 * q, acc1[4 * i + 2 * hh], acc1[4 * i + 2 * hh + 1], hh);
+    }
   }
   cluster_sync();  // neither CTA leaves while the other may still signal its barriers
 }
 
 // out = round(x + ((sum of the ranges' partials in range order + b2) * gamma)
-// * s[b]), one thread an element: the hidden ranges' fixed-order sum.
-template <bool TRAIN>
+// * s[b]), one thread an element: the hidden ranges' fixed-order sum (UNF:
+// the kernel's unfused-rounding epilogue).
+template <bool TRAIN, bool UNF>
 __global__ void __launch_bounds__(NT) fused_block_sum_kernel(
     const float* __restrict__ part, int splits, const bf16* __restrict__ x, bf16* __restrict__ out,
     const float* __restrict__ b2, const float* __restrict__ gamma, const float* __restrict__ dps,
@@ -726,7 +818,8 @@ __global__ void __launch_bounds__(NT) fused_block_sum_kernel(
   float s = part[(long long)p * cp + c];
   for (int r = 1; r < splits; ++r) s += part[((long long)r * npix + p) * cp + c];
   float y = s + b2[c];
-  if (gamma != nullptr) y *= gamma[c];
+  if constexpr (UNF) y = round_bf16(y);
+  if (gamma != nullptr) y = UNF ? round_bf16(y * gamma[c]) : y * gamma[c];
   if constexpr (TRAIN) y *= dps[p / HW];
   out[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + y);
 }
@@ -909,11 +1002,21 @@ struct Args {
   const float* gamma; const float* s; void* d_out; float* part; int B, H, W, C, cp; float eps;
 };
 
-template <int NB, bool TRAIN>
+template <int NB, bool TRAIN, bool UNF>
 int launch_wgmma(const Args& a, const Plan& p, cudaStream_t st) {
   static std::atomic<int> granted[32];
-  cudaError_t err = allow_smem(fused_block_wgmma_kernel<NB, TRAIN>, p.smem, granted);
+  cudaError_t err = allow_smem(fused_block_wgmma_kernel<NB, TRAIN, UNF>, p.smem, granted);
   if (err != cudaSuccess) return (int)err;
+  if (blocks_per_sm<NB>() > 1) {  // all of the SM's memory to shared, for two blocks
+    static std::atomic<bool> carved{false};
+    if (!carved.load()) {
+      err = cudaFuncSetAttribute(fused_block_wgmma_kernel<NB, TRAIN, UNF>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return (int)err;
+      carved.store(true);
+    }
+  }
   const int cp = a.cp, npix = a.B * a.H * a.W;
   CUtensorMap w1, w2;  // 128-row x 64 boxes of W1 (4cp, cp) and W2 (cp, 4cp)
   if ((err = encode_tmap_2d(&w1, a.w1, cp, 4 * cp, BOX, 128)) != cudaSuccess) return (int)err;
@@ -922,19 +1025,24 @@ int launch_wgmma(const Args& a, const Plan& p, cudaStream_t st) {
   const Bf16Args ka{cb(a.x), static_cast<bf16*>(a.out), a.dww, a.dwb, a.lnw, a.lnb, a.b1, a.b2,
                     a.gamma, a.s, static_cast<bf16*>(a.d_out), a.part, a.B, a.H, a.W, a.C, cp,
                     npix, p.per, p.chunks, p.stages, a.eps};
-  fused_block_wgmma_kernel<NB, TRAIN><<<dim3(p.tiles, p.out_split, p.hidden_split), NT_BF,
-                                        p.smem, st>>>(w1, w2, ka);
+  fused_block_wgmma_kernel<NB, TRAIN, UNF><<<dim3(p.tiles, p.out_split, p.hidden_split), NT_BF,
+                                             p.smem, st>>>(w1, w2, ka);
   if ((err = cudaGetLastError()) != cudaSuccess || p.hidden_split == 1) return (int)err;
   const long long n = (long long)npix * a.C;
-  fused_block_sum_kernel<TRAIN><<<(unsigned)((n + NT - 1) / NT), NT, 0, st>>>(
+  fused_block_sum_kernel<TRAIN, UNF><<<(unsigned)((n + NT - 1) / NT), NT, 0, st>>>(
       a.part, p.hidden_split, cb(a.x), static_cast<bf16*>(a.out), a.b2, a.gamma, a.s, npix,
       a.H * a.W, a.C, cp);
   return (int)cudaGetLastError();
 }
 
-template <bool TRAIN>
+template <bool TRAIN, bool UNF>
 int launch_bf16(const Args& a, const Plan& p, cudaStream_t st) {
-  return p.nb == 3 ? launch_wgmma<3, TRAIN>(a, p, st) : launch_wgmma<4, TRAIN>(a, p, st);
+  switch (p.nb) {
+    case 1: return launch_wgmma<1, TRAIN, UNF>(a, p, st);
+    case 2: return launch_wgmma<2, TRAIN, UNF>(a, p, st);
+    case 3: return launch_wgmma<3, TRAIN, UNF>(a, p, st);
+    default: return launch_wgmma<4, TRAIN, UNF>(a, p, st);
+  }
 }
 
 template <bool TRAIN>
@@ -979,7 +1087,9 @@ extern "C" long long fused_block_plan_smem(int C, int dtype, long long npix, int
 }
 
 // Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16.
-// gamma may be null; s and d_out are both given (save mode) or both null.
+// gamma may be null; s and d_out are both given (save mode) or both null;
+// unfused = 1 selects the unfused-rounding mode (bf16 serving only: the
+// taps and gamma hold bf16 values).
 // The plan's numbers are the wrapper's (see fused_block_plan_smem); in
 // bf16, w1 is (4cp, cp) and w2 (cp, 4cp), zero beyond C and 4C, and `part`
 // is an f32 (hidden_split, npix, cp) workspace when hidden_split > 1 (else
@@ -989,13 +1099,14 @@ extern "C" int fused_block_forward(
     const void* lnw, const void* lnb, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* gamma, const void* s, void* d_out,
     int B, int H, int W, int C, float eps, int dtype, void* stream, int mt, int cp,
-    int out_split, int hidden_split, int per, int stages, void* part) {
+    int out_split, int hidden_split, int per, int stages, void* part, int unfused) {
   if (B < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
   const long long npix = (long long)B * H * W;
   const long long smem =
       fused_block_plan_smem(C, dtype, npix, mt, cp, out_split, hidden_split, per, stages);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   if ((s == nullptr) != (d_out == nullptr)) return (int)cudaErrorInvalidValue;
+  if (unfused && (dtype != 1 || s != nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && (hidden_split > 1) != (part != nullptr)) return (int)cudaErrorInvalidValue;
   if (npix == 0) return 0;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -1005,5 +1116,6 @@ extern "C" int fused_block_forward(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return train ? launch_f32<true>(a, smem, st) : launch_f32<false>(a, smem, st);
   const Plan p = bf16_plan(C, npix, FORCED_SPLIT);
-  return train ? launch_bf16<true>(a, p, st) : launch_bf16<false>(a, p, st);
+  if (train) return launch_bf16<true, false>(a, p, st);
+  return unfused ? launch_bf16<false, true>(a, p, st) : launch_bf16<false, false>(a, p, st);
 }

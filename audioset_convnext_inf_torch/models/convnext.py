@@ -13,11 +13,13 @@ The modules hold the parameters under the reference's state-dict names
 The forward functions mirror the JAX package's ``models/convnext.py``
 function for function and keep its rounding points. Activations are NHWC
 (B, H, W, C) throughout. With ``block_impl="xla_approx"`` at eval, every
-block of stages 3 and 4 runs the fused block kernel (``ops/fused_block.py``);
-the other blocks run ``_block_apply`` in plain PyTorch. In training mode
-(``model.training``) with ``fused_train_blocks``, those blocks run
-``FusedBlockTrain``: the fused kernel's save mode forward and the fused
-backward kernel (``ops/fused_block_bwd.py``).
+block of stages 3 and 4 runs the fused block kernel (``ops/fused_block.py``)
+at its own rounding points, and with bf16 activations every block of stages
+1 and 2 runs the same kernel in its unfused-rounding mode, which computes
+``_block_apply``'s function; the other blocks run ``_block_apply`` in plain
+PyTorch. In training mode (``model.training``) with ``fused_train_blocks``,
+the blocks of stages 3 and 4 run ``FusedBlockTrain``: the fused kernel's
+save mode forward and the fused backward kernel (``ops/fused_block_bwd.py``).
 """
 
 from __future__ import annotations
@@ -36,13 +38,17 @@ from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
 from audioset_convnext_inf_torch.ops.fused_block import fused_block
 from audioset_convnext_inf_torch.ops.fused_block_train import FusedBlockTrain
 from audioset_convnext_inf_torch.ops.mixup import do_mixup
+from audioset_convnext_inf_torch.ops.nhwc import convnext_block
 from audioset_convnext_inf_torch.ops.specaugment import draw_stripes, spec_augment
 from audioset_convnext_inf_torch.utils.profiling import span
 
-# Stage indices whose blocks run the fused kernel in the bf16 serving
-# config: the JAX package's set (its _FUSED_STAGE_TILES keys). The fused and
-# unfused blocks round bf16 at different points, so this set is part of what
-# bf16 parity with the JAX package means.
+# Stage indices whose blocks run the fused kernel at its own rounding points
+# in the serving config: the JAX package's set (its _FUSED_STAGE_TILES keys).
+# The fused and unfused blocks round bf16 at different points, so this set
+# is part of what bf16 parity with the JAX package means. The blocks of the
+# other stages (0 and 1) run the kernel too in bf16 serving, in its
+# unfused-rounding mode: at _block_apply's rounding points, which is what
+# the JAX package computes there.
 FUSED_STAGES = (2, 3)
 
 
@@ -167,28 +173,24 @@ def count_parameters(model: nn.Module) -> int:
 
 def _block_apply(x: torch.Tensor, blk: Block, block_impl: str = "xla",
                  drop_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """ConvNeXt block in plain PyTorch: erf GELU under "xla", tanh under
-    "xla_approx"; ``drop_scale`` (B,) is the block's drop-path draw."""
-    shortcut = x
-    c = x.shape[-1]
-    x = L.conv2d(x, blk.dwconv.weight, blk.dwconv.bias, padding=(3, 3), groups=c)
-    x = blk.norm(x)
-    x = L.linear(x, blk.pwconv1.weight, blk.pwconv1.bias)
-    x = torch.nn.functional.gelu(x, approximate="tanh" if block_impl == "xla_approx" else "none")
-    x = L.linear(x, blk.pwconv2.weight, blk.pwconv2.bias)
-    if blk.gamma is not None:
-        x = x * blk.gamma.to(x.dtype)
-    return shortcut + L.drop_path(x, drop_scale)
+    """ConvNeXt block in plain PyTorch (``ops/nhwc.py::convnext_block``):
+    erf GELU under "xla", tanh under "xla_approx"; ``drop_scale`` (B,) is
+    the block's drop-path draw."""
+    return convnext_block(x, *_block_weights(blk), blk.norm.eps,
+                          "tanh" if block_impl == "xla_approx" else "none", drop_scale)
 
 
-def _fused_block(x: torch.Tensor, blk: Block) -> torch.Tensor:
-    return fused_block(
-        x.contiguous(), blk.dwconv.weight, blk.dwconv.bias,
-        blk.norm.weight, blk.norm.bias,
-        blk.pwconv1.weight, blk.pwconv1.bias,
-        blk.pwconv2.weight, blk.pwconv2.bias,
-        blk.gamma, blk.norm.eps,
-    )
+def _block_weights(blk: Block):
+    return (blk.dwconv.weight, blk.dwconv.bias, blk.norm.weight, blk.norm.bias,
+            blk.pwconv1.weight, blk.pwconv1.bias, blk.pwconv2.weight, blk.pwconv2.bias,
+            blk.gamma)
+
+
+def _fused_block(x: torch.Tensor, blk: Block, unfused_rounding: bool = False) -> torch.Tensor:
+    # the unfused-rounding mode takes x in any layout: on the CPU it runs
+    # _block_apply's ops on x as it is, so their results do not change
+    return fused_block(x if unfused_rounding else x.contiguous(), *_block_weights(blk),
+                       blk.norm.eps, unfused_rounding=unfused_rounding)
 
 
 def _fused_block_train(x: torch.Tensor, blk: Block, s: Optional[torch.Tensor]) -> torch.Tensor:
@@ -249,6 +251,9 @@ def forward_features(
         tap = _no_tap
     train = model.training
     fused = cfg.block_impl == "xla_approx" and not train
+    # stages 1-2 run K1 in its unfused-rounding mode: the same function as
+    # _block_apply's, on the bf16 serving path only
+    unfused_k1 = fused and x.dtype == torch.bfloat16
     fused_train = fused_train_route(model, cfg)
     remat = train and cfg.remat_blocks
     scales = drop_path_scales if train and drop_path_scales is not None \
@@ -272,6 +277,8 @@ def forward_features(
                 s = scales[cur + j]
                 if stage_fused:
                     x = _fused_block_train(x, blk, s) if train else _fused_block(x, blk)
+                elif unfused_k1:
+                    x = _fused_block(x, blk, unfused_rounding=True)
                 elif remat:
                     x = torch.utils.checkpoint.checkpoint(
                         _block_apply, x, blk, cfg.block_impl, s, use_reentrant=False)

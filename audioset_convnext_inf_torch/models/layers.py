@@ -5,19 +5,26 @@ function keeps the JAX package's rounding points (its ``models/layers.py``):
 statistics and accumulations run in float32 and the result is cast back to
 the activation dtype once. Weights stay float32 in the modules and are cast
 to the activation dtype where they enter a product. On the card, f32 ops run
-with TF32 off (``ops.precision``), so the f32 path is true f32.
+with TF32 off (``ops.precision``), so the f32 path is true f32. The NHWC
+layer functions (``layer_norm``, ``linear``, ``conv2d``, ``drop_path``) are
+``ops/nhwc.py``'s, re-exported here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audioset_convnext_inf_torch.ops.precision import fp32_precision, mm_f32acc
+from audioset_convnext_inf_torch.ops.nhwc import (  # noqa: F401 (the layer functions)
+    conv2d,
+    drop_path,
+    layer_norm,
+    linear,
+)
 
 
 def trunc_normal(
@@ -70,18 +77,6 @@ def init_batch_norm_(norm: nn.Module) -> None:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, torch's ``nn.GELU()`` default."""
     return F.gelu(x, approximate="none")
-
-
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the trailing axis with single-pass f32 statistics
-    (E[x^2] - E[x]^2, clamped at 0); the result is cast back to x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    mean_sq = (xf * xf).mean(dim=-1, keepdim=True)
-    var = torch.clamp(mean_sq - mean * mean, min=0.0)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * weight + bias).to(x.dtype)
 
 
 def batch_norm_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -158,59 +153,3 @@ def draw_drop_path(generator: Optional[torch.Generator], batch: int,
     keep_prob = 1.0 - drop_prob
     keep = torch.rand(batch, generator=generator) < keep_prob
     return keep.float() / keep_prob
-
-
-def drop_path(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """Per-sample residual drop (reference convnext.py:90-127): the branch
-    times its sample's scale from ``draw_drop_path``, taken in x's dtype as
-    the JAX package takes its mask. ``scale=None`` is the identity."""
-    if scale is None:
-        return x
-    return x * scale.to(device=x.device, dtype=x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
-
-
-def linear(x: torch.Tensor, weight: torch.Tensor,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ weight.T (+ bias), weight in (out, in) layout. Accumulates in f32,
-    adds the f32 bias, then casts to x's dtype once."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
-        with fp32_precision("highest"):
-            y = F.linear(x2, weight, bias)
-    else:
-        y = mm_f32acc(x2, weight.to(x.dtype).t())
-        if bias is not None:
-            y = y + bias
-    return y.to(x.dtype).reshape(*lead, weight.shape[0])
-
-
-def conv2d(
-    x: torch.Tensor,
-    weight: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
-    stride: Tuple[int, int] = (1, 1),
-    padding: Union[Tuple[int, int], int] = 0,
-    groups: int = 1,
-    acc_f32: bool = False,
-) -> torch.Tensor:
-    """NHWC conv with OIHW weights.
-
-    f32 activations convolve in true f32. bf16 activations convolve in bf16
-    (f32 accumulation inside cuDNN), round to bf16, then add the f32 bias
-    and round again: the JAX package's ``conv2d`` rounding points. With
-    ``acc_f32`` the bf16 operands are widened and the sum stays f32 until
-    after the bias, one rounding, as the JAX package's patch-GEMM stem and
-    fused-layout downsample do.
-    """
-    dt = x.dtype
-    xc = x.permute(0, 3, 1, 2)
-    if dt == torch.float32 or acc_f32:
-        with fp32_precision("highest"):
-            y = F.conv2d(xc.float(), weight.to(dt).float(), None, stride, padding, 1, groups)
-    else:
-        y = F.conv2d(xc, weight.to(dt), None, stride, padding, 1, groups)
-    y = y.permute(0, 2, 3, 1)
-    if bias is not None:
-        y = y + bias
-    return y.to(dt)

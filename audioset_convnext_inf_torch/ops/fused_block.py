@@ -15,13 +15,23 @@ scale ``s`` (B,), which multiplies the branch after gamma and before the
 residual, and also returns ``d``, the dwconv output as rounded before the
 LN, for the fused backward (``ops/fused_block_bwd.py``).
 
-The kernel is two ``torch.library`` custom ops, ``fused_block`` (serving)
-and ``fused_block_save`` (training), in the namespace ``OPS``, each with a
-shape ("fake") implementation, so that ``torch.export`` and
-``torch.compile`` see one node per block. On a CUDA tensor an op launches
-``csrc/fused_block.cu`` (built at first use by ``ops/_build.py``) or
-raises; on a CPU tensor it runs ``fused_block_reference``, the same
-function in plain PyTorch. The kernel
+The unfused-rounding mode (``unfused_rounding=True``, bf16 serving only)
+computes the block at the rounding points of the unfused block,
+``ops/nhwc.py::convnext_block`` (the JAX package's ``_block_apply``): the
+depthwise sum rounds to bf16 before its bias is added and again after, the
+LN output rounds, ``h . W1^T + b1`` rounds before the GELU and again after,
+``h . W2^T + b2`` rounds before the product with bf16 gamma and again
+after, and the residual sum rounds; the depthwise taps enter in bf16. Its
+CPU leg is ``convnext_block`` itself, on x in whatever layout it comes in.
+
+The kernel is two ``torch.library`` custom ops, ``fused_block`` (serving,
+either rounding) and ``fused_block_save`` (training), in the namespace
+``OPS``, each with a shape ("fake") implementation, so that
+``torch.export`` and ``torch.compile`` see one node per block. On a CUDA
+tensor an op launches ``csrc/fused_block.cu`` (built at first use by
+``ops/_build.py``) or raises; on a CPU tensor it runs
+``fused_block_reference`` (``convnext_block`` in the unfused-rounding
+mode), the same function in plain PyTorch. The kernel
 source says what bounds it on the card and what its design does about it.
 ``launch_plan`` chooses the launch (pixel tiles and their clusters, channel
 padding of the bf16 tiles, output slices, hidden ranges, ring stages,
@@ -38,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from audioset_convnext_inf_torch.ops import _build
+from audioset_convnext_inf_torch.ops.nhwc import convnext_block
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
 from audioset_convnext_inf_torch.utils.profiling import span
 
@@ -56,11 +67,15 @@ SMS = 132  # an H100's SMs: the hidden split aims at half of them or more
 THREADS = 384  # two consumer warpgroups and the producer's
 CONSUMER_REGS = 232  # setmaxnreg: a consumer thread's registers (the producer's keep 40)
 PRODUCER_REGS = 40
+NARROW_CONSUMER_REGS = 104  # NB = 1: two blocks an SM, 80 registers a thread at launch
+NARROW_PRODUCER_REGS = 32  # NB = 1: what the producer keeps, so that the consumers get 104
 H_REGS = 32  # f32 registers of a warpgroup's (64, 64) share of a chunk's h
 BOX_BYTES = 128 * 64 * 2  # a 128-row x 64 box of W1 or W2 (bf16)
 XBOX_BYTES = MT * 64 * 2  # a 64 x 64 box of xn or h
 HT_BYTES = 2 * (NH // 64) * XBOX_BYTES  # two h tiles; x's staging for the stencil before
 MAX_SMEM = 232_448  # shared memory one block may opt into on an H100
+SM_SMEM = 233_472  # shared memory of an H100 SM; each resident block takes 1 KB more
+NARROW_SMEM = SM_SMEM // 2 - 1024  # a block's share when two share an SM, static included
 STATIC_RESERVE = 2048  # static shared memory the kernel may take beside the dynamic
 STAGE_CAP = 12  # most slots of the weight ring (one box each)
 
@@ -85,13 +100,19 @@ class LaunchPlan(NamedTuple):
     threads: int = 256      # threads of a block
     l2_weight_bytes: int = 0  # bf16: weight bytes the call reads from L2 (one fetch per cluster)
     launches: Tuple[Tuple[str, int], ...] = ()  # (kernel, blocks) of one call
+    chunks: int = 0         # bf16: 128-unit chunks that hold real hidden units, ceil(4C / 128)
+    sm_blocks: int = 1      # bf16: blocks an SM holds at once (2 at NB = 1)
 
 
 def launch_plan(c: int, dtype: torch.dtype, npix: int, split: Optional[int] = None) -> LaunchPlan:
     """The forward kernel's launch for C channels and npix = B*H*W pixels.
     bf16: 64-pixel tiles in clusters of two that share every weight box
     (128 pixel rows per box read from L2), output slices of 384 channels up
-    to C = 768 and 512 above, and the 4C hidden units in ranges where the
+    to C = 768 and 512 above (below CP = 384 one slice of CP channels, so
+    the second product runs no channel that does not exist), the chunks of
+    128 hidden units that hold real ones (ceil(4C / 128)), two blocks an
+    SM at CP = 128 (the ring in half an SM's shared memory), and the 4C
+    hidden units in ranges where the
     tiles and slices alone would keep under half of the card's SMs busy
     (``split`` forces the number of ranges: the ablation script's
     ``K1_SPLIT`` build). f32: the FMA kernel, 16 pixels per block, the (16,
@@ -106,11 +127,11 @@ def launch_plan(c: int, dtype: torch.dtype, npix: int, split: Optional[int] = No
     if dtype != torch.bfloat16:
         raise TypeError(f"fused_block takes float32 or bfloat16 activations, got {dtype}")
     cp = padded_c(c)
-    nb = 3 if cp <= 768 else 4
+    nb = cp // 128 if cp < 384 else 3 if cp <= 768 else 4
     out_split = -(-cp // (128 * nb))
     tiles = -(-npix // MT)
     tiles += tiles % CLUSTER
-    chunks = 4 * cp // NH
+    chunks = -(-4 * c // NH)
     base = tiles * out_split
     want = 1
     if split:
@@ -120,7 +141,9 @@ def launch_plan(c: int, dtype: torch.dtype, npix: int, split: Optional[int] = No
     per = -(-chunks // want)
     hidden_split = -(-chunks // per)
     fixed = 1024 + MT * cp * 2 + HT_BYTES  # + 1024: the kernel aligns its tiles to 1024 bytes
-    stages = min(STAGE_CAP, (MAX_SMEM - STATIC_RESERVE - fixed) // BOX_BYTES)
+    sm_blocks = 2 if nb == 1 else 1
+    budget = (NARROW_SMEM if sm_blocks == 2 else MAX_SMEM) - STATIC_RESERVE
+    stages = min(STAGE_CAP, (budget - fixed) // BOX_BYTES)
     ctas = tiles * out_split * hidden_split
     # per cluster and range: W1's rows of the range once for each slice, W2's
     # rows of the slice (inside cp) once
@@ -129,7 +152,7 @@ def launch_plan(c: int, dtype: torch.dtype, npix: int, split: Optional[int] = No
     if hidden_split > 1:
         launches += (("fused_block_sum_kernel", -(-npix * c // 256)),)
     return LaunchPlan(MT, cp, ctas, fixed + stages * BOX_BYTES, 32 * nb, nb, out_split,
-                      hidden_split, per, stages, tiles, THREADS, l2, launches)
+                      hidden_split, per, stages, tiles, THREADS, l2, launches, chunks, sm_blocks)
 
 
 def tile_weights(w1: torch.Tensor, w2: torch.Tensor, dt: torch.dtype,
@@ -190,10 +213,11 @@ def fused_block_reference(
     return (out, d.to(dt)) if save_dwconv else out
 
 
-def _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s=None) -> None:
+def _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s=None,
+           any_layout: bool = False) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_block takes float32 or bfloat16 activations, got {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
+    if x.dim() != 4 or not (any_layout or x.is_contiguous()):
         raise ValueError(
             f"fused_block wants a contiguous NHWC (B, H, W, C) tensor, got {tuple(x.shape)}")
     c = x.shape[-1]
@@ -225,7 +249,7 @@ def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
         lib.fused_block_plan_smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [
             ctypes.c_int] * 6
@@ -247,16 +271,27 @@ def fused_block(
     eps: float = 1e-6,
     s: Optional[torch.Tensor] = None,
     save_dwconv: bool = False,
+    unfused_rounding: bool = False,
 ):
     """One ConvNeXt block on NHWC ``x``; weights in the reference layouts.
     With ``s`` (B,) the branch is scaled per sample; with ``save_dwconv``
-    the call returns (y, d). It calls the custom op ``fused_block`` (serving
-    mode) or ``fused_block_save`` (either argument given): CUDA tensors
-    launch the kernel (``fused_block.launches`` counts each launch); CPU
-    tensors run the plain version."""
-    _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s)
+    the call returns (y, d). With ``unfused_rounding`` (bf16, serving) the
+    block rounds where the unfused block does, and x may come in any
+    layout. It calls the custom op ``fused_block`` (serving mode, either
+    rounding) or ``fused_block_save`` (``s`` or ``save_dwconv`` given):
+    CUDA tensors launch the kernel (``fused_block.launches`` counts each
+    launch); CPU tensors run the plain version."""
+    _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s, any_layout=unfused_rounding)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block runs on cuda or cpu tensors, got {x.device}")
+    if unfused_rounding:
+        if s is not None or save_dwconv:
+            raise ValueError("fused_block: the unfused-rounding mode is a serving mode "
+                             "(no s, no save_dwconv)")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"fused_block: the unfused-rounding mode takes bfloat16 "
+                            f"activations, got {x.dtype}")
+        return _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps), True)
     if s is None and not save_dwconv:
         return _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps))
     if s is None:  # the kernel's save mode takes a scale: ones
@@ -275,21 +310,26 @@ _ARGS = ("Tensor x, Tensor dw_w, Tensor dw_b, Tensor ln_w, Tensor ln_b, Tensor w
 
 
 @torch.library.custom_op(f"{OPS}::fused_block", mutates_args=(), device_types="cpu",
-                         schema=f"({_ARGS}) -> Tensor")
-def _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
+                         schema=f"({_ARGS}, bool unfused_rounding=False) -> Tensor")
+def _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, unfused_rounding=False):
+    if unfused_rounding:
+        return convnext_block(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
     return fused_block_reference(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
 
 
 @_serving_op.register_kernel("cuda")
-def _serving_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
+def _serving_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, unfused_rounding=False):
+    x = x.contiguous()  # the unfused-rounding mode takes any layout
     b, h, w, c = x.shape
     return _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, None, False,
-                         launch_plan(c, x.dtype, b * h * w))
+                         launch_plan(c, x.dtype, b * h * w), unfused=unfused_rounding)
 
 
 @_serving_op.register_fake
-def _serving_fake(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
-    return torch.empty_like(x)
+def _serving_fake(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, unfused_rounding=False):
+    # the CPU leg keeps x's layout (convnext_block's ops follow it), the
+    # kernel writes NHWC
+    return torch.empty_like(x) if x.device.type == "cpu" else x.new_empty(x.shape)
 
 
 @torch.library.custom_op(f"{OPS}::fused_block_save", mutates_args=(), device_types="cpu",
@@ -311,12 +351,15 @@ def _save_fake(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s):
 
 
 def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save: bool,
-                  plan: LaunchPlan, defines: Tuple[str, ...] = ()):
+                  plan: LaunchPlan, defines: Tuple[str, ...] = (), unfused: bool = False):
     """One launch of the kernel under ``plan`` (checked arguments, CUDA x),
     from the library built with ``defines``: serving mode (``s`` None) ->
-    y, or save mode (``s`` (B,) given) -> (y, d)."""
+    y, or save mode (``s`` (B,) given) -> (y, d); ``unfused``: serving
+    mode at the unfused block's rounding points (bf16)."""
     if save == (s is None):
         raise ValueError("the kernel's save mode takes s, and serving mode none")
+    if unfused and (save or x.dtype != torch.bfloat16):
+        raise ValueError("the kernel's unfused-rounding mode is bf16 serving only")
     lib = _lib(defines)
     b, h, w, c = x.shape
     dt = x.dtype
@@ -324,12 +367,15 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
     def f32(t):
         return t.detach().to(torch.float32).contiguous()
 
+    def taps(t):  # the unfused block's depthwise taps and gamma enter in bf16
+        return f32(t.detach().to(dt) if unfused else t)
+
     with span("fused_block.prep"):
-        dww = f32(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
+        dww = taps(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
         args = (f32(dw_b), f32(ln_w), f32(ln_b))
         w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
         b1c, b2c = f32(b1), f32(b2)
-        g = f32(gamma) if gamma is not None else None
+        g = taps(gamma) if gamma is not None else None
         out = torch.empty_like(x)
         sc = f32(s) if save else None
         d = torch.empty_like(x) if save else None
@@ -343,13 +389,16 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
             g.data_ptr() if g is not None else None,
             sc.data_ptr() if save else None, d.data_ptr() if save else None,
             b, h, w, c, float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp, plan.out_split,
-            plan.hidden_split, plan.per, plan.stages, part.data_ptr() if part is not None else None)
+            plan.hidden_split, plan.per, plan.stages, part.data_ptr() if part is not None else None,
+            int(unfused))
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: cudaError {err}")
     fused_block.launches += 1
     fused_block.save_launches += int(save)
+    fused_block.unfused_rounding_launches += int(unfused)
     return (out, d) if save else out
 
 
 fused_block.launches = 0  # every launch
 fused_block.save_launches = 0  # the launches in save mode (of those counted above)
+fused_block.unfused_rounding_launches = 0  # the launches in the unfused-rounding mode

@@ -21,12 +21,15 @@ run (non-zero exit) on any error or mismatch:
     use, with the tolerances stated in KERNEL_TOL: the fused block (K1) in
     its serving mode and its training ("save") mode, with the share of d
     bit-equal to the plain version's, and the fused block backward (K2);
-    each must also give bit-equal results twice;
+    each must also give bit-equal results twice; K1's unfused-rounding
+    mode at stage-1/2 widths (K1_UNFUSED_CASES) against the unfused block
+    on the card, nearer to it than K1's own rounding;
  4. serving path: convnext_tiny at full width on B=16 ten-second clips (the
     fixture recording as int16 plus seeded variants), random weights from
     a seed with seeded gamma/bn0 values. The bf16 serving config runs
     forward, forward_scene_embeddings and forward_frame_embeddings, and each
-    call must launch the fused block kernel exactly once per stage-3/4 block;
+    call must launch the fused block kernel exactly once per block, in its
+    unfused-rounding mode at stages 1-2 (6 launches) and its own at 3-4;
     the f32 parity config launches it never and matches the port's own f32
     forward on the CPU; bf16 serving probabilities stay near f32 parity;
     fault 1: row 0 of every layer's output is bit-equal beside zero rows
@@ -37,8 +40,9 @@ run (non-zero exit) on any error or mismatch:
     compute, mixup 1.0, SpecAugment, AdamW with OneCycle), TRAIN_STEPS
     Trainer.step calls on 32 fixture-derived clips (mixup pairs them into
     B=16). Each step must launch K1 in save mode and K2 exactly once per
-    stage-3/4 block, with a finite loss; the trained model's eval forward
-    launches K1 12 times in serving mode; one step's gradients with the
+    stage-3/4 block, with a finite loss, and never the unfused-rounding
+    mode; the trained model's f32 eval forward launches K1 12 times in
+    serving mode; one step's gradients with the
     fused blocks against the unfused ones (drop path off), bf16 and f32;
  6. times (CUDA events after warm-up; a kernel's the median of 5 runs of 20
     calls): each kernel and its plain version at
@@ -64,7 +68,7 @@ run (non-zero exit) on any error or mismatch:
     (the card machine has no h5py; the HDF5 route is held against the JAX
     package by the CPU tests), bit-equal to model.forward on the same
     padded batches, with finite mAP/AUC/d-prime; tag_clip, tag_long_audio
-    and embed_long_audio on the fixture; each step must launch K1 12 times
+    and embed_long_audio on the fixture; each step must launch K1 18 times
     per forward (phase 3 holds K1 against its plain version at each of
     these batch sizes); the CLIs on their default device: convert and the
     demo; then the Evaluator's clips/s (median of three runs) beside
@@ -74,7 +78,7 @@ run (non-zero exit) on any error or mismatch:
     phase-4 model, batch 16, max wait 20 ms. SERVE_CLIENTS client threads
     send int16 clips to /tag in a closed loop for SERVE_SECONDS; every
     answer must equal model.forward of that clip in a batch of 16 within
-    SERVICE_TOL, and each batch must launch K1 12 times. Requests/s,
+    SERVICE_TOL, and each batch must launch K1 18 times. Requests/s,
     p50/p99 latency and the mean batch fill, then the same with the
     batcher driven directly (no HTTP); a 25-s request, /embed, /healthz;
     one trace of a burst of requests;
@@ -95,13 +99,13 @@ run (non-zero exit) on any error or mismatch:
     two replicas on the one card against one replica (SHARDED_EVAL_TOL),
     clips/s beside phase 7's; (d) cli/serve.py --mesh with the phase-4
     model for SERVE_MESH_SECONDS of phase 8's traffic, every answer within
-    SERVICE_TOL, K1 12 times per replica batch;
+    SERVICE_TOL, K1 18 times per replica batch;
 11. AOT serving bundles (engine/aot_export.py) of the phase-4 model, int16
     in: forward at buckets 1 and 16, scene and frame at 16, shared weights
     at 16, one dynamic program, and the f32 parity config at 16, each
     exported (seconds per program, size on disk), loaded (seconds, first
     call) and held against the live model within BUNDLE_TOL (B=16, B=3
-    padded, B=1, the dynamic program at 2 and 5): 12 K1 launches per bf16
+    padded, B=1, the dynamic program at 2 and 5): 18 K1 launches per bf16
     call, none in f32; the forward bundle in a fresh process that cannot
     import the port's models or checkpoint packages, bit-equal; its steady
     clips/s beside the live forward's; cli/serve.py --bundle with phase 8's
@@ -152,15 +156,15 @@ run (non-zero exit) on any error or mismatch:
     host and by op; (c) the Kaldi-fbank evaluation route at full width:
     phase 7's 200 clips through AudioSetDataset(use_kaldi_fbank=True)'s
     own per-clip transform, the DataLoader and the Evaluator at B=64 on
-    the phase-4 bf16 model: 12 K1 launches per batch at (64,62,14,384) and
-    (64,31,7,768), the first batch bit-equal to model.forward, 4 clips of
+    the phase-4 bf16 model: 18 K1 launches per batch, 12 of them at
+    (64,62,14,384) and (64,31,7,768), the first batch bit-equal to model.forward, 4 clips of
     the f32 parity model against the CPU (F32_LOGIT_TOL), bf16 against f32
     (SERVING_PROB_TOL), clips/s beside phase 7's, a two-batch trace, and
     the same loader through device_prefetch bit-equal to its host
     batches; (d) crop/pad/pad_or_truncate and the nearest resample on the
     card bit-equal to the CPU, resample_linear within LINEAR_RESAMPLE_TOL;
     (e) count_parameters (28,222,767), count_flops per clip, profile_ops
-    listing K1 12 times per forward, a trace file; (f) with
+    listing K1 18 times per forward, a trace file; (f) with
     AUDIOSET_TPU_COMPILE_CACHE set to a fresh directory, one process builds
     K1 and both host libraries into it and a second builds nothing.
     Packing is not run: the card machine has no h5py.
@@ -171,7 +175,7 @@ run (non-zero exit) on any error or mismatch:
     LEARN_STEPS Trainer.step calls of 32 of the 64 ten-second tone clips
     (16 classes), each step launching K1's save mode and K2 12 times; its
     gates: the loss ratio under LEARN_LOSS_RATIO and train mAP over the 16
-    columns above LEARN_MAP through the bf16 serving forward (12 K1
+    columns above LEARN_MAP through the bf16 serving forward (18 K1
     launches a forward); (b) the same run on the unfused route (no K1 save
     mode, no K2), the same gates, both runs side by side with their largest
     per-step loss gap; (c) scripts/serving_parity_trained_tpu.py's check:
@@ -180,7 +184,7 @@ run (non-zero exit) on any error or mismatch:
     serving config at frontend "default" and "high", 256 held-out clips
     through the Evaluator: each bf16 config within PARITY_MAP_TOL mAP and
     PARITY_TOP1 top-1 agreement of f32, the f32 held-out mAP above
-    HELDOUT_MAP, K1 12 times a bf16 batch and never in f32; (d)
+    HELDOUT_MAP, K1 18 times a bf16 batch and never in f32; (d)
     scripts/transfer_cert_tpu.py's run: Cnn14 head-only TransferTrainer
     at 1e-3, 300 steps of 32 one-second tone clips (8 classes): loss
     ratio, train mAP, frozen weights bit-identical, BN statistics changed,
@@ -311,7 +315,25 @@ K1_CASES = [
     ("odd width", 4, 13, 14, 100, True),
     ("no gamma", BATCH, 31, 7, 768, False),
 ]
-K1_MAIN_PATH = {"tiny stage 3": 9, "tiny stage 4": 3}  # launches per forward
+# K1's unfused-rounding mode (the bf16 serving path's stages 1-2): the main
+# path's two shapes, one clip at stage 2 (two hidden ranges and the sum
+# kernel), a ragged shape, and the benchmark's batch of 256 (timed only).
+# Each is held to the unfused block (_block_apply) on the card.
+K1_UNFUSED_CASES = [
+    ("tiny stage 1", BATCH, 252, 56, 96, True),
+    ("tiny stage 2", BATCH, 126, 28, 192, True),
+    ("clip stage 2", 1, 126, 28, 192, True),
+    ("odd stage 1", 3, 13, 11, 96, True),
+    ("eval256 stage 1", 256, 252, 56, 96, True),
+    ("eval256 stage 2", 256, 126, 28, 192, True),
+]
+K1_UNFUSED_TIMED_ONLY = ("eval256 stage 1", "eval256 stage 2")
+# K1 launches per bf16 serving forward: stages 1-2 in the unfused-rounding
+# mode, stages 3-4 in K1's own rounding (K1_STAGES_34, also the training
+# step's save-mode launches and an f32 serving forward's)
+K1_MAIN_PATH = {"tiny stage 1": 3, "tiny stage 2": 3, "tiny stage 3": 9, "tiny stage 4": 3}
+K1_UNFUSED_PATH = ("tiny stage 1", "tiny stage 2")
+K1_STAGES_34 = {k: n for k, n in K1_MAIN_PATH.items() if k not in K1_UNFUSED_PATH}
 # every K1 shape the serving paths (phases 4 and 7) launch
 K1_SERVING_CASES = set(K1_MAIN_PATH) | {f"{p} stage {s}" for p in ("eval", "long", "clip")
                                        for s in (3, 4)} | {"fbank stage 3"}
@@ -321,7 +343,7 @@ DP_RANK_BATCH = TRAIN_CLIPS // 2 // 2
 # The training paths' block shapes (K1 save mode and K2): the one-process
 # step's, then a rank's of phase 10(b); then atto stage 3 and an odd width
 # (K2 only).
-K1_SAVE_CASES = [case for case in K1_CASES if case[0] in K1_MAIN_PATH] + [
+K1_SAVE_CASES = [case for case in K1_CASES if case[0] in K1_STAGES_34] + [
     ("rank stage 3", DP_RANK_BATCH, 63, 14, 384, True),
     ("rank stage 4", DP_RANK_BATCH, 31, 7, 768, True),
 ]
@@ -446,21 +468,32 @@ K2_MAIN_PATH = ("prep_kernel", "chain_h_kernel", "gemm_kernel<0>", "ln_bwd_kerne
                 "gemm_kernel<1>", "dw_bwd_kernel<__nv_bfloat16>", "sum_parts_kernel")
 
 
-def k1_kernel_names(plan, save: bool):
-    """kernel_name of each launch of a bf16 K1 plan (serving or save mode)."""
-    names = [f"{plan.launches[0][0]}<{plan.out_blocks}, {int(save)}>"]
-    return names + [f"{k}<{int(save)}>" for k, _ in plan.launches[1:]]
+def k1_kernel_names(plan, save: bool, unfused: bool = False):
+    """kernel_name of each launch of a bf16 K1 plan (serving, save or
+    unfused-rounding mode)."""
+    flags = f"{int(save)}, {int(unfused)}"
+    names = [f"{plan.launches[0][0]}<{plan.out_blocks}, {flags}>"]
+    return names + [f"{k}<{flags}>" for k, _ in plan.launches[1:]]
+
+
+def main_path_cases():
+    """The K1 cases of the main path's shapes (K1_MAIN_PATH), in its order."""
+    cases = {case[0]: case for case in K1_CASES + K1_UNFUSED_CASES}
+    return [cases[name] for name in K1_MAIN_PATH]
 
 
 def main_path_kernels():
     """Names (as kernel_name gives them) of the bf16 instantiations the two
-    paths launch at the main-path widths (C = 384 and 768, B = 16)."""
+    paths launch at the main-path widths (B = 16; C = 96 and 192 in the
+    unfused-rounding mode, 384 and 768 in serving and save mode)."""
     from audioset_convnext_inf_torch.ops import fused_block as FB
 
     names = set(K2_MAIN_PATH)
-    for name, b, h, w, c, _ in K1_CASES:
-        if name in K1_MAIN_PATH:
-            p = FB.launch_plan(c, torch.bfloat16, b * h * w)
+    for name, b, h, w, c, _ in main_path_cases():
+        p = FB.launch_plan(c, torch.bfloat16, b * h * w)
+        if name in K1_UNFUSED_PATH:
+            names |= set(k1_kernel_names(p, False, True))
+        else:
             names |= {n for save in (False, True) for n in k1_kernel_names(p, save)}
     return names
 
@@ -475,11 +508,13 @@ def k1_plan_text(p) -> str:
     """A bf16 K1 plan in words."""
     from audioset_convnext_inf_torch.ops import fused_block as FB
 
+    budget = FB.NARROW_CONSUMER_REGS if p.sm_blocks == 2 else FB.CONSUMER_REGS
     return (f"{p.mt}-pixel tiles in {p.tiles // FB.CLUSTER} clusters of {FB.CLUSTER}, "
             f"{p.out_split} output slice(s) of {128 * p.out_blocks} channels, {p.hidden_split} "
             f"hidden range(s) of {p.per} chunks of 128: {p.ctas} blocks of {p.threads} threads, "
+            f"{p.sm_blocks} an SM, "
             f"{p.stages}-box ring, {p.smem_bytes} B dynamic smem, {p.acc_regs} + 32 accumulator "
-            f"registers a consumer thread (setmaxnreg budget {FB.CONSUMER_REGS}), "
+            f"registers a consumer thread (setmaxnreg budget {budget}), "
             f"{p.l2_weight_bytes / 1e6:.1f} MB of weights from L2; launches "
             + ", ".join(f"{k} x{n}" for k, n in p.launches))
 
@@ -490,9 +525,12 @@ def log_main_path_plans():
     static part)."""
     from audioset_convnext_inf_torch.ops import fused_block as FB, fused_block_bwd as FBB
 
-    for name, b, h, w, c, _ in K1_CASES:
-        if name in K1_MAIN_PATH:
-            p = FB.launch_plan(c, torch.bfloat16, b * h * w)
+    for name, b, h, w, c, _ in main_path_cases():
+        p = FB.launch_plan(c, torch.bfloat16, b * h * w)
+        if name in K1_UNFUSED_PATH:  # no training there: K1 alone
+            log(f"  plan {name} (C={c}, {b * h * w} pixels): K1 (unfused rounding) "
+                f"{k1_plan_text(p)}")
+        else:
             q = FBB.launch_plan(c, torch.bfloat16, b, h, w)
             st = q.stencil
             log(f"  plan {name} (C={c}, {b * h * w} pixels): K1 {k1_plan_text(p)}; K2 chain "
@@ -599,25 +637,82 @@ def check_k1(device):
     return results
 
 
+def check_k1_unfused(device):
+    """K1's unfused-rounding mode at K1_UNFUSED_CASES against the unfused
+    block on the card (``_block_apply``, ATen's ops, tanh GELU): within
+    the kernel tolerance, deterministic, one launch a call counted as
+    unfused, the same answer for x in the stem's channels-first layout, and
+    a smaller mean gap to the unfused block than K1's own rounding on the
+    same data (the rounding points are really the unfused block's)."""
+    from audioset_convnext_inf_torch.models.convnext import _block_apply
+    from audioset_convnext_inf_torch.ops import fused_block as FB
+
+    dtype, results = torch.bfloat16, []
+    for name, b, h, w, c, with_gamma in K1_UNFUSED_CASES:
+        if name in K1_UNFUSED_TIMED_ONLY:
+            continue
+        x, args = k1_inputs(b, h, w, c, with_gamma, dtype, device, SEED)
+        blk = unfused_block(c, args, device)
+        before = (FB.fused_block.launches, FB.fused_block.unfused_rounding_launches)
+        with torch.no_grad():
+            got = FB.fused_block(x, *args, unfused_rounding=True)
+            again = FB.fused_block(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), *args,
+                                   unfused_rounding=True)
+            own = FB.fused_block(x, *args)
+            ref = _block_apply(x, blk, "xla_approx")
+        torch.cuda.synchronize()
+        counted = (FB.fused_block.launches - before[0],
+                   FB.fused_block.unfused_rounding_launches - before[1])
+        err, own_err = (got.float() - ref.float()).abs(), (own.float() - ref.float()).abs()
+        scale = max(1.0, ref.float().abs().max().item())
+        max_abs = err.max().item()
+        same = torch.equal(got, again)
+        ok = bool(torch.isfinite(got.float()).all().item()) and max_abs <= KERNEL_TOL[dtype] * scale
+        nearer = err.mean().item() < own_err.mean().item()
+        log(f"  K1 unfused rounding {name:15s} B={b} H={h} W={w} C={c}: vs _block_apply "
+            f"max_abs_err={max_abs:.3e} mean {err.mean().item():.3e} bit_equal="
+            f"{(err == 0).float().mean().item():.4f} tol={KERNEL_TOL[dtype] * scale:.3e}; K1's own "
+            f"rounding vs _block_apply max {own_err.max().item():.3e} mean "
+            f"{own_err.mean().item():.3e} bit_equal={(own_err == 0).float().mean().item():.4f}; "
+            f"launches (all, unfused) {counted}; channels-first x bit-equal: {same} "
+            f"{'ok' if ok and same and nearer and counted == (3, 2) else 'FAIL'}")
+        if not ok or not nearer:
+            raise AssertionError(f"K1's unfused-rounding mode disagrees with _block_apply: {name}")
+        if not same or counted != (3, 2):
+            raise AssertionError(f"K1's unfused-rounding mode at {name}: layouts bit-equal {same}, "
+                                 f"launches {counted}")
+        results.append({"case": name, "dtype": str(dtype), "max_abs_err": max_abs})
+    return results
+
+
 def time_k1(device):
-    """Kernel and plain version in bf16 at every checked shape; the main
-    path's two shapes make the per-forward totals."""
+    """Kernel and plain version in bf16 at every checked shape (K1_CASES in
+    K1's own rounding, K1_UNFUSED_CASES in the unfused-rounding mode, whose
+    plain version is the unfused block of ops); the main path's shapes make
+    the per-forward totals."""
     from audioset_convnext_inf_torch.ops.fused_block import fused_block, fused_block_reference
+    from audioset_convnext_inf_torch.ops.nhwc import convnext_block
 
     per_shape = {}
-    for name, b, h, w, c, with_gamma in K1_CASES:
+    unfused = {case[0] for case in K1_UNFUSED_CASES}
+    for name, b, h, w, c, with_gamma in K1_CASES + K1_UNFUSED_CASES:
         dtype = torch.bfloat16
         x, args = k1_inputs(b, h, w, c, with_gamma, dtype, device, SEED)
-        launches = fused_block.launches
-        ms, spread = median_ms(lambda: fused_block(x, *args), iters=20)
-        plain_ms = cuda_ms(lambda: fused_block_reference(x, *args), iters=20)
-        fused_block.launches = launches  # timing launches are not the main path's
+        unf = name in unfused
+        counts = (fused_block.launches, fused_block.unfused_rounding_launches)
+        with torch.no_grad():
+            ms, spread = median_ms(lambda: fused_block(x, *args, unfused_rounding=unf), iters=20)
+            plain_ms = cuda_ms((lambda: convnext_block(x, *args)) if unf
+                               else (lambda: fused_block_reference(x, *args)), iters=20)
+        # timing launches are not the main path's
+        fused_block.launches, fused_block.unfused_rounding_launches = counts
         flops, nbytes = k1_work(b, h, w, c, dtype)
         t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
         per_shape[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                                bound_by="operations" if t_ops >= t_bytes else "bytes",
                                gflop=flops / 1e9, mbytes=nbytes / 1e6)
-        log(f"  K1 {name:13s} bf16 B={b} H={h} W={w} C={c}: kernel {ms:.4f} ms (median of {REPEATS}, "
+        log(f"  K1 {name:13s}{' (unfused rounding)' if unf else ''} bf16 B={b} H={h} W={w} "
+            f"C={c}: kernel {ms:.4f} ms (median of {REPEATS}, "
             f"{spread[0]:.4f}-{spread[1]:.4f}), plain {plain_ms:.4f} ms, "
             f"bound {max(t_ops, t_bytes):.4f} ms ({per_shape[name]['bound_by']}; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.2f} MB), kernel at {flops / ms / 1e9:.1f} TFLOP/s")
@@ -748,7 +843,7 @@ def time_k1_save(device):
 
     per_shape = {}
     for name, b, h, w, c, _ in K1_CASES:
-        if name not in K1_MAIN_PATH:
+        if name not in K1_STAGES_34:
             continue
         dtype = torch.bfloat16
         x, args = k1_inputs(b, h, w, c, True, dtype, device, SEED)
@@ -764,7 +859,8 @@ def time_k1_save(device):
 
 
 def profile_k1(device):
-    """One profiled K1 call at each main-path shape, serving and save mode:
+    """One profiled K1 call at each main-path shape, serving and save mode
+    (stages 1-2: the unfused-rounding mode):
     every device launch of the call (the plan's kernels and the wrapper's
     preparation of the weights: the tap transpose and the bf16 casts),
     which must include each kernel of the plan and not the mma.sync kernel
@@ -774,27 +870,28 @@ def profile_k1(device):
     from audioset_convnext_inf_torch.ops import fused_block as FB
 
     dtype = torch.bfloat16
-    for name, b, h, w, c, _ in K1_CASES:
-        if name not in K1_MAIN_PATH:
-            continue
+    for name, b, h, w, c, _ in main_path_cases():
         x, args = k1_inputs(b, h, w, c, True, dtype, device, SEED)
         s = drop_scales(b, device, SEED)
         plan = FB.launch_plan(c, dtype, b * h * w)
         flops, _ = k1_work(b, h, w, c, dtype)
-        for save in (False, True):
-            label = f"K1 {'save ' if save else ''}{name}"
+        unf = name in K1_UNFUSED_PATH
+        for save in ((False,) if unf else (False, True)):
+            label = f"K1 {'save ' if save else 'unfused rounding ' if unf else ''}{name}"
             if save:
                 fn = lambda: FB.fused_block(x, *args, 1e-6, s=s, save_dwconv=True)  # noqa: E731
             else:
-                fn = lambda: FB.fused_block(x, *args)  # noqa: E731
-            before = (FB.fused_block.launches, FB.fused_block.save_launches)
+                fn = lambda: FB.fused_block(x, *args, unfused_rounding=unf)  # noqa: E731
+            before = (FB.fused_block.launches, FB.fused_block.save_launches,
+                      FB.fused_block.unfused_rounding_launches)
             seen, times = [], {}
             traced = profile_run(fn, label, top=20, names=seen, times=times)
-            FB.fused_block.launches, FB.fused_block.save_launches = before
+            (FB.fused_block.launches, FB.fused_block.save_launches,
+             FB.fused_block.unfused_rounding_launches) = before
             if traced is None:
                 log(f"  {label}: launches not checked, TFLOP/s not measured (no device events)")
                 continue
-            want = [k.split("<")[0] for k in k1_kernel_names(plan, save)]
+            want = [k.split("<")[0] for k in k1_kernel_names(plan, save, unf)]
             missing = [k for k in want if not any(k in n for n in seen)]
             old = [n for n in seen if K1_REPLACED in n]
             if missing or old:
@@ -815,9 +912,7 @@ def time_products(device):
     import torch.nn.functional as F
 
     out = {}
-    for name, b, h, w, c, _ in K1_CASES:
-        if name not in K1_MAIN_PATH:
-            continue
+    for name, b, h, w, c, _ in main_path_cases():
         g = torch.Generator().manual_seed(SEED)
         xn = torch.randn(b * h * w, c, generator=g).to(device, torch.bfloat16)
         w1 = (torch.randn(4 * c, c, generator=g) / math.sqrt(c)).to(device, torch.bfloat16)
@@ -851,7 +946,7 @@ def time_k2(device):
             lambda: fused_block_bwd(x, d, dy, *wts, s),
             lambda: fused_block_bwd_reference(x, d, dy, *wts, s),
             fused_block_bwd, *k2_work(b, h, w, c, dtype), dtype)
-        if name in K1_MAIN_PATH:  # where one call's time goes, launch by launch
+        if name in K1_STAGES_34:  # where one call's time goes, launch by launch
             before, seen = fused_block_bwd.launches, []
             traced = profile_run(lambda: fused_block_bwd(x, d, dy, *wts, s), f"K2 {name}",
                                  top=CUDA_LAUNCHES + 3, names=seen)
@@ -871,7 +966,8 @@ def time_k2(device):
 
 def unfused_block(c, args, device):
     """The port's plain block (models/convnext.py Block) holding K1's
-    weights: what the serving path runs for stages 1-2."""
+    weights: what training runs at stages 1-2, and the function K1's
+    unfused-rounding mode computes there in serving."""
     from audioset_convnext_inf_torch.models.convnext import Block
 
     blk = Block(c, 1e-6, 1.0).to(device)
@@ -896,16 +992,14 @@ def time_unfused(device):
     from audioset_convnext_inf_torch.models.convnext import _block_apply
 
     fwd, bwd = {}, {}
-    for name, b, h, w, c, _ in K1_CASES:
-        if name not in K1_MAIN_PATH and name != "fbank stage 3":
-            continue
+    for name, b, h, w, c, _ in main_path_cases() + [k for k in K1_CASES if k[0] == "fbank stage 3"]:
         x, args = k1_inputs(b, h, w, c, True, torch.bfloat16, device, SEED)
         blk = unfused_block(c, args, device)
         with torch.no_grad():
             fwd[name], spread = median_ms(lambda: _block_apply(x, blk, "xla_approx"), iters=20)
         log(f"  unfused bf16 block {name:13s} B={b} H={h} W={w} C={c}: forward {fwd[name]:.4f} ms "
             f"(median of {REPEATS}, {spread[0]:.4f}-{spread[1]:.4f})")
-        if name not in K1_MAIN_PATH:  # the Kaldi-fbank route's stage 3: the forward only
+        if name not in K1_STAGES_34:  # stages 1-2 and the Kaldi-fbank route's stage 3: no K2
             continue
         xb, _, dy, _, s = k2_inputs(b, h, w, c, torch.bfloat16, device, SEED)
         xg = xb.detach().requires_grad_(True)
@@ -923,9 +1017,14 @@ def time_unfused(device):
 def compare_yardsticks(k1, k1_save, k2, fwd, bwd, products):
     """K1 (both modes) beside the unfused forward and cuBLAS's products
     alone, and K2 beside autograd's backward of the unfused block, at the
-    main path's shapes; K1 beside the unfused forward at the Kaldi-fbank
+    main path's shapes (stages 1-2: the unfused-rounding mode beside the
+    unfused forward); K1 beside the unfused forward at the Kaldi-fbank
     route's stage 3."""
-    for name in K1_MAIN_PATH:
+    for name in K1_UNFUSED_PATH:
+        log(f"  {name}: K1 unfused rounding {k1[name]['ms']:.4f} ms vs unfused forward "
+            f"{fwd[name]:.4f} ms ({fwd[name] / k1[name]['ms']:.2f}x) and cuBLAS's products "
+            f"alone {products[name]:.4f} ms")
+    for name in K1_STAGES_34:
         log(f"  {name}: K1 {k1[name]['ms']:.4f} ms, save {k1_save[name]['ms']:.4f} ms vs unfused "
             f"forward {fwd[name]:.4f} ms ({fwd[name] / k1[name]['ms']:.2f}x, save "
             f"{fwd[name] / k1_save[name]['ms']:.2f}x) and cuBLAS's products alone "
@@ -984,17 +1083,20 @@ def run_main_path(device):
     serve = build_model(device, torch.bfloat16)
     assert serve.cfg.block_impl == "xla_approx" and serve.cfg.frontend.precision == "default"
     expect = sum(K1_MAIN_PATH.values())
+    expect_unfused = sum(K1_MAIN_PATH[k] for k in K1_UNFUSED_PATH)
     calls = [("forward", serve.forward), ("forward_scene_embeddings", serve.forward_scene_embeddings),
              ("forward_frame_embeddings", serve.forward_frame_embeddings)]
     outs, launches = {}, 0
     for name, fn in calls:
-        fused_block.launches = 0
+        fused_block.launches = fused_block.unfused_rounding_launches = 0
         outs[name] = fn(pcm)
         torch.cuda.synchronize()
-        n = fused_block.launches
-        log(f"  bf16 serving {name}: fused_block launches {n} (expect {expect})")
-        if n != expect:
-            raise AssertionError(f"{name}: fused_block launched {n} times, expected {expect}")
+        n, unf = fused_block.launches, fused_block.unfused_rounding_launches
+        log(f"  bf16 serving {name}: fused_block launches {n} (expect {expect}), of them in the "
+            f"unfused-rounding mode {unf} (expect {expect_unfused})")
+        if n != expect or unf != expect_unfused:
+            raise AssertionError(f"{name}: fused_block launched {n} times, {unf} of them unfused, "
+                                 f"expected {expect} and {expect_unfused}")
         launches += n
     probs = outs["forward"]["clipwise_output"]
     shapes = {"forward": (probs.shape, (BATCH, 527)),
@@ -1014,7 +1116,7 @@ def run_main_path(device):
     fused_block.launches = 0
     ref = parity.forward(pcm)
     torch.cuda.synchronize()
-    if fused_block.launches != 0:
+    if fused_block.launches != 0 or fused_block.unfused_rounding_launches != expect_unfused:
         raise AssertionError(f"f32 parity config launched fused_block {fused_block.launches} times")
     cpu = build_model("cpu", torch.float32)
     cpu_ref = cpu.forward(pcm[:2])
@@ -1206,12 +1308,14 @@ def run_training_path(device):
     """TRAIN_STEPS Trainer.step calls; each must launch K1 (save mode) and K2
     once per stage-3/4 block. Returns (trainer, batch, launches over the run)."""
     from audioset_convnext_inf_torch.engine.trainer import Trainer
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
 
     model = build_train_model(device)
     trainer = Trainer(model, train_config())
     pcm, target = train_batch(TRAIN_CLIPS, SEED)
-    per_step = sum(K1_MAIN_PATH.values())
+    per_step = sum(K1_STAGES_34.values())
     _zero_counts()
+    fused_block.unfused_rounding_launches = 0
     for i in range(TRAIN_STEPS):
         before = _counts()
         loss = trainer.step(pcm, target)
@@ -1224,12 +1328,17 @@ def run_training_path(device):
         if delta != (per_step, per_step, per_step):
             raise AssertionError(f"training step {i} launched {delta}, expected {per_step} each")
     launches = _counts()
+    unfused = fused_block.unfused_rounding_launches
+    log(f"  {TRAIN_STEPS} training steps: K1 launches in the unfused-rounding mode {unfused} "
+        f"(expect 0: training keeps the unfused blocks at stages 1-2)")
+    if unfused:
+        raise AssertionError(f"training launched K1's unfused-rounding mode {unfused} times")
     _zero_counts()
     out = model.forward(pcm[:BATCH])
     torch.cuda.synchronize()
-    log(f"  trained model, eval forward B={BATCH}: launches (K1, K1 save, K2) {_counts()} "
+    log(f"  trained model, eval forward B={BATCH} (f32): launches (K1, K1 save, K2) {_counts()} "
         f"(expect ({per_step}, 0, 0))")
-    if _counts() != (per_step, 0, 0):
+    if _counts() != (per_step, 0, 0) or fused_block.unfused_rounding_launches:
         raise AssertionError(f"eval forward after training launched {_counts()}")
     if not bool(torch.isfinite(out["clipwise_output"]).all()):
         raise AssertionError("eval forward after training is not finite")
@@ -1565,7 +1674,7 @@ def _closed_loop(call, pool, ref, seconds):
 
 def _load_report(label, service, before, lat, diff, wall, card, replicas: int = 1):
     """Rates and latencies of a closed-loop run; every batch must launch K1
-    12 times per replica."""
+    18 times per replica."""
     after = service.counters()
     batches, clips = after["batches"] - before["batches"], after["clips"] - before["clips"]
     launches = _counts()
@@ -1696,7 +1805,7 @@ class CliRunner:
         self.epcm, self.etarget = epcm[:TRAIN_CLI_EVAL], etarget[:TRAIN_CLI_EVAL]
         self.data = MemoryDataset(pcm, self.target)
         self.edata = MemoryDataset(self.epcm, self.etarget)
-        self.per = sum(K1_MAIN_PATH.values())
+        self.per = sum(K1_STAGES_34.values())  # training steps and f32 evaluations
         self.eval_batches = -(-TRAIN_CLI_EVAL // 32)
 
     @staticmethod
@@ -1990,7 +2099,7 @@ def run_dp_pair(device, card):
     for r in range(DP_WORLD):
         with open(out / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
-    per = sum(K1_MAIN_PATH.values())
+    per = sum(K1_STAGES_34.values())
     launches = [0, 0]
     buffers = ("bn0.running_mean", "bn0.running_var")
     for label, bf16, fused, dp, precision in DP_CASES:
@@ -2104,7 +2213,7 @@ def run_service_mesh(serve, card):
     """Phase 10(d): cli/serve.py --mesh with the phase-4 model: the batches
     go through ShardedModel over every card; phase 8's HTTP traffic for
     SERVE_MESH_SECONDS, every answer within SERVICE_TOL of model.forward of
-    its clip, K1 12 times per replica batch. Returns the K1 launches."""
+    its clip, K1 18 times per replica batch. Returns the K1 launches."""
     from audioset_convnext_inf_torch.cli import serve as serve_cli
     from audioset_convnext_inf_torch.engine.service import ShardedModel
 
@@ -2293,7 +2402,7 @@ def check_bundles(serve, parity, dirs, card):
 def check_bundle_subprocess(bundle_dir: Path, want: np.ndarray, pcm: np.ndarray):
     """Load the forward bundle in a fresh process that cannot import the
     port's models or checkpoint packages; its B=16 answer must be bit-equal
-    to this process's, with 12 K1 launches."""
+    to this process's, with 18 K1 launches."""
     npy = BUNDLE_DIR / "pcm.npy"
     np.save(npy, pcm)
     code = (
@@ -2327,7 +2436,7 @@ def check_bundle_subprocess(bundle_dir: Path, want: np.ndarray, pcm: np.ndarray)
 def run_serve_bundle(bundle, bundle_dir: Path, card, http_rate):
     """cli/serve.py --bundle: phase 8's HTTP traffic for SERVE_BUNDLE_SECONDS;
     each answer must equal the bundle's own forward of that clip in a batch
-    of 16, and each batch must launch K1 12 times. Returns the launches."""
+    of 16, and each batch must launch K1 18 times. Returns the launches."""
     from audioset_convnext_inf_torch.cli import serve as serve_cli
     from audioset_convnext_inf_torch.engine.aot_export import BundleModel
 
@@ -3358,7 +3467,8 @@ def check_profiling(serve, card):
         + ", ".join(f"{r['name']} x{r['count_per_iter']} {r['ms_per_iter']:.3f} ms" for r in k1)
         + f" [{card}]")
     if sum(r["count_per_iter"] for r in k1) != sum(K1_MAIN_PATH.values()):
-        raise AssertionError("profile_ops does not list K1 12 times per forward")
+        raise AssertionError(f"profile_ops does not list K1 {sum(K1_MAIN_PATH.values())} times "
+                             f"per forward")
     with P.trace(str(WORK / "trace14")) as d:
         serve.forward(pcm)
     path = Path(d) / "trace.json"
@@ -3533,7 +3643,7 @@ def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
         raise AssertionError(f"convnext_tiny has {model.count_parameters()} parameters")
     trainer = Trainer(model, TrainConfig(max_lr=1.5e-3, total_steps=LEARN_STEPS, mixup_alpha=1.0,
                                          weight_decay=0.01, seed=7, bf16_compute=True))
-    per_step = sum(K1_MAIN_PATH.values()) if fused else 0
+    per_step = sum(K1_STAGES_34.values()) if fused else 0
     order = np.random.RandomState(42)
     losses, ms = [], []
     torch.cuda.synchronize()
@@ -3566,7 +3676,7 @@ def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
 
 def learn_gates(label, device, run: LearnRun, clips, targets, card):
     """The JAX certificate's gates on one run: the loss ratio and train mAP
-    through the bf16 serving forward (12 K1 launches a forward). Returns
+    through the bf16 serving forward (18 K1 launches a forward). Returns
     (mAP, loss ratio, ms per step, K1 serving launches)."""
     from audioset_convnext_inf_torch.models import ConvNeXt
 
@@ -3819,7 +3929,7 @@ def run_phases() -> int:
     build_kernels(["fused_block", "fused_block_bwd"])
 
     phase("[3/15] kernels against their plain versions")
-    k1_results = check_k1(device)
+    k1_results = check_k1(device) + check_k1_unfused(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
 
@@ -3915,13 +4025,13 @@ def run_phases() -> int:
                train_launches[1] + cli_launches[1] + nccl_launches[1] + pair_launches[0]
                + learn_save,
                k1s_results, save_shape, "training forward (save mode; phases 5, 9, 10(a-b), 15(a))",
-               K1_MAIN_PATH, unfused),
+               K1_STAGES_34, unfused),
         _entry("fused_block_bwd", "fused_block_bwd.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66",
                train_launches[2] + cli_launches[2] + nccl_launches[2] + pair_launches[1]
                + learn_bwd,
                k2_results, k2_shape, "training backward (phases 5, 9, 10(a-b), 15(a))",
-               K1_MAIN_PATH, unfused_bwd),
+               K1_STAGES_34, unfused_bwd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,8 +9,9 @@ script builds the kernels again through ``ops/_build.py`` with -D macros
 that switch one part off or change the launch plan (the macros are listed
 in the note at the top of ``csrc/fused_block.cu``), and times each build
 (median of 5 runs of 20 calls, CUDA events) at the main path's shapes
-(bf16, B=16: tiny stage 3, C=384, and stage 4, C=768) beside the
-package's own build. A build with a part switched off computes wrong
+(bf16, B=16: tiny stage 3, C=384, and stage 4, C=768; K1 also in its
+unfused-rounding mode at stages 1 and 2, C=96 and 192, at B=16 and 256)
+beside the package's own build. A build with a part switched off computes wrong
 results by design; a build with another plan is first held to its plain
 version within the kernel tolerance of chip_smoke.py. Variants:
 
@@ -92,6 +93,17 @@ def time_variant(variant: str, device) -> dict:
             if checked:
                 check(fn()[0], FBB.fused_block_bwd_reference(x, d, dy, *wts, s)[0], variant, name)
             out[name] = cs.median_ms(fn, iters=20)[0]
+    if kernel == "fused_block":  # the unfused-rounding mode at stages 1-2
+        for name, b, h, w, c, _ in cs.K1_UNFUSED_CASES:
+            if name not in ("tiny stage 1", "tiny stage 2") + cs.K1_UNFUSED_TIMED_ONLY:
+                continue
+            x, args = cs.k1_inputs(b, h, w, c, True, torch.bfloat16, device, cs.SEED)
+            plan = k1_plan(c, b * h * w, defines)
+            fn = lambda: FB._forward_cuda(x, *args, 1e-6, None, False, plan, defines,  # noqa: E731
+                                          unfused=True)
+            if checked:
+                check(fn(), FB.convnext_block(x, *args), variant, name)
+            out[f"{name} unfused"] = cs.median_ms(fn, iters=20)[0]
     return out
 
 
@@ -105,12 +117,14 @@ def main(argv) -> int:
     with ThreadPoolExecutor(max_workers=len(variants)) as pool:
         list(pool.map(lambda v: _build.build(*VARIANTS[v]), variants))
     device = torch.device("cuda")
-    counts = (FB.fused_block.launches, FB.fused_block.save_launches, FBB.fused_block_bwd.launches)
+    counts = (FB.fused_block.launches, FB.fused_block.save_launches,
+              FB.fused_block.unfused_rounding_launches, FBB.fused_block_bwd.launches)
     result = {}
     for v in variants:
         result[v] = time_variant(v, device)
         print(f"{v:12s} " + ", ".join(f"{k} {t:.4f} ms" for k, t in result[v].items()), flush=True)
-    FB.fused_block.launches, FB.fused_block.save_launches, FBB.fused_block_bwd.launches = counts
+    (FB.fused_block.launches, FB.fused_block.save_launches,
+     FB.fused_block.unfused_rounding_launches, FBB.fused_block_bwd.launches) = counts
     print(json.dumps({"card": card, "ms": result}), flush=True)
     return 0
 

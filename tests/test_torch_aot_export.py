@@ -277,13 +277,13 @@ def test_dynamic_batch_bundle(bf16_model, cli_bundle):
 
 
 def test_export_cli(cli_bundle, wav):
-    """The CLI end to end; each program holds one fused block op per
-    stage-3/4 block."""
+    """The CLI end to end; each program holds one fused block op per block:
+    stages 1-2 in its unfused-rounding mode, stages 3-4 in its own."""
     rc, out, b, _ = cli_bundle
     assert rc == 0
     assert b.manifest["compute_dtype"] == "bfloat16" and b.manifest["input_dtype"] == "int16"
     assert set(b.manifest["entries"]) == {"forward:4", "forward:dynamic"}
-    assert calls_k1(b._programs["forward:4"]) == 2
+    assert calls_k1(b._programs["forward:4"]) == 4
     res = BundleModel(b).forward(wav)
     assert res["clipwise_output"].shape == (3, 527)
 
@@ -331,7 +331,7 @@ def test_dynamic_export_with_fused_serving_config(bf16_model, cli_bundle):
     JAX test's tolerance). Against the JAX package it is held at B=16 in
     test_bf16_programs_match_jax."""
     program = cli_bundle[2]._programs["forward:dynamic"]
-    assert calls_k1(program) == 2
+    assert calls_k1(program) == 4
     rng = np.random.RandomState(1)
     for batch in (1, 2, 5):
         w = (rng.randn(batch, N) * 3000).astype(np.int16)

@@ -87,6 +87,81 @@ def test_fused_block_save_mode_matches_plain_version(dtype, shape):
         assert got.dtype == dtype and (got.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
 
 
+def _unfused_case(shape, seed):
+    """bf16 x and block weights at a stage-1/2 width, with gamma in [0.1, 1]
+    (the benchmark's draw), and a port Block holding the same weights."""
+    from audioset_convnext_inf_torch.models.convnext import Block
+
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    args = _block_args(rng, c)
+    args[-1] = torch.from_numpy(rng.uniform(0.1, 1.0, c).astype(np.float32)).cuda()
+    blk = Block(c, 1e-6, 1.0).cuda()
+    dst = (blk.dwconv.weight, blk.dwconv.bias, blk.norm.weight, blk.norm.bias,
+           blk.pwconv1.weight, blk.pwconv1.bias, blk.pwconv2.weight, blk.pwconv2.bias, blk.gamma)
+    with torch.no_grad():
+        for t, d in zip(args, dst):
+            d.copy_(t)
+    x = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32)).cuda().to(torch.bfloat16)
+    return x, args, blk
+
+
+UNFUSED_SHAPES = [
+    (4, 252, 56, 96),   # stage 1 of a 10-s clip
+    (4, 126, 28, 192),  # stage 2
+    (3, 13, 11, 96),    # ragged: H, W and the last tile; three hidden ranges
+    (1, 126, 28, 192),  # one clip at stage 2: two hidden ranges and the sum kernel
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", UNFUSED_SHAPES)
+def test_unfused_rounding_mode_matches_the_unfused_block_on_the_card(shape):
+    """K1's unfused-rounding mode against ``_block_apply`` (ATen's ops on
+    the card, tanh GELU) on the same bf16 input: within the kernel
+    tolerance, 2^-6 of the output scale (sums in another order flip single
+    bf16 roundings), on x in the stem's channels-first layout too."""
+    _need_card()
+    from audioset_convnext_inf_torch.models.convnext import _block_apply
+
+    x, args, blk = _unfused_case(shape, 7)
+    plan = FB.launch_plan(shape[-1], torch.bfloat16, shape[0] * shape[1] * shape[2])
+    # hidden ranges where the tiles alone fill under half the SMs
+    assert plan.hidden_split == {(1, 126, 28, 192): 2, (3, 13, 11, 96): 3}.get(shape, 1)
+    before = (FB.fused_block.launches, FB.fused_block.unfused_rounding_launches)
+    with torch.no_grad():
+        got = FB.fused_block(x, *args, 1e-6, unfused_rounding=True)
+        nchw = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        got_nchw = FB.fused_block(nchw, *args, 1e-6, unfused_rounding=True)
+        ref = _block_apply(x, blk, "xla_approx")
+    torch.cuda.synchronize()
+    assert (FB.fused_block.launches, FB.fused_block.unfused_rounding_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous() and torch.equal(got, got_nchw)
+    assert (got.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", UNFUSED_SHAPES)
+def test_unfused_rounding_mode_is_nearer_the_unfused_block_than_k1s_own(shape):
+    """On the same data the unfused-rounding mode's mean absolute gap to
+    ``_block_apply`` is smaller than K1's own rounding's: the mode really
+    rounds where the unfused block does. ``-s`` prints both gaps."""
+    _need_card()
+    from audioset_convnext_inf_torch.models.convnext import _block_apply
+
+    x, args, blk = _unfused_case(shape, 8)
+    with torch.no_grad():
+        ref = _block_apply(x, blk, "xla_approx").float()
+        unf = FB.fused_block(x, *args, 1e-6, unfused_rounding=True).float()
+        own = FB.fused_block(x, *args, 1e-6).float()
+    gaps = {k: ((v - ref).abs().mean().item(), (v - ref).abs().max().item(),
+                (v == ref).float().mean().item()) for k, v in (("unfused", unf), ("own", own))}
+    print(f"\nK1 vs _block_apply at {shape}: mean / max abs gap, share bit-equal: "
+          + "; ".join(f"{k} {m:.3e} / {mx:.3e}, {eq:.4f}" for k, (m, mx, eq) in gaps.items()))
+    assert gaps["unfused"][0] < gaps["own"][0]
+
+
 def _bwd_case(rng, shape, dtype):
     c = shape[-1]
     fwd = _block_args(rng, c)
@@ -194,14 +269,15 @@ def test_entry_points_default_to_the_card():
     out = model.forward(np.zeros((2, 32000), np.int16))
     torch.cuda.synchronize()
     assert out["clipwise_output"].is_cuda and out["clipwise_output"].shape == (2, 527)
-    assert FB.fused_block.launches == sum(model.cfg.depths[2:])
+    assert FB.fused_block.launches == sum(model.cfg.depths)
 
 
 @pytest.mark.cuda
 def test_a_traced_bf16_forward_holds_a_prep_span_per_fused_block():
     """Under the profiler, convnext_tiny's bf16 forward shows one
-    ``fused_block.prep`` range a K1 launch (9 + 3 blocks), one span each of
-    the frontend and the four stages, and the card's kernels."""
+    ``fused_block.prep`` range a K1 launch (3 + 3 blocks in the
+    unfused-rounding mode, 9 + 3 in K1's own), one span each of the
+    frontend and the four stages, and the card's kernels."""
     _need_card()
     from torch.autograd import DeviceType
 
@@ -213,12 +289,13 @@ def test_a_traced_bf16_forward_holds_a_prep_span_per_fused_block():
     model.forward(pcm)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    FB.fused_block.launches = 0
+    FB.fused_block.launches = FB.fused_block.unfused_rounding_launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         model.forward(pcm)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
-    assert names.count("fused_block.prep") == FB.fused_block.launches == 12
+    assert names.count("fused_block.prep") == FB.fused_block.launches == 18
+    assert FB.fused_block.unfused_rounding_launches == 6
     for span in ("model.frontend", "model.stage1", "model.stage2", "model.stage3",
                  "model.stage4"):
         assert names.count(span) == 1, span
@@ -246,7 +323,7 @@ def test_from_pretrained_round_trip_on_the_card(tmp_path):
         FB.fused_block.launches = 0
         got = loaded.forward(pcm)
         torch.cuda.synchronize()
-        assert FB.fused_block.launches == sum(model.cfg.depths[2:])
+        assert FB.fused_block.launches == sum(model.cfg.depths)
         for k in ref:
             assert torch.equal(got[k], ref[k]), (path, k)
 
@@ -276,7 +353,7 @@ def test_evaluator_on_the_card_matches_forward():
     out = Evaluator(model).infer_probs(DataLoader(Memory(), batches, num_workers=2,
                                                   pad_to_batch_size=4))
     torch.cuda.synchronize()
-    assert FB.fused_block.launches == 3 * sum(model.cfg.depths[2:])
+    assert FB.fused_block.launches == 3 * sum(model.cfg.depths)
     np.testing.assert_array_equal(out["target"], target)
     ref = np.concatenate([
         model.forward(np.pad(pcm[s:s + 4], ((0, 4 - len(pcm[s:s + 4])), (0, 0))))
@@ -326,7 +403,7 @@ def test_service_on_the_card_gives_each_clip_its_own_result():
             got = list(pool.map(lambda i: svc.tag(pcm[i], timeout=60)["clipwise_output"],
                                 range(192)))
         torch.cuda.synchronize()
-    assert FB.fused_block.launches == len(rec.batches) * sum(model.cfg.depths[2:])
+    assert FB.fused_block.launches == len(rec.batches) * sum(model.cfg.depths)
     where = {}
     for k, (x, _) in enumerate(rec.batches):
         rows = x.cpu().numpy()

@@ -4,7 +4,9 @@ On the CPU the wrapper runs the kernel's plain version, which is held here
 against the JAX package's Pallas kernel run in interpret mode (as its own
 tests run it) on the HWBC-padded transpose of the same input, and against
 the unfused JAX block. The CUDA kernel itself is compared with the plain
-version on the card by tests/test_torch_cuda.py and chip_smoke.py.
+version on the card by tests/test_torch_cuda.py and chip_smoke.py. The
+unfused-rounding mode's CPU leg is the port's unfused block itself,
+held here bit for bit to ``models/convnext.py::_block_apply``.
 """
 
 import numpy as np
@@ -17,6 +19,8 @@ import jax.numpy as jnp
 from audioset_convnext_inf_tpu.models.convnext import _block_apply
 from audioset_convnext_inf_tpu.ops.pallas_fused_block import fused_block_hwbc
 
+from audioset_convnext_inf_torch.models.convnext import Block
+from audioset_convnext_inf_torch.models.convnext import _block_apply as port_block_apply
 from audioset_convnext_inf_torch.ops import fused_block as FB
 
 K = 7
@@ -150,3 +154,73 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
     # neither CPU nor CUDA: no silent fallback to the plain version
     with pytest.raises(ValueError, match="cuda or cpu"):
         FB.fused_block(x.to("meta"), *(a.to("meta") if a is not None else None for a in args))
+
+
+def _port_block(args, c):
+    """A port Block module holding the weights of ``_torch_args``."""
+    blk = Block(c, 1e-6, 1.0 if args[-1] is not None else 0.0)
+    dst = (blk.dwconv.weight, blk.dwconv.bias, blk.norm.weight, blk.norm.bias,
+           blk.pwconv1.weight, blk.pwconv1.bias, blk.pwconv2.weight, blk.pwconv2.bias, blk.gamma)
+    with torch.no_grad():
+        for t, d in zip(args, dst):
+            if d is not None:
+                d.copy_(t)
+    return blk
+
+
+def _bf16_input(rng, shape, layout):
+    """bf16 NHWC x, contiguous or in the channels-first memory the stem and
+    the downsamples leave behind (a permuted NCHW tensor)."""
+    x = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32)).to(torch.bfloat16)
+    if layout == "nchw":
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        assert not x.is_contiguous()
+    return x
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("with_gamma", [True, False])
+@pytest.mark.parametrize("shape", [(2, 13, 11, 96), (2, 7, 9, 192)],
+                         ids=["stage1-width", "stage2-width"])
+def test_unfused_rounding_mode_is_the_unfused_block_bit_for_bit(rng, shape, with_gamma, layout):
+    """K1's unfused-rounding mode on the CPU is the port's unfused block
+    (``_block_apply`` with tanh GELU) bit for bit, at stage-1 and stage-2
+    widths, ragged H and W, with and without gamma, on x as the model hands
+    it over: its layout is kept, so every op sees what it saw unfused."""
+    c = shape[-1]
+    args = _torch_args(_params(rng, c, with_gamma))
+    x = _bf16_input(rng, shape, layout)
+    before = (FB.fused_block.launches, FB.fused_block.unfused_rounding_launches)
+    got = FB.fused_block(x, *args, 1e-6, unfused_rounding=True)
+    want = port_block_apply(x, _port_block(args, c), "xla_approx")
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert got.stride() == want.stride()
+    assert (FB.fused_block.launches, FB.fused_block.unfused_rounding_launches) == before
+    # a different function from K1's own rounding: its outputs part on some elements
+    own = FB.fused_block(x.contiguous(), *args, 1e-6)
+    assert not torch.equal(own, got)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_unfused_rounding_mode_passes_opcheck(rng, layout):
+    """The mode is a trailing argument of the same custom op (one node per
+    block); its schema, fake implementation (the layout of x on the CPU)
+    and tracing pass ``opcheck``."""
+    args = _torch_args(_params(rng, 32))
+    x = _bf16_input(rng, (2, 5, 6, 32), layout)
+    torch.library.opcheck(FB._serving_op, (x, *args, 1e-6, True))
+    assert "bool unfused_rounding=False" in str(FB._serving_op._opoverload._schema)
+
+
+def test_unfused_rounding_mode_is_bf16_serving_only(rng):
+    args = _torch_args(_params(rng, 16))
+    x = torch.zeros(1, 4, 4, 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FB.fused_block(x, *args, unfused_rounding=True)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="serving mode"):
+        FB.fused_block(xb, *args, s=torch.ones(1), unfused_rounding=True)
+    with pytest.raises(ValueError, match="serving mode"):
+        FB.fused_block(xb, *args, save_dwconv=True, unfused_rounding=True)
+    with pytest.raises(ValueError, match="contiguous"):  # K1's own mode keeps its contract
+        FB.fused_block(xb.permute(0, 2, 1, 3), *args)

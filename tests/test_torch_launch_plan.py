@@ -29,8 +29,7 @@ K2_WIDTHS = (1, 100, 160, 384, 768, FB.MAX_C)
 
 def _k1_ranges(p):
     """K1's hidden ranges as lists of 128-unit chunks, in range order."""
-    chunks = 4 * p.cp // FB.NH
-    return [list(range(z * p.per, min((z + 1) * p.per, chunks))) for z in range(p.hidden_split)]
+    return [list(range(z * p.per, min((z + 1) * p.per, p.chunks))) for z in range(p.hidden_split)]
 
 
 @pytest.mark.parametrize("c", WIDTHS)
@@ -38,10 +37,18 @@ def test_forward_plan_fits_one_block(c):
     """Every K1 plan fits one H100 block: shared memory (with the static
     part the kernel may add), the consumers' accumulators within their
     setmaxnreg budget and the three warpgroups within the SM's registers;
-    its tiles cover every pixel once (in whole clusters), its output slices
-    every channel and its hidden ranges every hidden unit once; the plan is
-    a function of C and the pixel count alone."""
+    at CP = 128 two blocks fit an SM, shared memory and registers; its
+    tiles cover every pixel once (in whole clusters), its output slices
+    every channel and its hidden ranges every chunk that holds a real
+    hidden unit once; the plan is a function of C and the pixel count
+    alone."""
     assert 2 * 128 * FB.CONSUMER_REGS + 128 * FB.PRODUCER_REGS <= 65536
+    # setmaxnreg.inc takes only what the block's own producer released: 168
+    # (one block an SM) or 80 (two) registers a thread at launch
+    for launch, cons, prod in ((168, FB.CONSUMER_REGS, FB.PRODUCER_REGS),
+                               (80, FB.NARROW_CONSUMER_REGS, FB.NARROW_PRODUCER_REGS)):
+        assert launch == 65536 // (FB.THREADS * (2 if launch == 80 else 1)) // 8 * 8
+        assert 2 * 128 * (cons - launch) <= 128 * (launch - prod)
     for dt in (torch.float32, torch.bfloat16):
         for npix in NPIX.values():
             p = FB.launch_plan(c, dt, npix)
@@ -52,7 +59,10 @@ def test_forward_plan_fits_one_block(c):
                 assert p.cp == c and (p.out_split, p.hidden_split) == (1, 1)
                 continue
             assert p.smem_bytes + FB.STATIC_RESERVE <= SMEM, p
-            assert p.acc_regs + FB.H_REGS <= FB.CONSUMER_REGS, p
+            assert p.sm_blocks == (2 if p.cp == 128 else 1)
+            assert p.sm_blocks * (p.smem_bytes + FB.STATIC_RESERVE + 1024) <= FB.SM_SMEM, p
+            regs = FB.NARROW_CONSUMER_REGS if p.sm_blocks == 2 else FB.CONSUMER_REGS
+            assert p.acc_regs + FB.H_REGS <= regs, p
             assert p.cp % FB.CPAD == 0 and 0 <= p.cp - c < FB.CPAD
             # pixels: 64-pixel tiles, whole clusters of two, no tile without a pixel but the pad
             assert p.mt == 64 and p.tiles % FB.CLUSTER == 0
@@ -62,9 +72,11 @@ def test_forward_plan_fits_one_block(c):
             width = 128 * p.out_blocks
             assert p.out_split * width >= p.cp > (p.out_split - 1) * width
             assert p.acc_regs == width // 4  # (64, width / 2) f32 a warpgroup
-            # hidden units: the ranges take every 128-unit chunk once, in order
+            # hidden units: the ranges take every 128-unit chunk with a real
+            # hidden unit once, in order; the chunks past 4C (zero weights) none
             ranges = _k1_ranges(p)
-            assert sum(ranges, []) == list(range(4 * p.cp // FB.NH)) and all(ranges)
+            assert p.chunks == -(-4 * c // FB.NH) and (p.chunks - 1) * FB.NH < 4 * c
+            assert sum(ranges, []) == list(range(p.chunks)) and all(ranges)
             assert p.ctas == p.tiles * p.out_split * p.hidden_split
             assert [k for k, _ in p.launches] == ["fused_block_wgmma_kernel"] + (
                 ["fused_block_sum_kernel"] if p.hidden_split > 1 else [])
@@ -266,6 +278,40 @@ def test_main_path_plans():
     assert (q4.stencil.th, q4.stencil.tw, q4.stencil_ctas) == (16, 7, 16 * 2 * 12)
 
 
+@pytest.mark.parametrize("c,shape", [(96, (256, 252, 56)), (192, (256, 126, 28)),
+                                     (96, (1, 252, 56)), (192, (1, 126, 28))])
+def test_stage_1_2_plans_run_only_the_channels_there_are(c, shape):
+    """At stages 1-2 of convnext_tiny (C = 96 and 192, padded to CP = 128 and
+    256), K1 takes one output slice of CP channels, NB = CP / 128 blocks of
+    128: the second product runs 128 and 256 output channels, where three
+    blocks would run 384 (3x and 1.5x what there is). The slice's sum takes
+    32 NB registers a consumer thread beside h's 32, within the setmaxnreg
+    budget. The hidden units take 3 and 6 chunks of 128, not 4 and 8 (the
+    padded ones would add only zeros). At C = 96 two blocks share an SM,
+    each with a 3-box ring; at C = 192 one block an SM keeps its 10.
+    One clip at stage 2 splits the hidden units (3528 pixels: 56 tiles, a
+    fifth of the card's SMs)."""
+    b, h, w = shape
+    p = FB.launch_plan(c, torch.bfloat16, b * h * w)
+    cp = FB.padded_c(c)
+    assert (p.cp, p.out_blocks, p.out_split) == (cp, cp // 128, 1)
+    assert 128 * p.out_blocks * p.out_split == cp
+    assert p.acc_regs == 32 * p.out_blocks and p.acc_regs + FB.H_REGS <= FB.NARROW_CONSUMER_REGS
+    assert p.smem_bytes + FB.STATIC_RESERVE <= SMEM and p.stages >= 3 * p.out_blocks
+    assert p.ctas == p.tiles * p.hidden_split
+    # 4C = 384 and 768 hidden units: 3 and 6 chunks of 128 (4 CP / 128 would be 4 and 8)
+    assert p.chunks == 4 * c // FB.NH
+    if c == 96:  # two blocks an SM: a 3-box ring in half an SM's shared memory
+        assert (p.sm_blocks, p.stages) == (2, 3)
+        assert 2 * (p.smem_bytes + FB.STATIC_RESERVE + 1024) <= FB.SM_SMEM
+    if b == 256:  # a batch of 256 fills the card with tiles alone
+        assert p.hidden_split == 1 and p.tiles >= 100 * FB.SMS
+    if (b, c) == (1, 192):
+        assert (p.tiles, p.hidden_split) == (56, 2)
+    # the hidden ranges still take every chunk once, in order
+    assert sum(_k1_ranges(p), []) == list(range(p.chunks))
+
+
 # K1's hidden ranges by pixel count at the main path's widths: (first pixel
 # count, ranges). Results compare bit for bit only at equal pixel counts
 # (the Evaluator, the service and the bundles do): B=16 and more take one
@@ -294,7 +340,7 @@ def test_plans_refuse_what_the_kernels_cannot_run():
         cp = FB.padded_c(c)
         p = FB.launch_plan(c, torch.bfloat16, 100)
         q = FBB.launch_plan(c, torch.bfloat16, 4, 5, 5)
-        assert (p.mt, p.cp, p.out_blocks) == (64, cp, 3 if cp <= 768 else 4)
+        assert (p.mt, p.cp, p.out_blocks) == (64, cp, cp // 128 if cp < 384 else 3 if cp <= 768 else 4)
         assert (q.mt, q.cp) == (128, cp)
         assert FB.launch_plan(c, torch.float32, 100).mt == FBB.launch_plan(
             c, torch.float32, 4, 5, 5).mt == 16

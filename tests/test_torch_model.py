@@ -26,6 +26,7 @@ from audioset_convnext_inf_tpu.models import convnext as JF
 from audioset_convnext_inf_torch.checkpoint import state_dict_from_jax_params, to_tensors
 from audioset_convnext_inf_torch.config import ConvNeXtConfig, convnext_config_from_json
 from audioset_convnext_inf_torch.models import MODEL_REGISTRY, ConvNeXt, convnext_tiny
+from audioset_convnext_inf_torch.models import convnext as MC
 from audioset_convnext_inf_torch.ops import fused_block as FB
 
 SMALL = dict(depths=(1, 1, 2, 1), dims=(32, 64, 128, 256), drop_path_rate=0.0)
@@ -180,6 +181,72 @@ def test_bf16_serving_trunk_matches_jax_fused_path(carried, sample_wav_path, rng
                                np.asarray(ref["clipwise_logits"]), atol=0.02)
     np.testing.assert_allclose(got["clipwise_output"].numpy(),
                                np.asarray(ref["clipwise_output"]), atol=0.005)
+
+
+def _record_k1_serving(monkeypatch):
+    """(input shape, unfused_rounding) of every call of K1's serving op."""
+    calls = []
+    op = FB._serving_op
+
+    def recording(x, *a):
+        calls.append((tuple(x.shape), len(a) == 11 and bool(a[10])))
+        return op(x, *a)
+
+    monkeypatch.setattr(FB, "_serving_op", recording)
+    return calls
+
+
+def test_bf16_serving_forward_runs_stages_1_2_through_k1_unfused_rounding(
+        carried, sample_wav_path, rng, monkeypatch):
+    """The bf16 serving forward calls K1's op once per block: in its
+    unfused-rounding mode at stages 1-2, in its own at stages 3-4. On the
+    CPU every layer's output is bit-equal to the same forward with
+    ``_block_apply`` at stages 1-2 (the route before K1 took them)."""
+    _, params = carried
+    cfg = ConvNeXtConfig(**SMALL, block_impl="xla_approx")
+    pm = _port_model(params, cfg, compute_dtype=torch.bfloat16, auto_fast_serving=False)
+    wav = torch.from_numpy(_waveforms(sample_wav_path, rng, 4))
+
+    def run():
+        seen = {}
+        with torch.inference_mode():
+            MC.forward(pm, wav, cfg, pm.frontend, torch.bfloat16,
+                       tap=lambda name, x: seen.__setitem__(name, x.clone()))
+        return seen
+
+    calls = _record_k1_serving(monkeypatch)
+    got = run()
+    assert calls == [((4, 27, 56, 32), True), ((4, 13, 28, 64), True),
+                     ((4, 6, 14, 128), False), ((4, 6, 14, 128), False), ((4, 3, 7, 256), False)]
+    routed = MC._fused_block
+    monkeypatch.setattr(MC, "_fused_block", lambda x, blk, unfused_rounding=False: (
+        MC._block_apply(x, blk, "xla_approx") if unfused_rounding else routed(x, blk)))
+    calls.clear()
+    want = run()
+    assert [u for _, u in calls] == [False] * 3
+    assert list(got) == list(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+def test_training_and_f32_never_run_k1_unfused_rounding(carried, sample_wav_path, rng,
+                                                         monkeypatch):
+    """The route observes the model's mode and the activations' dtype: f32
+    serving with tanh GELU calls K1 (its own rounding, f32) at stages 3-4
+    only, and the fused bf16 training forward calls no serving op at all."""
+    _, params = carried
+    calls = _record_k1_serving(monkeypatch)
+    wav = _waveforms(sample_wav_path, rng, 2)
+    f32 = _port_model(params, ConvNeXtConfig(**SMALL, block_impl="xla_approx"))
+    f32.forward(wav)
+    assert [(s[-1], u) for s, u in calls] == [(128, False), (128, False), (256, False)]
+    calls.clear()
+    cfg = ConvNeXtConfig(**SMALL, block_impl="xla_approx", fused_train_blocks=True)
+    pm = _port_model(params, cfg, compute_dtype=torch.bfloat16, auto_fast_serving=False)
+    pm.train()
+    out = MC.forward_train(pm, torch.from_numpy(wav), cfg, pm.frontend,
+                           compute_dtype=torch.bfloat16)
+    assert out["clipwise_output"].shape == (2, 527) and calls == []
 
 
 def test_bf16_auto_switch_warns_like_jax(carried):
