@@ -8,8 +8,8 @@ each, no collectives: each clip is answered on its own):
 
  - the batch is padded to a multiple of the device count and split into
    contiguous blocks; on the card each block crosses on a copy stream
-   (int16 PCM stays int16 and decodes on the card, as ``models/api.py``
-   does) while the previous batch computes;
+   (int16 PCM stays int16 and decodes on the card, as the models do)
+   while the previous batch computes;
  - results come back one batch behind: the (B, 527) probabilities of batch
    i are copied to pinned host memory under one event per device while
    batch i+1 runs;
@@ -34,8 +34,10 @@ from audioset_convnext_inf_torch.utils.profiling import span
 
 class Evaluator:
     """``Evaluator(model).evaluate(loader)`` -> per-class statistics
-    (reference evaluate.py:22-60). ``model`` is the port's ``ConvNeXt``; it
-    must live on ``device`` (the card unless ``device="cpu"`` is given).
+    (reference evaluate.py:22-60). ``model`` is any model of the port with a
+    ``.device`` and a ``forward`` that returns a dict holding
+    ``clipwise_output`` (the ``ConvNeXt``, a ``PannModel``); it must live on
+    ``device`` (the card unless ``device="cpu"`` is given).
     ``devices`` (several devices of this process, e.g. every card of the
     host, or one named twice) shards each batch over replicas of the model;
     the model's device must be among them."""
@@ -60,14 +62,19 @@ class Evaluator:
         """Forward every batch; returns {'clipwise_output', 'target'} (N, C).
 
         Batches carrying 'fbank' are fed as (B, T, M, 1) spectrogram images;
-        others by their 'waveform' (int16 stays int16).
+        others by their 'waveform' (int16 stays int16). Fields may be numpy
+        arrays or CPU tensors; a pinned tensor (``DataLoader(pin_memory=
+        True)``) crosses to the card without a copy on this thread.
         """
         probs_chunks, target_chunks = [], []
         in_flight: "collections.deque" = collections.deque()
 
+        # the kept rows are copied out of the batch's buffers: a view would
+        # keep each batch's pinned buffer from the host allocator's reuse,
+        # and the window would pin fresh memory for every batch
         def drain_one():
             launch, n = in_flight.popleft()
-            probs_chunks.append(launch.wait()["clipwise_output"].numpy()[:n])
+            probs_chunks.append(np.array(launch.wait()["clipwise_output"][:n]))
 
         batches = iter(loader)
         for k in itertools.count():
@@ -76,14 +83,14 @@ class Evaluator:
             if batch is None:
                 break
             if "fbank" in batch:
-                x = np.asarray(batch["fbank"], np.float32)[..., None]
+                x = torch.as_tensor(batch["fbank"], dtype=torch.float32)[..., None]
             else:
-                x = batch["waveform"]
-                if x.dtype != np.int16:  # int16 decodes on the card
-                    x = x.astype(np.float32)
+                x = torch.as_tensor(batch["waveform"])
+                if x.dtype != torch.int16:  # int16 decodes on the card
+                    x = x.float()
             n = batch.get("valid", x.shape[0])
             if "target" in batch:
-                target_chunks.append(np.asarray(batch["target"])[:n])
+                target_chunks.append(np.array(batch["target"][:n]))
             with span("eval.launch", {"batch": k}):
                 in_flight.append((self.replicas.launch(x), n))
             if len(in_flight) >= 2:

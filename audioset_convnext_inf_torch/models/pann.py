@@ -18,10 +18,25 @@ loads through ``checkpoint.pann_convert.load_pann_state_dict``, which only
 drops the frontend's entries. The one exception is ``cnn_next``, whose
 reference labels its blocks unevenly; here they are ``conv_block1..n``.
 
-``PannModel.forward`` runs eval-mode inference in true f32: under
-``fp32_precision("highest")`` on the card, so no TF32 switch of the process
-changes its answer. There is no bf16 or TF32 PANN path: the JAX package's
-PANN forward is f32 whatever ``compute_dtype`` it is given.
+``PannModel.forward`` runs eval-mode inference on a float or int16 PCM
+batch (int16 decodes on the card, ``ops/pcm.py``) by its ``compute_dtype``:
+
+ - float32 (the default): true f32, under ``fp32_precision("highest")`` on
+   the card, so no TF32 switch of the process changes its answer; the JAX
+   package's PANN forward, which is f32 whatever it is given;
+ - bfloat16, the serving route of the ``wavegram`` family and of the
+   ``cnn`` family with plain double-3x3 conv blocks (``serves_bf16``): the
+   log-mel frontend at precision "default" with bn0 folded in, every
+   convolution with its BatchNorm folded in, bf16 operands and f32
+   accumulation, channels last, its bias and ReLU fused on the card
+   (``pann_layers.conv_bn_relu``), ``fc1`` the same; the pooling head's
+   reductions, ``fc_audioset`` and the sigmoid in f32. TF32 is never on.
+
+Each model counts its forwards by route (``f32_forwards``,
+``bf16_forwards``). The serving route marks ``model.frontend``,
+``model.wavegram`` (the wavegram family), ``model.trunk`` and
+``model.head`` with ``utils/profiling.py::span``; the f32 route of the
+wavegram family marks the same.
 ``PannModel.forward_train`` is the JAX package's ``forward_train``
 (models/pann.py:838) for every family: batch-statistic BN whose new running
 statistics come back as ``bn_updates`` (the module's buffers stay as they
@@ -46,7 +61,9 @@ from audioset_convnext_inf_torch.models import pann_layers as P
 from audioset_convnext_inf_torch.models.convnext import LayerNorm
 from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
 from audioset_convnext_inf_torch.ops.mixup import do_mixup
-from audioset_convnext_inf_torch.ops.precision import fp32_precision
+from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
+from audioset_convnext_inf_torch.ops.precision import fp32_precision, mm_f32acc
+from audioset_convnext_inf_torch.utils.profiling import span
 
 # PANN frontend: 64 mels, fmin 50, fmax 14000 on 32 kHz (models.py:2104-2115);
 # SpecAugment freq_drop_width=8 (vs ConvNeXt's 28).
@@ -108,16 +125,28 @@ class PannModel(nn.Module):
     unless the caller names another). Parameters are drawn on the CPU from
     ``seed`` (``pann_layers.init_params_``), then moved, so a seed gives the
     same weights on every device. The state dict holds exactly the
-    reference's keys; the frontend's constants are non-persistent."""
+    reference's keys; the frontend's constants are non-persistent.
+    ``compute_dtype`` picks the eval route: float32, or bfloat16 where the
+    family has a serving route (``serves_bf16``)."""
 
-    def __init__(self, cfg: PannConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: PannConfig, device=None, seed: int = 0,
+                 compute_dtype=torch.float32):
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+        if compute_dtype == torch.bfloat16 and not serves_bf16(cfg):
+            raise ValueError(f"{cfg.name} has no bf16 route (the wavegram family, and the "
+                             f"cnn family with plain conv blocks)")
         device = resolve_device(device)
         super().__init__()
         self.cfg = cfg
         self.device = device
+        self.compute_dtype = compute_dtype
+        self.f32_forwards = self.bf16_forwards = 0
         self.build(cfg)
         P.init_params_(self, torch.Generator().manual_seed(seed))
-        self.frontend = LogMelFrontend(cfg.frontend)
+        fe = cfg.frontend if compute_dtype == torch.float32 else replace(cfg.frontend,
+                                                                         precision="default")
+        self.frontend = LogMelFrontend(fe)
         # imported here: the converter imports this module
         from audioset_convnext_inf_torch.checkpoint.pann_convert import bn_path
 
@@ -136,11 +165,21 @@ class PannModel(nn.Module):
         training forward, ``mixup_lambda`` (B,) mixes pairs of clips."""
         raise NotImplementedError
 
+    def serve(self, waveform: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The bf16 serving route's eval forward of a (B, samples) f32
+        waveform on the model's device."""
+        raise NotImplementedError
+
     @torch.inference_mode()
     def forward(self, waveform) -> Dict[str, torch.Tensor]:
-        """Eval-mode outputs of a (B, samples) float waveform (numpy or
-        tensor) at the config's sample rate, in true f32."""
-        x = torch.as_tensor(waveform).to(self.device, torch.float32)
+        """Eval-mode outputs of a (B, samples) waveform (numpy or tensor,
+        float, or int16 PCM that decodes on the model's device) at the
+        config's sample rate, on the ``compute_dtype`` route."""
+        x = decode_pcm_if_int16(torch.as_tensor(waveform).to(self.device)).float()
+        if self.compute_dtype == torch.bfloat16:
+            self.bf16_forwards += 1
+            return self.serve(x)
+        self.f32_forwards += 1
         with fp32_precision("highest"):
             return self.compute(x)
 
@@ -202,6 +241,27 @@ class PannModel(nn.Module):
         x = torch.mean(x, dim=3)
         return self.head(torch.amax(x, dim=2) + torch.mean(x, dim=2))
 
+    def serve_frontend(self, waveform: torch.Tensor) -> torch.Tensor:
+        """The serving route's log-mel (B, 1, T, M) with bn0 folded in as a
+        per-bin f32 affine, in bf16, channels last."""
+        with span("model.frontend"):
+            x = self.frontend(waveform, affine=self.bn0.fold(1e-5))
+            return P.to_serve_layout(x.to(self.compute_dtype))
+
+    def serve_head(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``pool_head`` on the serving route: the reductions in f32 over
+        the bf16 map, ``fc1`` with bf16 operands and f32 accumulation,
+        ``fc_audioset`` and the sigmoid in true f32."""
+        with span("model.head"):
+            x = x.float().mean(dim=3)
+            x = torch.amax(x, dim=2) + torch.mean(x, dim=2)
+            x = F.relu(mm_f32acc(x.to(self.compute_dtype), self.fc1.weight.t().to(
+                self.compute_dtype)) + self.fc1.bias.float())
+            with fp32_precision("highest"):
+                logits = self.fc_audioset(x)
+            return {"clipwise_output": torch.sigmoid(logits), "clipwise_logits": logits,
+                    "embedding": x}
+
     def pool_head_1d(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, C, L): time max + mean, ``head`` (models.py:4348)."""
         return self.head(torch.amax(x, dim=2) + torch.mean(x, dim=2))
@@ -250,6 +310,15 @@ class Cnn(PannModel):
 
     def compute(self, waveform, mixup_lambda=None):
         return self.pool_head(self.trunk(waveform, mixup_lambda)[0])
+
+    def serve(self, waveform):
+        x = self.serve_frontend(waveform)
+        n = len(self.cfg.channels)
+        with span("model.trunk"):
+            for i in range(n):
+                pool = (1, 1) if (n == 6 and i == n - 1) else (2, 2)
+                x = getattr(self, f"conv_block{i + 1}").serve(x, pool)
+        return self.serve_head(x)
 
 
 class Sed(Cnn):
@@ -516,20 +585,49 @@ class Wavegram(PannModel):
         return self.pre_block4(a, (2, 1), "avg")
 
     def compute(self, waveform, mixup_lambda=None):
-        x = self.wavegram(waveform)
+        with span("model.wavegram"):
+            x = self.wavegram(waveform)
         if P.train_ctx() is not None and mixup_lambda is not None:
             x = do_mixup(x, mixup_lambda)  # beside the log-mel's mixup
         if self.cfg.wavegram_logmel:
-            spec, _ = self.logmel_bn0(waveform, mixup_lambda)
-            spec = self.conv_block1(spec, (2, 2), "avg")
-            # the shorter time axis; the wavegram's freq axis cut to the log-mel's
-            t = min(spec.shape[2], x.shape[2])
-            x = torch.cat([spec[:, :, :t], x[:, :, :t, : spec.shape[3]]], dim=1)
-        x = P.dropout(x, 0.2)
-        for i in range(2, 7):
-            x = getattr(self, f"conv_block{i}")(x, (2, 2) if i < 6 else (1, 1), "avg")
+            with span("model.frontend"):
+                spec, _ = self.logmel_bn0(waveform, mixup_lambda)
+            with span("model.trunk"):
+                spec = self.conv_block1(spec, (2, 2), "avg")
+                x = _concat(spec, x)
+        with span("model.trunk"):
             x = P.dropout(x, 0.2)
-        return self.pool_head(x)
+            for i in range(2, 7):
+                x = getattr(self, f"conv_block{i}")(x, (2, 2) if i < 6 else (1, 1), "avg")
+                x = P.dropout(x, 0.2)
+        with span("model.head"):
+            return self.pool_head(x)
+
+    def serve(self, waveform):
+        if self.cfg.wavegram_logmel:
+            spec = self.serve_frontend(waveform)
+        with span("model.wavegram"):
+            a = waveform.to(self.compute_dtype)[:, None, None, :]
+            a = P.conv_bn_relu(P.to_serve_layout(a), self.pre_conv0, self.pre_bn0)
+            for blk in (self.pre_block1, self.pre_block2, self.pre_block3):
+                a = blk.serve(a, 4)
+            b, c, _, t = a.shape
+            g = _wavegram_groups(self.cfg)
+            a = a.reshape(b, c // g, g, t).transpose(2, 3)
+            x = self.pre_block4.serve(P.to_serve_layout(a), (2, 1))
+        with span("model.trunk"):
+            if self.cfg.wavegram_logmel:
+                x = _concat(self.conv_block1.serve(spec, (2, 2)), x)
+            for i in range(2, 7):
+                x = getattr(self, f"conv_block{i}").serve(x, (2, 2) if i < 6 else (1, 1))
+        return self.serve_head(x)
+
+
+def _concat(spec: torch.Tensor, wave: torch.Tensor) -> torch.Tensor:
+    """The log-mel and wavegram maps side by side on the channel axis, over
+    the shorter time axis, the wavegram's freq axis cut to the log-mel's."""
+    t = min(spec.shape[2], wave.shape[2])
+    return torch.cat([spec[:, :, :t], wave[:, :, :t, : spec.shape[3]]], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -659,14 +757,25 @@ PANN_REGISTRY: Dict[str, PannConfig] = {
 }
 
 
-def build_pann_model(cfg: PannConfig, seed: int = 0, device=None) -> PannModel:
+def serves_bf16(cfg: PannConfig) -> bool:
+    """Whether ``cfg``'s family has the bf16 serving route: the wavegram
+    family, and the cnn family with its plain double-3x3 ``ConvBlock``s
+    (Cnn14, Cnn10 and their variants)."""
+    return cfg.family == "wavegram" or (
+        cfg.family == "cnn" and cfg.block == "conv" and not cfg.deformable_blocks)
+
+
+def build_pann_model(cfg: PannConfig, seed: int = 0, device=None,
+                     compute_dtype=torch.float32) -> PannModel:
     """The family's model for ``cfg`` (a registry entry or a variant of one)."""
-    return _FAMILIES[cfg.family](cfg, device=device, seed=seed)
+    return _FAMILIES[cfg.family](cfg, device=device, seed=seed, compute_dtype=compute_dtype)
 
 
-def create_pann_model(name: str, seed: int = 0, device=None) -> PannModel:
+def create_pann_model(name: str, seed: int = 0, device=None,
+                      compute_dtype=torch.float32) -> PannModel:
     """A zoo model by reference class name (the safe analog of main.py's
-    ``eval(model_type)`` dispatch), on the card unless ``device`` says."""
+    ``eval(model_type)`` dispatch), on the card unless ``device`` says;
+    ``compute_dtype`` as ``PannModel`` takes it."""
     if name not in PANN_REGISTRY:
         raise KeyError(f"unknown PANN model {name!r}; available: {sorted(PANN_REGISTRY)}")
-    return build_pann_model(PANN_REGISTRY[name], seed, device)
+    return build_pann_model(PANN_REGISTRY[name], seed, device, compute_dtype)

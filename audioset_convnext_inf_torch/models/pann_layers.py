@@ -17,6 +17,10 @@ statistics by the JAX package's dotted parameter path, leaving its own
 buffers as they were; ``dropout`` and SpecAugment draw there, or take the
 draws a caller hands in.
 
+The bf16 serving route (``conv_bn_relu``, ``serve_pool``,
+``to_serve_layout`` and the blocks' ``serve`` methods) runs channels last,
+each eval BatchNorm folded into the convolution before it.
+
 Initialization (``init_params_``) is the JAX package's recipe drawn from a
 ``torch.Generator``: Glorot-uniform convs and linears with zero biases, BN
 at identity, and the JAX init's zeros: the last BN scale of every residual
@@ -231,6 +235,84 @@ def pool1d(x: torch.Tensor, kernel: int, stride: Optional[int] = None, padding: 
 
 
 # ---------------------------------------------------------------------------
+# bf16 serving route (eval only)
+# ---------------------------------------------------------------------------
+# Maps are channels last (NHWC), the layout of cuDNN's bf16 tensor-core
+# convolutions; 1-D maps run as (B, C, 1, L) images. Each convolution
+# carries its BatchNorm (folded once per version of the weights) and, on
+# the card, its bias and ReLU in one cuDNN call; the pools reduce over a
+# reshaped view. Each choice was measured on an H100 (PERF.md, section 6).
+
+
+def fold_bn(weight: torch.Tensor, bn: "BatchNorm") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weight * s, beta - mean * s) in f32, s = gamma / sqrt(var + eps):
+    a bias-free convolution followed by an eval BatchNorm as one
+    convolution with a bias."""
+    s = torch.rsqrt(bn.running_var.float() + 1e-5) * bn.weight.float()
+    w = weight.float() * s.reshape((-1,) + (1,) * (weight.ndim - 1))
+    return w, bn.bias.float() - bn.running_mean.float() * s
+
+
+def _folded(conv: nn.Module, bn: "BatchNorm", dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fold_bn``'s weight (channels last, a Conv1d's as (O, I, 1, k)) and
+    bias in ``dtype``, kept on ``conv`` and made anew when one of the five
+    tensors changes: a ``load_state_dict`` or any in-place update bumps its
+    version, a move to another device changes its address."""
+    key = tuple((t.data_ptr(), t._version) for t in (
+        conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)) + (dtype,)
+    kept = conv.__dict__.get("_serve_folded")
+    if kept is None or kept[0] != key:
+        w, b = fold_bn(conv.weight, bn)
+        if isinstance(conv, nn.Conv1d):
+            w = w[:, :, None, :]
+        kept = (key, w.to(dtype).contiguous(memory_format=torch.channels_last), b.to(dtype))
+        conv.__dict__["_serve_folded"] = kept
+    return kept[1], kept[2]
+
+
+def conv_bn_relu(x: torch.Tensor, conv: nn.Module, bn: "BatchNorm") -> torch.Tensor:
+    """relu(bn(conv(x))) on a bf16 channels-last map, the BatchNorm folded
+    into the convolution, whose weight and bias are rounded to x's dtype
+    (``_folded``). On the card one cuDNN call adds the bias and applies the
+    ReLU to the f32 accumulator before the output is rounded
+    (``torch.cudnn_convolution_relu``); elsewhere the convolution rounds,
+    then the ReLU. A Conv1d runs as a (1, k) Conv2d on a (B, C, 1, L) map."""
+    w, b = _folded(conv, bn, x.dtype)
+    stride, padding, dilation = conv.stride, conv.padding, conv.dilation
+    if isinstance(conv, nn.Conv1d):
+        stride, padding, dilation = (1,) + stride, (0,) + padding, (1,) + dilation
+    if x.is_cuda:
+        return torch.cudnn_convolution_relu(x, w, b, stride, padding, dilation, 1)
+    return F.relu_(F.conv2d(x, w, b, stride, padding, dilation))
+
+
+def serve_pool(x: torch.Tensor, size: Tuple[int, int], kind: str = "avg") -> torch.Tensor:
+    """Average or max pool (kernel = stride, floor) of a channels-last map
+    as one reduction over a (B, H', kh, W', kw, C) view of its memory:
+    ``F.avg_pool2d``'s and ``F.max_pool2d``'s channels-last kernels take
+    two to four times as long on the card. The mean accumulates in f32."""
+    kh, kw = size
+    if (kh, kw) == (1, 1):
+        return x
+    b, c, h, w = x.shape
+    v = x.permute(0, 2, 3, 1)[:, :h // kh * kh, :w // kw * kw]
+    v = v.reshape(b, h // kh, kh, w // kw, kw, c)
+    v = v.mean(dim=(2, 4)) if kind == "avg" else v.amax(dim=(2, 4))
+    return v.permute(0, 3, 1, 2)
+
+
+def to_serve_layout(x: torch.Tensor) -> torch.Tensor:
+    """x (B, C, H, W) channels last. A one-channel map gets the
+    channels-last strides on its own memory: ``contiguous(memory_format=
+    torch.channels_last)`` leaves such a map as it is, and cuDNN would then
+    read it, and write every map after it, channels first."""
+    if x.shape[1] == 1:
+        _, _, h, w = x.shape
+        return x.contiguous().as_strided(x.shape, (h * w, 1, w, 1))
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+# ---------------------------------------------------------------------------
 # 2-D conv blocks
 # ---------------------------------------------------------------------------
 
@@ -249,6 +331,11 @@ class ConvBlock(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         return pool2d(x, pool_size, pool_type)
+
+    def serve(self, x, pool_size=(2, 2)):
+        """``forward`` with an average pool on the bf16 serving route."""
+        x = conv_bn_relu(conv_bn_relu(x, self.conv1, self.bn1), self.conv2, self.bn2)
+        return serve_pool(x, pool_size)
 
 
 class ConvBlock5x5(nn.Module):
@@ -450,6 +537,11 @@ class PreWavBlock(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         return pool1d(x, pool_size)
+
+    def serve(self, x, pool_size: int):
+        """``forward`` on the bf16 serving route, x (B, C, 1, L)."""
+        x = conv_bn_relu(conv_bn_relu(x, self.conv1, self.bn1), self.conv2, self.bn2)
+        return serve_pool(x, (1, pool_size), "max")
 
 
 # ---------------------------------------------------------------------------

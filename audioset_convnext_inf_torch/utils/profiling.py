@@ -67,9 +67,11 @@ def span(name: str, args: Optional[Dict[str, Any]] = None):
     ``train.h2d``, ``train.forward``, ``train.backward``,
     ``train.allreduce`` (with a process group), ``train.optimizer``;
     ``eval.wait_batch`` and ``eval.launch`` (``batch``); the model's
-    ``model.frontend`` and ``model.stage1`` ... ``model.stage4``; the
-    fused blocks' host work before each launch, ``fused_block.prep`` and
-    ``fused_block_bwd.prep``."""
+    ``model.frontend`` and ``model.stage1`` ... ``model.stage4`` (the
+    ConvNeXt), ``model.frontend``, ``model.wavegram``, ``model.trunk`` and
+    ``model.head`` (a PANN's eval routes; the wavegram only in its family);
+    the fused blocks' host work before each launch, ``fused_block.prep``
+    and ``fused_block_bwd.prep``."""
     if not torch.autograd._profiler_enabled() or torch.compiler.is_compiling():
         return _OFF
     return torch._C._profiler._RecordFunctionFast(name, (), args or {})

@@ -511,3 +511,33 @@ def test_a_clips_answer_does_not_depend_on_its_batch_neighbours(name, seconds):
           f"layers {list(rows['zeros'])}")
     assert all(v is None for v in parted.values()), parted
     assert again is None and streams == 0.0
+
+
+@pytest.mark.cuda
+def test_pann_bf16_route_on_the_card_at_ten_seconds():
+    """Wavegram-Logmel-CNN14's bf16 route on the card (cuDNN's fused
+    convolution, bias and ReLU) on eight 10-s clips against the benchmark's
+    plain reference, the float8 control failing the same tolerance, and the
+    route's counter."""
+    import json
+
+    from audioset_convnext_inf_torch.models.pann import create_pann_model
+    from benchmark import clips
+    from benchmark.reference import pann as ref
+    from benchmark.reference.pann_weights import make_state_dict
+    from benchmark.spec import HERE
+
+    _need_card()
+    with open(HERE / "configs" / "wavegram_logmel_cnn14-bf16-serve.json") as f:
+        mcfg = json.load(f)["model"]
+    sd = make_state_dict(mcfg, 18, "cuda")
+    model = create_pann_model(mcfg["name"], device="cuda", compute_dtype=torch.bfloat16)
+    model.load_state_dict(sd, strict=True)
+    pcm = torch.from_numpy(clips.pool(18, 8, 320000, "cuda")).cuda()
+    got = model.forward(pcm)["clipwise_output"].float()
+    want = ref.probabilities(sd, pcm, mcfg, block_rows=4)
+    f8 = ref.probabilities(sd, pcm, mcfg, quant=torch.float8_e4m3fn, block_rows=4)
+    gap, control = float((got - want).abs().max()), float((f8 - want).abs().max())
+    print(f"bf16 route gap {gap:.4g}, float8 control {control:.4g}")
+    assert gap < 1e-2 < control  # tests/test_torch_pann_serving.py's bf16 tolerance
+    assert (model.bf16_forwards, model.f32_forwards) == (1, 0)
