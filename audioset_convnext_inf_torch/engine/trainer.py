@@ -40,6 +40,7 @@ import torch
 from audioset_convnext_inf_torch.checkpoint.io import optimizer_state_from_optax
 from audioset_convnext_inf_torch.engine.losses import clip_bce
 from audioset_convnext_inf_torch.models import convnext as F
+from audioset_convnext_inf_torch.ops import adamw
 from audioset_convnext_inf_torch.ops.mixup import do_mixup, get_mixup_lambda
 from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
@@ -128,9 +129,14 @@ class Optimizer:
     mask says so, times -lr. The schedules read the number of updates made
     so far. With ``accumulation_steps`` k > 1 it is ``optax.MultiSteps``:
     each call folds the gradients into a running mean, and every k-th call
-    applies one update with that mean."""
+    applies one update with that mean.
 
-    B1, B2, EPS = 0.9, 0.999, 1e-8
+    The update is ``ops/adamw.py::adamw_update_``: on the card one kernel
+    over every leaf (its library loaded here, at construction), on the CPU
+    the plain per-leaf version, with the same bits. ``fused_updates`` and
+    ``loop_updates`` count the updates each route made."""
+
+    B1, B2, EPS = adamw.B1, adamw.B2, adamw.EPS
 
     def __init__(self, params: Params, cfg: TrainConfig):
         if cfg.optimizer not in ("adam", "adamw"):
@@ -145,6 +151,10 @@ class Optimizer:
         zeros = lambda: {n: torch.zeros_like(p) for n, p in self.params.items()}  # noqa: E731
         self.mu, self.nu = zeros(), zeros()
         self.acc = zeros() if cfg.accumulation_steps > 1 else None
+        self.fused_updates = 0  # updates made by the kernel
+        self.loop_updates = 0  # updates made by the plain version
+        if any(p.is_cuda for p in self.params.values()):
+            adamw.load_library()
 
     @torch.no_grad()
     def step(self, grads: Params) -> bool:
@@ -162,14 +172,15 @@ class Optimizer:
         lr, wd = self.lr(self.count), self.wd(self.count)
         n_upd = self.count + 1
         bc1, bc2 = 1 - self.B1 ** n_upd, 1 - self.B2 ** n_upd
-        for n, p in self.params.items():
-            g = grads[n]
-            mu = self.mu[n].copy_((1 - self.B1) * g + self.B1 * self.mu[n])
-            nu = self.nu[n].copy_((1 - self.B2) * (g * g) + self.B2 * self.nu[n])
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS)
-            if self.decay.get(n):
-                u = u + wd * p
-            p.add_(u * -lr)
+        names = list(self.params)
+        launches = adamw.adamw_update_(
+            [self.params[n] for n in names], [grads[n] for n in names],
+            [self.mu[n] for n in names], [self.nu[n] for n in names],
+            [bool(self.decay.get(n)) for n in names], lr, wd, bc1, bc2)
+        if launches:
+            self.fused_updates += 1
+        else:
+            self.loop_updates += 1
         self.count = n_upd
         if self.acc is not None:
             for a in self.acc.values():

@@ -23,7 +23,10 @@ run (non-zero exit) on any error or mismatch:
     bit-equal to the plain version's, and the fused block backward (K2);
     each must also give bit-equal results twice; K1's unfused-rounding
     mode at stage-1/2 widths (K1_UNFUSED_CASES) against the unfused block
-    on the card, nearer to it than K1's own rounding;
+    on the card, nearer to it than K1's own rounding; the AdamW kernel
+    (csrc/adamw.cu, which replaces no TPU kernel) through the Optimizer
+    against the plain loop over 5 updates of convnext_tiny's 184 leaves,
+    p, m and v bit-equal after each, every update fused;
  4. serving path: convnext_tiny at full width on B=16 ten-second clips (the
     fixture recording as int16 plus seeded variants), random weights from
     a seed with seeded gamma/bn0 values. The bf16 serving config runs
@@ -41,7 +44,8 @@ run (non-zero exit) on any error or mismatch:
     Trainer.step calls on 32 fixture-derived clips (mixup pairs them into
     B=16). Each step must launch K1 in save mode and K2 exactly once per
     stage-3/4 block, with a finite loss, and never the unfused-rounding
-    mode; the trained model's f32 eval forward launches K1 12 times in
+    mode, and every optimizer update must go through the AdamW kernel;
+    the trained model's f32 eval forward launches K1 12 times in
     serving mode; one step's gradients with the
     fused blocks against the unfused ones (drop path off), bf16 and f32;
  6. times (CUDA events after warm-up; a kernel's the median of 5 runs of 20
@@ -56,7 +60,11 @@ run (non-zero exit) on any error or mismatch:
     the Kaldi-fbank route's stage 3) and autograd's backward of it (K2's
     unfused_ms), and cuBLAS's two products alone (xn . W1^T, tanh GELU,
     . W2^T in bf16: how far K1's products are from the library's), at the
-    main path's shapes, each the median of 5 runs with its spread;
+    main path's shapes, each the median of 5 runs with its spread; the
+    AdamW kernel at convnext_tiny's 184 leaves beside its bound (28 bytes a
+    value) and the plain loop, medians of 5 runs of 20 updates, and the
+    host's ms to issue one update either way (no PyTorch call computes
+    optax's update: no library_ms);
     end-to-end clips/s of the bf16 serving forward at B=16 and B=64 and of
     the training step; one torch.profiler trace of the serving forward and
     one of a training step (device time by kernel, idle share);
@@ -176,7 +184,8 @@ run (non-zero exit) on any error or mismatch:
     (16 classes), each step launching K1's save mode and K2 12 times; its
     gates: the loss ratio under LEARN_LOSS_RATIO and train mAP over the 16
     columns above LEARN_MAP through the bf16 serving forward (18 K1
-    launches a forward); (b) the same run on the unfused route (no K1 save
+    launches a forward), every optimizer update through the AdamW kernel;
+    (b) the same run on the unfused route (no K1 save
     mode, no K2), the same gates, both runs side by side with their largest
     per-step loss gap; (c) scripts/serving_parity_trained_tpu.py's check:
     run (a)'s weights written as safetensors and read by
@@ -1035,6 +1044,134 @@ def compare_yardsticks(k1, k1_save, k2, fwd, bwd, products):
         f"({fwd[name] / k1[name]['ms']:.2f}x)")
 
 
+# the AdamW kernel over convnext_tiny's leaves (phases 3 and 6): it replaces
+# no TPU kernel (optax's update, fused by XLA) but the port's per-leaf loop
+
+ADAMW_UPDATES = 5  # updates the kernel and its plain version take side by side
+
+
+def adamw_leaves(device):
+    """The training model's 184 parameters (seeded as phase 5's), one seeded
+    gradient set a leaf at scales 1e-12 to 1, and the recipe's config."""
+    model = build_train_model(device)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    scales = np.random.RandomState(SEED + 11).randint(-12, 1, size=(ADAMW_UPDATES, len(params)))
+    grads = [{n: torch.randn(p.shape, generator=gen, device=device) * 10.0 ** float(e)
+              for (n, p), e in zip(params.items(), row)} for row in scales]
+    return params, grads, train_config()
+
+
+def check_adamw(device):
+    """The Optimizer (the kernel) against the plain loop on the card over
+    ADAMW_UPDATES updates of convnext_tiny's 184 leaves: p, m and v must be
+    bit-equal after every update, every update fused."""
+    from audioset_convnext_inf_torch.engine.trainer import Optimizer, _wd_mask, onecycle_lr
+    from audioset_convnext_inf_torch.ops import adamw as A
+
+    params, grads, cfg = adamw_leaves(device)
+    plain = {n: p.clone() for n, p in params.items()}
+    mu = {n: torch.zeros_like(p) for n, p in params.items()}
+    nu = {n: torch.zeros_like(p) for n, p in params.items()}
+    names, decay, lr = list(params), _wd_mask(params), onecycle_lr(cfg)
+    opt = Optimizer(params, cfg)
+    before = A.adamw_update_.launches
+    for k in range(ADAMW_UPDATES):
+        opt.step(grads[k])
+        t = k + 1
+        A.adamw_update_reference([plain[n] for n in names], [grads[k][n] for n in names],
+                                 [mu[n] for n in names], [nu[n] for n in names],
+                                 [decay[n] for n in names], lr(k), cfg.weight_decay,
+                                 1 - A.B1 ** t, 1 - A.B2 ** t)
+        torch.cuda.synchronize()
+        differ = sum(int((a[n] != b[n]).sum()) for a, b in ((params, plain), (opt.mu, mu),
+                                                            (opt.nu, nu)) for n in names)
+        if differ:
+            raise AssertionError(f"AdamW update {k}: {differ} values of p, m, v differ from "
+                                 f"the plain loop's")
+    launches = A.adamw_update_.launches - before
+    log(f"  AdamW kernel vs the plain loop on the card: {len(names)} leaves "
+        f"({sum(p.numel() for p in params.values()):,} values, {sum(decay.values())} decaying), "
+        f"{ADAMW_UPDATES} updates: p, m, v bit-equal after each; {launches} launches "
+        f"({launches // ADAMW_UPDATES} an update), updates fused {opt.fused_updates}, "
+        f"loop {opt.loop_updates}")
+    if (opt.fused_updates, opt.loop_updates) != (ADAMW_UPDATES, 0) or launches > 3 * ADAMW_UPDATES:
+        raise AssertionError(f"AdamW: fused {opt.fused_updates}, loop {opt.loop_updates}, "
+                             f"{launches} launches over {ADAMW_UPDATES} updates")
+    A.adamw_update_.launches = before
+
+
+ADAMW_OPS = 16  # f32 operations a value: the moments 7, the step 5, decay 2, p 2
+ADAMW_BYTES = 28  # p, g, m, v read and p, m, v written, f32
+
+
+def queued_ms(fn, iters: int, host_ms: float) -> float:
+    """Device ms of fn() over ``iters`` calls queued behind a sleep on the
+    stream long enough for the host to issue them all (``host_ms`` a call),
+    so that the host's issue time stays out of the reading."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * (10.0 + 2.0 * host_ms * iters)))  # at ~2 GHz: 10 ms + twice that
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_adamw(device):
+    """At convnext_tiny's 184 leaves: the host's ms to issue one update, the
+    card's ms for one (the median of REPEATS runs of 20 updates queued ahead
+    of the card, by CUDA events) beside the bound, for the kernel and the
+    plain loop, and the plain loop's ms as a step sees it (host-bound: 20
+    updates not queued ahead)."""
+    from audioset_convnext_inf_torch.engine.trainer import _wd_mask
+    from audioset_convnext_inf_torch.ops import adamw as A
+
+    params, grads, _ = adamw_leaves(device)
+    names = list(params)
+    mask = _wd_mask(params)
+    args = ([params[n] for n in names], [grads[0][n] for n in names],
+            [torch.zeros_like(params[n]) for n in names],
+            [torch.zeros_like(params[n]) for n in names], [mask[n] for n in names],
+            1e-4, 0.01, 0.1, 0.001)
+    fns = {"kernel": lambda: A.adamw_update_(*args),
+           "plain": lambda: A.adamw_update_reference(*args)}
+    before = A.adamw_update_.launches
+    host, dev = {}, {}
+    for label, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host[label] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        runs = sorted(queued_ms(fn, 20, host[label]) for _ in range(REPEATS))
+        dev[label] = (runs[REPEATS // 2], runs[0], runs[-1])
+    plain_ms, plain_spread = median_ms(fns["plain"], iters=20)
+    A.adamw_update_.launches = before
+    values = sum(params[n].numel() for n in names)
+    bound = ADAMW_BYTES * values / PEAK_BYTES * 1e3
+    launches = len(A.launch_plan([params[n].numel() for n in names], args[4]))
+    ms = dev["kernel"][0]
+    log(f"  AdamW, convnext_tiny's {len(names)} leaves ({values:,} values, {launches} launches): "
+        f"kernel {ms:.4f} ms on the card (median of {REPEATS} runs of 20 queued, "
+        f"{dev['kernel'][1]:.4f}-{dev['kernel'][2]:.4f}), bound {bound:.4f} ms (bytes: "
+        f"{ADAMW_BYTES * values / 1e6:.1f} MB; {ADAMW_OPS * values / 1e9:.2f} GFLOP), "
+        f"{bound / ms * 100:.1f}% of it, {ADAMW_BYTES * values / ms / 1e6:.0f} GB/s; plain loop "
+        f"{dev['plain'][0]:.4f} ms on the card ({dev['plain'][1]:.4f}-{dev['plain'][2]:.4f}), "
+        f"{plain_ms:.4f} ms not queued ({plain_spread[0]:.4f}-{plain_spread[1]:.4f}); host ms "
+        f"to issue an update: kernel {host['kernel']:.3f}, plain loop {host['plain']:.3f}; no "
+        f"library_ms: no PyTorch call computes optax's update (torch.optim.AdamW's fused and "
+        f"foreach routes apply the decay and eps otherwise)")
+    return dict(ms=ms, plain_ms=plain_ms, plain_device_ms=dev["plain"][0], bound_ms=bound,
+                host_ms=host["kernel"], plain_host_ms=host["plain"])
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1328,6 +1465,7 @@ def run_training_path(device):
         if delta != (per_step, per_step, per_step):
             raise AssertionError(f"training step {i} launched {delta}, expected {per_step} each")
     launches = _counts()
+    check_fused_updates(trainer.optimizer, TRAIN_STEPS, "training path")
     unfused = fused_block.unfused_rounding_launches
     log(f"  {TRAIN_STEPS} training steps: K1 launches in the unfused-rounding mode {unfused} "
         f"(expect 0: training keeps the unfused blocks at stages 1-2)")
@@ -1391,6 +1529,16 @@ def check_fused_vs_unfused(device):
         raise AssertionError("fused and unfused training gradients disagree in f32")
     if not worst_added <= FUSED_GRAD_TOL[torch.bfloat16]:
         raise AssertionError("bf16 fused training gradients are farther from f32 than the unfused")
+
+
+def check_fused_updates(optimizer, steps: int, label: str):
+    """Every update of ``steps`` went through the AdamW kernel."""
+    got = (optimizer.fused_updates, optimizer.loop_updates)
+    log(f"  {label}: optimizer updates through the AdamW kernel {got[0]}, through the plain "
+        f"loop {got[1]} (expect {steps}, 0)")
+    if got != (steps, 0):
+        raise AssertionError(f"{label}: optimizer updates (fused, loop) {got}, expected "
+                             f"({steps}, 0)")
 
 
 def time_training(trainer, batch, steps: int = 5):
@@ -3662,6 +3810,7 @@ def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
                                  f"expected {per_step} each")
     train_s = time.perf_counter() - t0
     launches = _counts()
+    check_fused_updates(trainer.optimizer, LEARN_STEPS, label)
     losses = torch.stack(losses).float().cpu().numpy()
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite loss at steps {np.where(~np.isfinite(losses))[0][:10]}")
@@ -3926,12 +4075,13 @@ def run_phases() -> int:
     log(card)
 
     phase("[2/15] build")
-    build_kernels(["fused_block", "fused_block_bwd"])
+    build_kernels(["fused_block", "fused_block_bwd", "adamw"])
 
     phase("[3/15] kernels against their plain versions")
     k1_results = check_k1(device) + check_k1_unfused(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
+    check_adamw(device)
 
     phase("[4/15] serving path: convnext_tiny, B=16 x 10-s clips")
     serve, launches = run_main_path(device)
@@ -3950,6 +4100,7 @@ def run_phases() -> int:
     unfused, unfused_bwd = time_unfused(device)
     products = time_products(device)
     compare_yardsticks(per_shape, save_shape, k2_shape, unfused, unfused_bwd, products)
+    time_adamw(device)
     time_end_to_end(serve, "bf16 serving")
     profile_forward(serve, BATCH)
     time_training(trainer, batch)

@@ -78,6 +78,20 @@ def test_editing_the_source_changes_only_its_library(csrc, before, name):
     assert _build.library_path(other) == before[other]
 
 
+def test_the_adamw_kernel_compiles_its_source_alone(csrc, before):
+    """csrc/adamw.cu includes no header of csrc/: editing the shared
+    headers leaves its library, editing it leaves K1's and K2's."""
+    assert [p.name for p in _build.sources("adamw")] == ["adamw.cu"]
+    adamw = _build.library_path("adamw")
+    _append(csrc / "mma_bf16.cuh")
+    _append(csrc / "wgmma_bf16.cuh")
+    assert _build.library_path("adamw") == adamw
+    k1, k2 = _build.library_path("fused_block"), _build.library_path("fused_block_bwd")
+    _append(csrc / "adamw.cu")
+    assert _build.library_path("adamw") != adamw
+    assert (_build.library_path("fused_block"), _build.library_path("fused_block_bwd")) == (k1, k2)
+
+
 def test_headers_included_through_headers_are_followed(csrc):
     (csrc / "inner.cuh").write_text("#pragma once\n")
     _append(csrc / "mma_bf16.cuh", '\n#include "inner.cuh"\n')

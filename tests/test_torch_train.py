@@ -247,6 +247,32 @@ def test_optimizer_matches_optax_given_the_same_gradients(rng, name):
     assert not np.allclose(params["w"].numpy(), init["w"])
 
 
+@pytest.mark.parametrize("name", ["adamw", "adamw_accumulate_2"])
+def test_the_cpu_optimizer_takes_the_plain_route_and_matches_optax(rng, name):
+    """On CPU tensors every update runs the plain version (``loop_updates``
+    counts it, no kernel launches) and lands where optax's does."""
+    from audioset_convnext_inf_torch.ops import adamw
+
+    kw = dict(max_lr=1e-2, total_steps=10, weight_decay=0.1, **OPTIMIZERS[name])
+    init = {"w": rng.randn(3, 7).astype(np.float32), "b": rng.randn(7).astype(np.float32)}
+    jparams = {k: jnp.asarray(v) for k, v in init.items()}
+    tx = JT.make_optimizer(jparams, JT.TrainConfig(**kw))
+    state = tx.init(jparams)
+    params = {k: torch.from_numpy(v.copy()) for k, v in init.items()}
+    opt = T.Optimizer(params, T.TrainConfig(**kw))
+    launches = adamw.adamw_update_.launches
+    applied = 0
+    for _ in range(6):
+        g = {k: rng.randn(*v.shape).astype(np.float32) for k, v in init.items()}
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        applied += opt.step({k: torch.from_numpy(v) for k, v in g.items()})
+    assert (opt.loop_updates, opt.fused_updates) == (applied, 0) and applied == opt.count
+    assert adamw.adamw_update_.launches == launches
+    for k in init:
+        np.testing.assert_allclose(params[k].numpy(), np.asarray(jparams[k]), atol=1e-6)
+
+
 def test_optimizer_state_round_trip(rng):
     params = {"w": torch.from_numpy(rng.randn(3, 2).astype(np.float32))}
     cfg = T.TrainConfig(accumulation_steps=2)
