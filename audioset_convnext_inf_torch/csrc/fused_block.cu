@@ -132,16 +132,10 @@
 #include <algorithm>
 #include <climits>
 
-#include "mma_bf16.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-using mma_bf16::bf16;
-using mma_bf16::MAX_SMEM;
-using mma_bf16::allow_smem;
-using mma_bf16::pack_bf16x2;
-using mma_bf16::padded_c;
 using namespace wgmma_bf16;
 
 constexpr int K = 7;        // dwconv kernel size

@@ -172,6 +172,12 @@ def tile_weights(w1: torch.Tensor, w2: torch.Tensor, dt: torch.dtype,
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in (w1c, w2c))
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """t as both kernels read an f32 parameter: detached, f32 and
+    contiguous, with no copy where it is f32 and contiguous already."""
+    return t.detach().to(torch.float32).contiguous()
+
+
 def fused_block_reference(
     x: torch.Tensor,
     dw_w: torch.Tensor,
@@ -364,20 +370,17 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
     b, h, w, c = x.shape
     dt = x.dtype
 
-    def f32(t):
-        return t.detach().to(torch.float32).contiguous()
-
     def taps(t):  # the unfused block's depthwise taps and gamma enter in bf16
-        return f32(t.detach().to(dt) if unfused else t)
+        return _f32(t.detach().to(dt) if unfused else t)
 
     with span("fused_block.prep"):
         dww = taps(dw_w).reshape(c, K * K).t().contiguous()  # (49, C), tap-major
-        args = (f32(dw_b), f32(ln_w), f32(ln_b))
+        args = (_f32(dw_b), _f32(ln_w), _f32(ln_b))
         w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
-        b1c, b2c = f32(b1), f32(b2)
+        b1c, b2c = _f32(b1), _f32(b2)
         g = taps(gamma) if gamma is not None else None
         out = torch.empty_like(x)
-        sc = f32(s) if save else None
+        sc = _f32(s) if save else None
         d = torch.empty_like(x) if save else None
         part = (torch.empty(plan.hidden_split, b * h * w, plan.cp, device=x.device)
                 if dt == torch.bfloat16 and plan.hidden_split > 1 else None)

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from audioset_convnext_inf_torch.ops import _build
 from audioset_convnext_inf_torch.ops.fused_block import (
-    K, MAX_C, OPS, _DTYPE_CODE, _check, padded_c, tile_weights)
+    K, MAX_C, OPS, _DTYPE_CODE, _check, _f32, padded_c, tile_weights)
 from audioset_convnext_inf_torch.ops.precision import fp32_precision
 from audioset_convnext_inf_torch.utils.profiling import span
 
@@ -385,14 +385,9 @@ def _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
     b, h, w, c = x.shape
     dt = x.dtype
 
-    def f32(t):
-        if t.dtype == torch.float32 and t.is_contiguous():
-            return t.detach()
-        return t.detach().to(torch.float32).contiguous()
-
     with span("fused_block_bwd.prep"):
         w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
-        ins = (f32(dw_w), f32(ln_w), f32(ln_b), w1c, f32(b1), w2c, f32(gamma), f32(s))
+        ins = (_f32(dw_w), _f32(ln_w), _f32(ln_b), w1c, _f32(b1), w2c, _f32(gamma), _f32(s))
         dx = torch.empty_like(x)
         buf = allocate(plan, c, dt, x.device)
     outs = (*(k for k, _ in _VEC), "dww", "m", "xn", "dys", "dz2", "gact", "dh1", "dd", "dxn",

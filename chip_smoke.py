@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU.
+"""Card checks of the PyTorch port on one NVIDIA GPU, and its kernel table.
 
     python3 chip_smoke.py
 
 Runs from the root of a checkout, on a machine with a CUDA card, nvcc and
-nvidia-smi. It needs no network and no JAX. Phases, each of which fails the
-run (non-zero exit) on any error or mismatch:
+nvidia-smi. It needs no network and no JAX. It checks on the card what the
+CPU tests cannot, and times each hand-written kernel alone (phase 6, the
+kernel table). It times no end-to-end work: clips/s, requests/s, latency,
+step times and traces of the port's surfaces are the benchmark's
+(BENCHMARK.json, python3 -m benchmark.run). Phases, each of which fails
+the run (non-zero exit) on any error or mismatch:
 
  1. device: the card's name and power limit;
  2. build: every CUDA kernel of the two paths below, from the sources in
@@ -48,26 +52,22 @@ run (non-zero exit) on any error or mismatch:
     the trained model's f32 eval forward launches K1 12 times in
     serving mode; one step's gradients with the
     fused blocks against the unfused ones (drop path off), bf16 and f32;
- 6. times (CUDA events after warm-up; a kernel's the median of 5 runs of 20
-    calls): each kernel and its plain version at
-    the checked shapes beside the least time the card could take; one
-    profiled K1 call (serving and save mode) and one K2 call at each
-    main-path shape, which must show every launch of the plan and none of
-    the kernels the Hopper redesigns replaced (K1's every device launch
-    printed, the wrapper's weight preparation included, with the
-    kernel's TFLOP/s, share of the bf16 peak and the plan's L2 weight
-    bytes); the unfused bf16 block's forward (K1's unfused_ms, also at
-    the Kaldi-fbank route's stage 3) and autograd's backward of it (K2's
-    unfused_ms), and cuBLAS's two products alone (xn . W1^T, tanh GELU,
-    . W2^T in bf16: how far K1's products are from the library's), at the
-    main path's shapes, each the median of 5 runs with its spread; the
-    AdamW kernel at convnext_tiny's 184 leaves beside its bound (28 bytes a
-    value) and the plain loop, medians of 5 runs of 20 updates, and the
-    host's ms to issue one update either way (no PyTorch call computes
-    optax's update: no library_ms);
-    end-to-end clips/s of the bf16 serving forward at B=16 and B=64 and of
-    the training step; one torch.profiler trace of the serving forward and
-    one of a training step (device time by kernel, idle share);
+ 6. the kernel table (CUDA events after warm-up; a kernel's the median of
+    5 runs of 20 calls): each kernel and its plain version at the checked
+    shapes beside the least time the card could take; one profiled K1
+    call (serving and save mode) and one K2 call at each main-path shape,
+    which must show every launch of the plan and none of the kernels the
+    Hopper redesigns replaced (K1's every device launch printed, the
+    wrapper's weight preparation included, with the kernel's TFLOP/s,
+    share of the bf16 peak and the plan's L2 weight bytes); the unfused
+    bf16 block's forward (K1's unfused_ms, also at the Kaldi-fbank route's
+    stage 3) and autograd's backward of it (K2's unfused_ms), and cuBLAS's
+    two products alone (xn . W1^T, tanh GELU, . W2^T in bf16: how far K1's
+    products are from the library's), at the main path's shapes, each the
+    median of 5 runs with its spread; the AdamW kernel at convnext_tiny's
+    184 leaves beside its bound (28 bytes a value) and the plain loop,
+    medians of 5 runs of 20 updates, and the host's ms to issue one update
+    either way (no PyTorch call computes optax's update: no library_ms);
  7. inference surfaces, on the phase-4 serving model: a safetensors file
     and a native checkpoint directory written by the port load through
     ConvNeXt.from_pretrained with bit-equal outputs; the Evaluator over
@@ -79,22 +79,20 @@ run (non-zero exit) on any error or mismatch:
     and embed_long_audio on the fixture; each step must launch K1 18 times
     per forward (phase 3 holds K1 against its plain version at each of
     these batch sizes); the CLIs on their default device: convert and the
-    demo; then the Evaluator's clips/s (median of three runs) beside
-    model.forward's at the same batch, and one trace of two Evaluator
-    batches;
+    demo;
  8. the tagging service: cli/serve.py's server on a free port with the
     phase-4 model, batch 16, max wait 20 ms. SERVE_CLIENTS client threads
-    send int16 clips to /tag in a closed loop for SERVE_SECONDS; every
-    answer must equal model.forward of that clip in a batch of 16 within
-    SERVICE_TOL, and each batch must launch K1 18 times. Requests/s,
-    p50/p99 latency and the mean batch fill, then the same with the
-    batcher driven directly (no HTTP); a 25-s request, /embed, /healthz;
-    one trace of a burst of requests;
+    each send every clip of a pool of SERVE_POOL int16 clips to /tag once
+    (SERVE_REQUESTS requests); every answer must equal model.forward of
+    that clip in a batch of 16 within SERVICE_TOL, each request must be
+    one clip of a batch, and each batch must launch K1 18 times; then the
+    same requests to the batcher directly (no HTTP); a 25-s request,
+    /embed, /healthz;
  9. the training CLI's loop (cli/train.py::train) on the card over an
     in-memory index and dataset: convnext_tiny in the fused bf16 recipe,
     balanced sampler, mixup 1.0, 32 clips in, B=16, 4 loader threads, an
-    evaluation and a checkpoint every 3 steps. 6 steps straight (timed),
-    then 3 steps and a fresh run resuming at step 3 for 3 more: the sampler
+    evaluation and a checkpoint every 3 steps. 6 steps straight, then 3
+    steps and a fresh run resuming at step 3 for 3 more: the sampler
     states bit-equal, the parameters within RESUME_PARAM_LIMIT, each step
     launching K1 in save mode and K2 12 times;
 10. data parallelism on the one card: (a) cli/train.py::train under a
@@ -103,76 +101,68 @@ run (non-zero exit) on any error or mismatch:
     two processes on card 0 with the gloo backend, one Trainer step each
     of 32 clips against one process's step (f32 unfused, bf16 fused; the
     bounds in DP_CASES' comment), 12 K1-save and 12 K2 calls a rank a
-    step, each step's ms and its collectives' ms; (c) the Evaluator over
-    two replicas on the one card against one replica (SHARDED_EVAL_TOL),
-    clips/s beside phase 7's; (d) cli/serve.py --mesh with the phase-4
-    model for SERVE_MESH_SECONDS of phase 8's traffic, every answer within
-    SERVICE_TOL, K1 18 times per replica batch;
+    step; (c) the Evaluator over two replicas on the one card against one
+    replica (SHARDED_EVAL_TOL); (d) cli/serve.py --mesh with the phase-4
+    model and phase 8's requests, every answer within SERVICE_TOL, K1 18
+    times per replica batch;
 11. AOT serving bundles (engine/aot_export.py) of the phase-4 model, int16
     in: forward at buckets 1 and 16, scene and frame at 16, shared weights
     at 16, one dynamic program, and the f32 parity config at 16, each
-    exported (seconds per program, size on disk), loaded (seconds, first
-    call) and held against the live model within BUNDLE_TOL (B=16, B=3
-    padded, B=1, the dynamic program at 2 and 5): 18 K1 launches per bf16
-    call, none in f32; the forward bundle in a fresh process that cannot
-    import the port's models or checkpoint packages, bit-equal; its steady
-    clips/s beside the live forward's; cli/serve.py --bundle with phase 8's
-    traffic for SERVE_BUNDLE_SECONDS, each answer equal to the bundle's own
-    forward in a batch of 16; then the frontend alone (each dft_impl at
-    both serving precisions, CUDA events) and ct and rfft on the card
-    against the CPU (FRONTEND_DB_TOL);
+    exported (size on disk), loaded and held against the live model within
+    BUNDLE_TOL (B=16, B=3 padded, B=1, the dynamic program at 2 and 5): 18
+    K1 launches per bf16 call, none in f32; the forward bundle in a fresh
+    process that cannot import the port's models or checkpoint packages,
+    bit-equal; cli/serve.py --bundle with phase 8's requests, each answer
+    equal to the bundle's own forward in a batch of 16; then the
+    frontend's ct and rfft on the card against the CPU (FRONTEND_DB_TOL);
 12. the PANN zoo (models/pann.py, f32 under fp32_precision("highest")): (a)
     all 49 registry models built on the card from their seed, each
     forwarding B=2 10-s clips at its own sample rate (the fixture and a
     seeded clip), outputs finite, shaped and in [0, 1]; (b) one model per
     family (PANN_PARITY), every weight and BN statistic perturbed, against
     the port's CPU forward of the same weights within PANN_PROB_TOL, with
-    Cnn14 also run with TF32 on; (c) clips/s of Cnn14 at B=16 and 64 and of
-    Cnn14_DecisionLevelMax and Res1dNet31 at B=16 by CUDA events, beside
-    the f32 bound, peak memory, one trace of Cnn14 at B=16; (d)
-    cli/inference.py audio_tagging and sound_event_detection --out-csv on
-    the fixture with a reference-keyed checkpoint written here, their top-k
-    equal to model.forward's. No PANN forward may launch K1.
+    Cnn14 also run with TF32 on; (c) cli/inference.py audio_tagging and
+    sound_event_detection --out-csv on the fixture with a reference-keyed
+    checkpoint written here, their top-k equal to model.forward's. No PANN
+    forward may launch K1.
 13. PANN transfer learning (models/pann.py forward_train, engine/transfer.py,
     data/audiocaps.py and data/flac.py, cli/finetune_audiocaps.py), f32:
     (a) a synthetic AudioCaps root (64 train, 16 val, 16 test 10-s 32 kHz
     FLAC clips from AC_DISTINCT encoded ones, captions and tags CSVs); the
     port builds its FLAC library with the host compiler; every clip decodes
     to its encoder's integers exactly; AudioCaps and BasicCollate give the
-    expected lengths and one-hots; decode ms per clip; (b) the published
-    Cnn14, perturbed, forward_train on the card against the port's CPU
-    forward_train (B=4, dropout off, the same SpecAugment draws):
-    probabilities within PANN_PROB_TOL, logits and every bn_updates entry
-    within TRANSFER_REL_TOL of scale; one TransferTrainer.step each side:
-    head gradients within TRANSFER_REL_TOL (the TF32 pin holds over the
-    backward); (c) TransferTrainer.step at B=64, ms/step, clips/s, peak
-    memory, a two-step trace; (d) cli/finetune_audiocaps.py for one epoch
-    at batch 64 from a reference-keyed checkpoint: exit 0, base weights
-    bit-equal, head and every BN statistic moved, the checkpoint read back,
-    the epoch's wall time split into decode, H2D, steps and evaluation. No
+    expected lengths and one-hots; (b) the published Cnn14, perturbed,
+    forward_train on the card against the port's CPU forward_train (B=4,
+    dropout off, the same SpecAugment draws): probabilities within
+    PANN_PROB_TOL, logits and every bn_updates entry within
+    TRANSFER_REL_TOL of scale; one TransferTrainer.step each side: head
+    gradients within TRANSFER_REL_TOL (the TF32 pin holds over the
+    backward); (c) one TransferTrainer.step at B=64 in the CLI's recipe, a
+    finite loss; (d) cli/finetune_audiocaps.py for one epoch at batch 64
+    from a reference-keyed checkpoint: exit 0, base weights bit-equal,
+    head and every BN statistic moved, the checkpoint read back. No
     transfer-path call may launch K1 or K2.
 14. the rest of the JAX package: (a) the host audio library
     (utils/native.py over csrc/audio_host.cpp) built with the host's
-    compiler, timed; the fixture and in-memory PCM 8/16/24/32 and float
-    WAVs against scipy's reading (WAV_TOL), a 10-s clip resampled 44.1k
-    and 48k -> 32k against scipy's f64 (RESAMPLE_TOL), ms per clip of
-    both; about 240 of tests/test_fuzz_decoders.py's mutations of a FLAC
-    and a WAV stream (tests/torch_fuzz_util.py) through the FLAC and WAV
-    libraries built here: each decodes well formed or raises ValueError;
-    (b) kaldi_fbank of FBANK_CLIPS 10-s clips on the card against the
-    host (FBANK_LOG_TOL), ms per batch on the card, ms per clip on the
-    host and by op; (c) the Kaldi-fbank evaluation route at full width:
+    compiler; the fixture and in-memory PCM 8/16/24/32 and float WAVs
+    against scipy's reading (WAV_TOL), a 10-s clip resampled 44.1k and
+    48k -> 32k against scipy's f64 (RESAMPLE_TOL); about 240 of
+    tests/test_fuzz_decoders.py's mutations of a FLAC and a WAV stream
+    (tests/torch_fuzz_util.py) through the FLAC and WAV libraries built
+    here: each decodes well formed or raises ValueError; (b) kaldi_fbank
+    of FBANK_CLIPS 10-s clips on the card against the host
+    (FBANK_LOG_TOL); (c) the Kaldi-fbank evaluation route at full width:
     phase 7's 200 clips through AudioSetDataset(use_kaldi_fbank=True)'s
     own per-clip transform, the DataLoader and the Evaluator at B=64 on
     the phase-4 bf16 model: 18 K1 launches per batch, 12 of them at
-    (64,62,14,384) and (64,31,7,768), the first batch bit-equal to model.forward, 4 clips of
-    the f32 parity model against the CPU (F32_LOGIT_TOL), bf16 against f32
-    (SERVING_PROB_TOL), clips/s beside phase 7's, a two-batch trace, and
-    the same loader through device_prefetch bit-equal to its host
-    batches; (d) crop/pad/pad_or_truncate and the nearest resample on the
-    card bit-equal to the CPU, resample_linear within LINEAR_RESAMPLE_TOL;
-    (e) count_parameters (28,222,767), count_flops per clip, profile_ops
-    listing K1 18 times per forward, a trace file; (f) with
+    (64,62,14,384) and (64,31,7,768), the first batch bit-equal to
+    model.forward, 4 clips of the f32 parity model against the CPU
+    (F32_LOGIT_TOL), bf16 against f32 (SERVING_PROB_TOL), and the same
+    loader through device_prefetch bit-equal to its host batches; (d)
+    crop/pad/pad_or_truncate and the nearest resample on the card
+    bit-equal to the CPU, resample_linear within LINEAR_RESAMPLE_TOL; (e)
+    count_parameters (28,222,767), count_flops per clip, profile_ops
+    listing K1 18 times per forward, a trace file written; (f) with
     AUDIOSET_TPU_COMPILE_CACHE set to a fresh directory, one process builds
     K1 and both host libraries into it and a second builds nothing.
     Packing is not run: the card machine has no h5py.
@@ -241,15 +231,15 @@ LONG_BATCH = 32  # tag_long_audio / embed_long_audio pad their windows to it
 WORK = ROOT / "build" / "chip_smoke"  # files phases 7-9 write (the checkout's build/)
 LOG = ROOT / "chiprun_out" / "chip_smoke.log"  # the run's whole stdout
 
-SERVE_CLIENTS = 8  # client threads, each in a closed loop
-SERVE_SECONDS = 15.0
-SERVE_POOL = 32  # distinct int16 clips the clients send
+SERVE_CLIENTS = 8  # client threads
+SERVE_POOL = 32  # distinct int16 clips; each client thread sends every one once
+SERVE_REQUESTS = SERVE_CLIENTS * SERVE_POOL  # requests a serving route answers
 TRAIN_CLI_CLIPS = 64  # the in-memory training set of phase 9
 TRAIN_CLI_EVAL = 64  # its in-memory evaluation set (2 batches of 32)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# the tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores (every timed
+# kernel runs in bf16), HBM3 bandwidth.
+PEAK_FLOPS = {torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version: the two sum in other orders. f32: 1e-4 of the
@@ -867,6 +857,50 @@ def time_k1_save(device):
     return per_shape
 
 
+def profile_launches(fn, label: str, top: int, names=None, times=None):
+    """One traced call of fn (after one untraced): device time by kernel
+    name, every launch of a kernel's call printed. Returns the device-busy
+    ms (union of kernel and copy intervals), or None when the profiler saw
+    no device event; the kernel names seen go into the list ``names`` and
+    {name: (us, count)} into the dict ``times`` where one is given."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session right after others can come back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    if not dev:
+        log(f"  profile {label}: the profiler saw no device events; kernel breakdown not measured")
+        return None
+    by_name = {}
+    for e in dev:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    if names is not None:
+        names.extend(by_name)
+    if times is not None:
+        times.update(by_name)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    total = sum(t for t, _ in by_name.values())
+    log(f"  profile {label}: device busy {busy / 1e3:.4f} ms, kernel time {total / 1e3:.4f} ms")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"    {t / 1e3:9.4f} ms {100 * t / total:5.1f}% x{n:<4d} {name[:90]}")
+    return busy / 1e3
+
+
 def profile_k1(device):
     """One profiled K1 call at each main-path shape, serving and save mode
     (stages 1-2: the unfused-rounding mode):
@@ -894,10 +928,10 @@ def profile_k1(device):
             before = (FB.fused_block.launches, FB.fused_block.save_launches,
                       FB.fused_block.unfused_rounding_launches)
             seen, times = [], {}
-            traced = profile_run(fn, label, top=20, names=seen, times=times)
+            busy = profile_launches(fn, label, top=20, names=seen, times=times)
             (FB.fused_block.launches, FB.fused_block.save_launches,
              FB.fused_block.unfused_rounding_launches) = before
-            if traced is None:
+            if busy is None:
                 log(f"  {label}: launches not checked, TFLOP/s not measured (no device events)")
                 continue
             want = [k.split("<")[0] for k in k1_kernel_names(plan, save, unf)]
@@ -908,7 +942,7 @@ def profile_k1(device):
             kern_us = sum(t for n, (t, _) in times.items() if any(k in n for k in want))
             tflops = flops / kern_us / 1e6
             log(f"  {label}: the plan's kernels ({', '.join(want)}) {kern_us / 1e3:.4f} ms of "
-                f"{traced[1]:.4f} ms of device busy time, {tflops:.1f} TFLOP/s, "
+                f"{busy:.4f} ms of device busy time, {tflops:.1f} TFLOP/s, "
                 f"{100 * tflops * 1e12 / PEAK_FLOPS[dtype]:.1f}% of the bf16 peak; no "
                 f"{K1_REPLACED}; plan: {k1_plan_text(plan)}")
 
@@ -957,10 +991,10 @@ def time_k2(device):
             fused_block_bwd, *k2_work(b, h, w, c, dtype), dtype)
         if name in K1_STAGES_34:  # where one call's time goes, launch by launch
             before, seen = fused_block_bwd.launches, []
-            traced = profile_run(lambda: fused_block_bwd(x, d, dy, *wts, s), f"K2 {name}",
-                                 top=CUDA_LAUNCHES + 3, names=seen)
+            busy = profile_launches(lambda: fused_block_bwd(x, d, dy, *wts, s), f"K2 {name}",
+                                    top=CUDA_LAUNCHES + 3, names=seen)
             fused_block_bwd.launches = before
-            if traced is None:
+            if busy is None:
                 log(f"  K2 {name}: launch names not checked (no device events)")
                 continue
             want = [k for k, _ in launch_plan(c, dtype, b, h, w).launches]
@@ -1318,75 +1352,6 @@ def check_row_independence(serve):
         raise AssertionError(f"row 0's answer depends on its neighbours from {parted} on")
 
 
-def time_end_to_end(model, label: str):
-    for batch in (16, 64):
-        pcm = fixture_batch(batch, SEED + batch)
-        for _ in range(2):
-            model.forward(pcm)
-        torch.cuda.synchronize()
-        iters = 5
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            model.forward(pcm)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / iters
-        log(f"  e2e {label} forward B={batch} (host int16 in, sync out): {dt * 1e3:.2f} ms/batch, "
-            f"{batch / dt:.1f} clips/s")
-
-
-def profile_run(fn, label: str, top: int = 10, names=None, times=None):
-    """One traced call of fn (after one untraced): device time by kernel
-    name, and the device's idle share of the traced wall time (union of
-    kernel and copy intervals). Returns (wall ms, device-busy ms, idle
-    share), or None when the profiler saw no device event; the kernel
-    names seen go into the list ``names`` and {name: (us, count)} into the
-    dict ``times`` where one is given."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a session right after others can come back without device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if dev:
-            break
-    if not dev:
-        log(f"  profile {label}: the profiler saw no device events; kernel breakdown not measured")
-        return None
-    by_name = {}
-    for e in dev:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    if names is not None:
-        names.extend(by_name)
-    if times is not None:
-        times.update(by_name)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy, cur_s, cur_e = busy + cur_e - cur_s, s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
-    total = sum(t for t, _ in by_name.values())
-    log(f"  profile {label}: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, kernel time {total / 1e3:.2f} ms")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"    {t / 1e3:9.3f} ms {100 * t / total:5.1f}% x{n:<4d} {name[:90]}")
-    return wall_us / 1e3, busy / 1e3, 1 - busy / wall_us
-
-
-def profile_forward(model, batch: int, top: int = 10):
-    pcm = fixture_batch(batch, SEED + batch)
-    profile_run(lambda: model.forward(pcm), f"bf16 forward B={batch}", top)
-
-
 # ---------------------------------------------------------------------------
 # phase 5: the training path
 # ---------------------------------------------------------------------------
@@ -1430,20 +1395,16 @@ def _counts():
     return fused_block.launches, fused_block.save_launches, fused_block_bwd.launches
 
 
-def _set_counts(counts):
+def _zero_counts():
     from audioset_convnext_inf_torch.ops.fused_block import fused_block
     from audioset_convnext_inf_torch.ops.fused_block_bwd import fused_block_bwd
 
-    fused_block.launches, fused_block.save_launches, fused_block_bwd.launches = counts
-
-
-def _zero_counts():
-    _set_counts((0, 0, 0))
+    fused_block.launches = fused_block.save_launches = fused_block_bwd.launches = 0
 
 
 def run_training_path(device):
     """TRAIN_STEPS Trainer.step calls; each must launch K1 (save mode) and K2
-    once per stage-3/4 block. Returns (trainer, batch, launches over the run)."""
+    once per stage-3/4 block. Returns the launches over the run."""
     from audioset_convnext_inf_torch.engine.trainer import Trainer
     from audioset_convnext_inf_torch.ops.fused_block import fused_block
 
@@ -1480,7 +1441,7 @@ def run_training_path(device):
         raise AssertionError(f"eval forward after training launched {_counts()}")
     if not bool(torch.isfinite(out["clipwise_output"]).all()):
         raise AssertionError("eval forward after training is not finite")
-    return trainer, (pcm, target), launches
+    return launches
 
 
 def _grad_err(got, ref):
@@ -1539,22 +1500,6 @@ def check_fused_updates(optimizer, steps: int, label: str):
     if got != (steps, 0):
         raise AssertionError(f"{label}: optimizer updates (fused, loop) {got}, expected "
                              f"({steps}, 0)")
-
-
-def time_training(trainer, batch, steps: int = 5):
-    """ms per training step (host batch in, synchronised) and clips/s."""
-    pcm, target = batch
-    trainer.step(pcm, target)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        trainer.step_async(pcm, target)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / steps
-    log(f"  train step bf16, {TRAIN_CLIPS} clips in, B={TRAIN_CLIPS // 2} trunk: {dt * 1e3:.2f} ms/step, "
-        f"{TRAIN_CLIPS // 2 / dt:.1f} trunk clips/s ({TRAIN_CLIPS / dt:.1f} input clips/s); "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_run(lambda: trainer.step(pcm, target), f"bf16 train step ({TRAIN_CLIPS} clips)", top=14)
 
 
 # ---------------------------------------------------------------------------
@@ -1641,8 +1586,8 @@ def eval_loader(pcm, target, n):
 
 def check_evaluator(serve, device, pcm, target):
     """Evaluator over EVAL_CLIPS clips: K1 launches, probabilities against
-    model.forward on the same padded batches, finite metrics. Returns the
-    Evaluator and its launches (the reference forwards' are not counted)."""
+    model.forward on the same padded batches, finite metrics. Returns its
+    launches (the reference forwards' are not counted)."""
     from audioset_convnext_inf_torch.engine import metrics as M
     from audioset_convnext_inf_torch.engine.evaluator import Evaluator
 
@@ -1671,7 +1616,7 @@ def check_evaluator(serve, device, pcm, target):
         f"d-prime {s['dprime']:.6f}")
     if not all(math.isfinite(v) for v in s.values()):
         raise AssertionError(f"Evaluator metrics are not finite: {s}")
-    return ev, n
+    return n
 
 
 def check_tagging(serve):
@@ -1733,36 +1678,6 @@ def run_clis():
     return total
 
 
-def time_evaluator(serve, ev, pcm, target, card):
-    """Evaluator clips/s over EVAL_CLIPS clips, loader included (the median
-    of three runs), beside model.forward at the same batch; one trace of two
-    Evaluator batches."""
-    runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        ev.infer_probs(eval_loader(pcm, target, EVAL_CLIPS))  # returns after its last copy's event
-        runs.append(time.perf_counter() - t0)
-    dt = sorted(runs)[1]
-    slots = -(-EVAL_CLIPS // EVAL_BATCH) * EVAL_BATCH
-    x = fixture_batch(EVAL_BATCH, SEED + 5)
-    serve.forward(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        serve.forward(x)
-    torch.cuda.synchronize()
-    fwd = (time.perf_counter() - t0) / 5
-    rate = EVAL_CLIPS / dt
-    log(f"  Evaluator, {EVAL_CLIPS} clips at B={EVAL_BATCH}, loader included: "
-        f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} ms (median {dt * 1e3:.1f}): "
-        f"{EVAL_CLIPS / dt:.1f} clips/s ({slots / dt:.1f} padded slots/s); "
-        f"model.forward B={EVAL_BATCH}: {fwd * 1e3:.2f} ms/batch, {EVAL_BATCH / fwd:.1f} clips/s "
-        f"[{card}]")
-    profile_run(lambda: ev.infer_probs(eval_loader(pcm, target, 2 * EVAL_BATCH)),
-                f"Evaluator, 2 batches of {EVAL_BATCH}", top=8)
-    return rate
-
-
 # ---------------------------------------------------------------------------
 # phase 8: the tagging service
 # ---------------------------------------------------------------------------
@@ -1787,61 +1702,48 @@ def _check_top(out, want, label):
     return diff
 
 
-def _closed_loop(call, pool, ref, seconds):
-    """SERVE_CLIENTS threads, each sending clips of the pool in turn for
-    ``seconds``; ``call(clip) -> max diff against ref`` checks each answer.
-    Returns (latencies in s, max diff, wall s)."""
-    lat, diffs, errors = [], [], []
-    end = time.perf_counter() + seconds
+def _send_all(call):
+    """SERVE_CLIENTS threads, each sending every clip of the pool once,
+    from its own first clip on; ``call(i) -> max diff against the
+    reference`` checks each answer. Returns (answers, max diff)."""
+    diffs, errors = [], []
 
     def client(t):
-        k = 0
-        while time.perf_counter() < end:
-            i = (t + SERVE_CLIENTS * k) % len(pool)
-            k += 1
-            t0 = time.perf_counter()
+        for k in range(SERVE_POOL):
             try:
-                d = call(i)
+                diffs.append(call((t + k) % SERVE_POOL))
             except Exception as e:  # noqa: BLE001 - reported below
                 errors.append(repr(e))
                 return
-            lat.append(time.perf_counter() - t0)
-            diffs.append(d)
 
-    t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_CLIENTS)]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
-    wall = time.perf_counter() - t0
     if errors:
         raise AssertionError(f"{len(errors)} client(s) failed: {errors[:3]}")
-    return np.asarray(lat), max(diffs), wall
+    return len(diffs), max(diffs)
 
 
-def _load_report(label, service, before, lat, diff, wall, card, replicas: int = 1):
-    """Rates and latencies of a closed-loop run; every batch must launch K1
-    18 times per replica."""
+def _check_batches(label, service, before, answers, diff, replicas: int = 1):
+    """After _send_all: every request answered, one clip a request, and K1
+    launched 18 times per batch per replica. Returns the K1 launches."""
     after = service.counters()
     batches, clips = after["batches"] - before["batches"], after["clips"] - before["clips"]
     launches = _counts()
     per = sum(K1_MAIN_PATH.values()) * replicas
-    log(f"  {label}: {SERVE_CLIENTS} clients, 10-s int16 clips, batch {BATCH}, max wait 20 ms, "
-        f"{wall:.2f} s: {len(lat)} requests, {len(lat) / wall:.1f} requests/s, latency p50 "
-        f"{np.percentile(lat, 50) * 1e3:.2f} ms, p99 {np.percentile(lat, 99) * 1e3:.2f} ms, "
-        f"max {lat.max() * 1e3:.2f} ms; {batches} batches, mean fill {clips / batches:.2f} of "
-        f"{BATCH}; max diff vs forward {diff:.3e} (tol {SERVICE_TOL}); K1 launches "
-        f"{launches[0]} ({launches[0] / batches:.2f} per batch) [{card}]")
-    if clips != len(lat) or launches != (per * batches, 0, 0):
-        raise AssertionError(f"{label}: {clips} clips for {len(lat)} requests, launches "
-                             f"{launches} for {batches} batches (expect {per} K1 per batch)")
+    log(f"  {label}: {answers} requests from {SERVE_CLIENTS} client threads, 10-s int16 clips, "
+        f"batch {BATCH}, max wait 20 ms: {clips} clips in {batches} batches; max diff vs "
+        f"forward {diff:.3e} (tol {SERVICE_TOL}); K1 launches {launches[0]} (expect {per} a batch)")
+    if answers != SERVE_REQUESTS or clips != answers or launches != (per * batches, 0, 0):
+        raise AssertionError(f"{label}: {clips} clips for {answers} of {SERVE_REQUESTS} requests, "
+                             f"launches {launches} for {batches} batches (expect {per} K1 per batch)")
     return launches[0]
 
 
-def run_service(serve, card):
-    """Phase 8. Returns (the K1 launches of the service's runs, HTTP
-    requests/s)."""
+def run_service(serve):
+    """Phase 8. Returns the K1 launches of the service's runs."""
     from audioset_convnext_inf_torch.cli import serve as serve_cli
     from audioset_convnext_inf_torch.engine.infer import sliding_windows
 
@@ -1849,10 +1751,8 @@ def run_service(serve, card):
     pool = fixture_batch(SERVE_POOL, SEED + 21)
     ref = np.concatenate([serve.forward(pool[i:i + BATCH])["clipwise_output"].cpu().numpy()
                           for i in range(0, SERVE_POOL, BATCH)])
-    t0 = time.perf_counter()
     server, service = serve_cli.make_server(
         ["--port", "0", "--batch-size", str(BATCH), "--max-wait-ms", "20"], model=serve)
-    log(f"  server up (warm-up of both wire dtypes included) in {time.perf_counter() - t0:.2f} s")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1869,14 +1769,12 @@ def run_service(serve, card):
                 raise AssertionError(f"batcher clip {i}: off by {diff:.3e}")
             return diff
 
-        rates = {}
         for label, call in (("HTTP /tag", http_tag), ("batcher alone", batcher_tag)):
             _zero_counts()
             before = service.counters()
-            lat, diff, wall = _closed_loop(call, pool, ref, SERVE_SECONDS)
+            answers, diff = _send_all(call)
             torch.cuda.synchronize()
-            total += _load_report(label, service, before, lat, diff, wall, card)
-            rates[label] = len(lat) / wall
+            total += _check_batches(label, service, before, answers, diff)
 
         sig = np.tile(pool[0], 3)[:800000]  # 25 s: 3 windows
         windows, n = sliding_windows(sig)
@@ -1911,22 +1809,12 @@ def run_service(serve, card):
         log(f"  /healthz: {health}")
         if health["status"] != "ok" or health["clips"] != health["requests"]:
             raise AssertionError(f"/healthz: {health}")
-
-        def burst():
-            with ThreadPoolExecutor(SERVE_CLIENTS) as ex:
-                list(ex.map(lambda i: service.tag(pool[i % SERVE_POOL], timeout=120),
-                            range(4 * BATCH)))
-
-        before = _counts()
-        profile_run(burst, f"service, a burst of {4 * BATCH} requests from {SERVE_CLIENTS} "
-                           f"threads", top=8)
-        _set_counts(before)
     finally:
         server.shutdown()
         server.server_close()
         service.stop()
         thread.join(timeout=30)
-    return total, rates["HTTP /tag"]
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1943,8 +1831,8 @@ def memory_index(target):
 
 class CliRunner:
     """Runs of cli/train.py::train over the in-memory training and
-    evaluation sets, in the fused bf16 recipe; each step's loss, host time
-    and launch deltas are recorded and checked (K1 save and K2 12 times a
+    evaluation sets, in the fused bf16 recipe; each step's loss and launch
+    deltas are recorded and checked (K1 save and K2 12 times a
     step, and K1 12 times per evaluation batch before a step that evaluates)."""
 
     def __init__(self):
@@ -1966,25 +1854,23 @@ class CliRunner:
                 "--resume-iteration", str(resume), "--seed", str(SEED), "--workspace", str(ws)]
 
     def run(self, ws, early_stop, resume=0, on_step_extra=None):
-        """One CLI run: per step its loss, host time and launch deltas;
+        """One CLI run: per step its loss and launch deltas;
         ``on_step_extra(iteration)`` runs inside each step's callback."""
         from audioset_convnext_inf_torch.cli import train as train_cli
 
         root = logging.getLogger()
         level, handlers = root.level, list(root.handlers)
         steps = []
-        last = [time.perf_counter(), _counts()]
 
         def on_step(it, loss):  # after the step's loss reached the host
             if on_step_extra is not None:
                 on_step_extra(it)
-            now, counts = time.perf_counter(), _counts()
-            steps.append((it, loss, now - last[0], tuple(a - b for a, b in zip(counts, last[1]))))
-            last[:] = [now, counts]
+            counts = _counts()
+            steps.append((it, loss, tuple(a - b for a, b in zip(counts, last))))
+            last[:] = counts
 
         _zero_counts()
-        last[1] = _counts()
-        t0 = time.perf_counter()
+        last = list(_counts())
         args = train_cli.parse_args(self.flags(ws, early_stop, resume))
         try:
             train_cli.train(args, memory_index(self.target), {"test": memory_index(self.etarget)},
@@ -1996,16 +1882,15 @@ class CliRunner:
                     h.close()
             root.setLevel(level)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        for it, loss, dt, d in steps:
+        for it, loss, d in steps:
             evals = it > 0 and it % 3 == 0  # the evaluation before this step
-            log(f"    step {it}: loss {loss:.6f}, {dt * 1e3:.1f} ms since the last, launches "
-                f"(K1, K1 save, K2) {d}" + (" (evaluation before it)" if evals else ""))
+            log(f"    step {it}: loss {loss:.6f}, launches (K1, K1 save, K2) {d}"
+                + (" (evaluation before it)" if evals else ""))
             per = self.per
             want = (per + (per * self.eval_batches if evals else 0), per, per)
             if d != want or not math.isfinite(loss):
                 raise AssertionError(f"step {it}: launches {d}, expected {want}; loss {loss}")
-        return steps, wall, _counts()
+        return steps, _counts()
 
 
 def _ckpt_params(ws, it):
@@ -2024,32 +1909,27 @@ def _param_diffs(pa, pc):
     return pdiff, bdiff
 
 
-def run_train_cli(runner, card):
+def run_train_cli(runner):
     """Phase 9. Returns (K1 serving, K1 save, K2) launches of the three runs
     and the parameters of the 3-step run's checkpoint."""
     from audioset_convnext_inf_torch.engine.trainer import TrainConfig, onecycle_lr
 
     straight, resumed = WORK / "train_straight", WORK / "train_resumed"
-    steps_a, wall_a, counts_a = runner.run(straight, 6)
-    gaps = [dt for _, _, dt, _ in steps_a[1:]]
-    log(f"  straight run, 6 steps: {wall_a:.2f} s in all (model build, loader start, 2 "
-        f"evaluations of {TRAIN_CLI_EVAL} clips, 2 checkpoints); from step to step "
-        f"{', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms; median {np.median(gaps) * 1e3:.1f} ms "
-        f"= {1 / np.median(gaps):.2f} steps/s, mean with the callbacks {np.mean(gaps) * 1e3:.1f} "
-        f"ms [{card}]")
-    _, _, counts_b = runner.run(resumed, 3)
+    steps_a, counts_a = runner.run(straight, 6)
+    log(f"  straight run, 6 steps (2 evaluations of {TRAIN_CLI_EVAL} clips, 2 checkpoints)")
+    _, counts_b = runner.run(resumed, 3)
     _, three = _ckpt_params(resumed, 3)
-    steps_c, _, counts_c = runner.run(resumed, 6, resume=3)
+    steps_c, counts_c = runner.run(resumed, 6, resume=3)
     a, pa = _ckpt_params(straight, 6)
     c, pc = _ckpt_params(resumed, 6)
     sa, sc = (_leaves(x["sampler_state"]) for x in (a, c))
     same = len(sa) == len(sc) and all(np.array_equal(x, y) for x, y in zip(sa, sc))
     pdiff, bdiff = _param_diffs(pa, pc)
     limit = resume_param_limit(onecycle_lr(TrainConfig()), 6)
-    losses = {it: loss for it, loss, _, _ in steps_a}
+    losses = {it: loss for it, loss, _ in steps_a}
     log(f"  resumed at 3 for 3 steps vs straight: sampler state bit-equal {same}; parameters "
         f"max diff {pdiff:.3e} (limit {limit:.3e}), bn0 running statistics {bdiff:.3e}; losses "
-        + ", ".join(f"step {it} {loss:.6f} vs {losses[it]:.6f}" for it, loss, _, _ in steps_c))
+        + ", ".join(f"step {it} {loss:.6f} vs {losses[it]:.6f}" for it, loss, _ in steps_c))
     if not same or not pdiff <= limit:
         raise AssertionError("the resumed run is not the straight run")
     with open(straight / "statistics" / "convnext_tiny" / "statistics.pkl", "rb") as f:
@@ -2120,7 +2000,6 @@ DP_F32_PARAM_TOL = 1e-5
 # the probabilities stayed bit-equal). A part that small can move one bf16
 # rounding downstream by one ulp: bound 2^-8 of a probability.
 SHARDED_EVAL_TOL = 2.0 ** -8
-SERVE_MESH_SECONDS = 5.0
 
 
 def _free_port() -> int:
@@ -2131,7 +2010,7 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_nccl_world_1(runner, three, card):
+def run_nccl_world_1(runner, three):
     """Phase 10(a): cli/train.py::train under a torchrun environment of one
     process (RANK=0, WORLD_SIZE=1): the NCCL group, the all-reduces of a
     group of one, 3 steps; the parameters within RESUME_PARAM_LIMIT of
@@ -2150,7 +2029,7 @@ def run_nccl_world_1(runner, three, card):
 
     os.environ.update(env)
     try:
-        steps, wall, counts = runner.run(WORK / "train_nccl", 3, on_step_extra=probe)
+        _, counts = runner.run(WORK / "train_nccl", 3, on_step_extra=probe)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2160,11 +2039,9 @@ def run_nccl_world_1(runner, three, card):
     _, params = _ckpt_params(WORK / "train_nccl", 3)
     pdiff, bdiff = _param_diffs(three, params)
     limit = resume_param_limit(onecycle_lr(TrainConfig()), 3)
-    gaps = [dt for _, _, dt, _ in steps[1:]]
-    log(f"  NCCL at world size 1, 3 steps: process group per step {groups}; {wall:.2f} s in "
-        f"all; step to step {', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms [{card}]; "
-        f"parameters vs phase 9's first 3 steps: max diff {pdiff:.3e} (limit {limit:.3e}), bn0 "
-        f"running statistics {bdiff:.3e}; left the group: {not torch.distributed.is_initialized()}")
+    log(f"  NCCL at world size 1, 3 steps: process group per step {groups}; parameters vs "
+        f"phase 9's first 3 steps: max diff {pdiff:.3e} (limit {limit:.3e}), bn0 running "
+        f"statistics {bdiff:.3e}; left the group: {not torch.distributed.is_initialized()}")
     if groups != [("nccl", 1)] * 3 or torch.distributed.is_initialized():
         raise AssertionError(f"the CLI ran in {groups}, expected an NCCL group of one")
     if not pdiff <= limit:
@@ -2189,14 +2066,10 @@ def dp_worker(rank, world, rendezvous, out, device):
         trainer = Trainer(build_train_model(device, fused, dp, precision), train_config(bf16),
                           mesh=mesh)
         steps, state, grads = [], None, None
-        for i in range(2):
+        for _ in range(2):
             _zero_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             loss = trainer.step(pcm, target)
-            torch.cuda.synchronize()
-            steps.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
-                          "collective_ms": trainer.collectives.ms(), "launches": _counts()})
+            steps.append({"loss": loss, "launches": _counts()})
             if state is None:
                 state = {k: v.detach().float().cpu().numpy()
                          for k, v in trainer.model.state_dict().items()}
@@ -2210,7 +2083,7 @@ def dp_worker(rank, world, rendezvous, out, device):
         pickle.dump(seen, f)
 
 
-def run_dp_pair(device, card):
+def run_dp_pair(device):
     """Phase 10(b): the gloo pair against one process's step. Returns the
     (K1 save, K2) launches of both ranks' steps."""
     import torch.multiprocessing as mp
@@ -2237,12 +2110,10 @@ def run_dp_pair(device, card):
             for label, bf16, fused, dp, precision in DP_CASES}
     out = WORK / "dp"
     out.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     card0 = "cuda:0" if device.type == "cuda" else str(device)
     mp.start_processes(dp_worker, args=(DP_WORLD, str(out / "rendezvous"), str(out), card0),
                        nprocs=DP_WORLD, start_method="spawn")
-    log(f"  {DP_WORLD} processes on {card0}, backend gloo: {time.perf_counter() - t0:.1f} s "
-        f"from spawn to exit")
+    log(f"  {DP_WORLD} processes on {card0}, backend gloo")
     ranks = []
     for r in range(DP_WORLD):
         with open(out / f"rank{r}.pkl", "rb") as f:
@@ -2289,9 +2160,8 @@ def run_dp_pair(device, card):
             log(f"    worst leaf {gworst:.3e} (tol {DP_GRAD_RTOL:.0e})")
         for r, x in enumerate(ranks):
             for i, st in enumerate(x[label]["steps"]):
-                log(f"    rank {r} step {i}: loss {st['loss']:.6f}, {st['ms']:.1f} ms, "
-                    f"collectives {st['collective_ms']:.2f} ms, launches (K1, K1 save, K2) "
-                    f"{st['launches']} [{card}]")
+                log(f"    rank {r} step {i}: loss {st['loss']:.6f}, launches (K1, K1 save, K2) "
+                    f"{st['launches']}")
                 want = (per, per, per) if fused else (0, 0, 0)
                 if st["launches"] != want or not math.isfinite(st["loss"]):
                     raise AssertionError(f"{label} rank {r} step {i}: launches {st['launches']}, "
@@ -2319,7 +2189,7 @@ def _worst(errs, top: int = 3) -> str:
             + f" (median {float(np.median(list(errs.values()))):.3e})")
 
 
-def check_sharded_evaluator(serve, device, pcm, target, one_rate, card):
+def check_sharded_evaluator(serve, device, pcm, target):
     """Phase 10(c): the Evaluator over two replicas on the one card against
     one replica, over phase 7's clips at B=EVAL_BATCH. Each replica runs a
     block of EVAL_BATCH / 2 rows: bit-equal to model.forward of each block,
@@ -2344,24 +2214,14 @@ def check_sharded_evaluator(serve, device, pcm, target, one_rate, card):
         f"(tol {SHARDED_EVAL_TOL})")
     if not np.array_equal(probs, blocks) or not diff <= SHARDED_EVAL_TOL:
         raise AssertionError("the two-replica Evaluator is not the one-replica Evaluator")
-    runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        two.infer_probs(eval_loader(pcm, target, EVAL_CLIPS))
-        runs.append(time.perf_counter() - t0)
-    dt = sorted(runs)[1]
-    log(f"  Evaluator over 2 replicas on one card, {EVAL_CLIPS} clips at B={EVAL_BATCH}: "
-        f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} ms (median {dt * 1e3:.1f}): "
-        f"{EVAL_CLIPS / dt:.1f} clips/s, beside one replica's {one_rate:.1f} clips/s (phase 7) "
-        f"[{card}]")
     return n
 
 
-def run_service_mesh(serve, card):
+def run_service_mesh(serve):
     """Phase 10(d): cli/serve.py --mesh with the phase-4 model: the batches
-    go through ShardedModel over every card; phase 8's HTTP traffic for
-    SERVE_MESH_SECONDS, every answer within SERVICE_TOL of model.forward of
-    its clip, K1 18 times per replica batch. Returns the K1 launches."""
+    go through ShardedModel over every card; phase 8's HTTP requests, every
+    answer within SERVICE_TOL of model.forward of its clip, K1 18 times per
+    replica batch. Returns the K1 launches."""
     from audioset_convnext_inf_torch.cli import serve as serve_cli
     from audioset_convnext_inf_torch.engine.service import ShardedModel
 
@@ -2384,10 +2244,10 @@ def run_service_mesh(serve, card):
 
         _zero_counts()
         before = service.counters()
-        lat, diff, wall = _closed_loop(http_tag, pool, ref, SERVE_MESH_SECONDS)
+        answers, diff = _send_all(http_tag)
         torch.cuda.synchronize()
-        return _load_report(f"HTTP /tag, serve --mesh over {cards} card(s)", service, before,
-                            lat, diff, wall, card, replicas=cards)
+        return _check_batches(f"HTTP /tag, serve --mesh over {cards} card(s)", service, before,
+                              answers, diff, replicas=cards)
     finally:
         server.shutdown()
         server.server_close()
@@ -2403,10 +2263,7 @@ def run_service_mesh(serve, card):
 # in the same order with the same launch plans, so bit-equal is expected;
 # allowed is the JAX package's export-vs-live tolerance on probabilities.
 BUNDLE_TOL = 1e-6
-SERVE_BUNDLE_SECONDS = 5.0
 BUNDLE_DIR = WORK / "bundles"
-# The frontend timed alone: each DFT at both serving precisions.
-FRONTEND_IMPLS = ("conv", "direct", "ct", "rfft")
 # ct and rfft on the card against the port's CPU frontend, "highest": the
 # CPU tests' tolerances against the JAX package (tests/test_torch_frontend.py),
 # dB on all bins and on bins above -40 dB.
@@ -2432,8 +2289,7 @@ def _dir_mb(path: Path) -> float:
 
 
 def export_bundles(serve, parity):
-    """The phase's bundles, each timed: export (trace and save) seconds per
-    program and the bundle's size. Returns {name: directory}."""
+    """The phase's bundles and their sizes. Returns {name: directory}."""
     from audioset_convnext_inf_torch.engine.aot_export import save_bundle
 
     specs = {
@@ -2446,13 +2302,10 @@ def export_bundles(serve, parity):
     dirs = {}
     for name, (model, kw) in specs.items():
         path = BUNDLE_DIR / name
-        t0 = time.perf_counter()
         manifest = save_bundle(model, str(path), pcm=True, **kw)
-        dt = time.perf_counter() - t0
-        n = len(manifest["entries"])
-        log(f"  export {name}: {n} program(s) {sorted(manifest['entries'])}, "
-            f"{dt / n:.2f} s per program (trace and save), {_dir_mb(path):.1f} MiB on disk, "
-            f"kernel library {manifest['kernel_library']}")
+        log(f"  export {name}: {len(manifest['entries'])} program(s) "
+            f"{sorted(manifest['entries'])}, {_dir_mb(path):.1f} MiB on disk, kernel library "
+            f"{manifest['kernel_library']}")
         dirs[name] = path
     baked = (BUNDLE_DIR / "forward" / f"forward_b{BATCH}.pt2").stat().st_size / 2**20
     shared = (BUNDLE_DIR / "shared" / f"forward_b{BATCH}.pt2").stat().st_size / 2**20
@@ -2462,38 +2315,14 @@ def export_bundles(serve, parity):
     return dirs
 
 
-def _timed_rate(fn, batch: int, iters: int = 10):
-    """(clips/s of ``iters`` calls after one, K1 launches of all of them)."""
-    from audioset_convnext_inf_torch.ops.fused_block import fused_block
-
-    fused_block.launches = 0
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return batch * iters / (time.perf_counter() - t0), fused_block.launches
-
-
-def check_bundles(serve, parity, dirs, card):
+def check_bundles(serve, parity, dirs):
     """Load each bundle and hold it against the live model. Returns (the
     forward bundle, its K1 launches in all)."""
     from audioset_convnext_inf_torch.engine.aot_export import load_bundle
 
     per = sum(K1_MAIN_PATH.values())
     pcm = fixture_batch(BATCH, SEED + 61)
-    bundles = {}
-    for name, path in dirs.items():
-        t0 = time.perf_counter()
-        bundles[name] = load_bundle(str(path))
-        load_s = time.perf_counter() - t0
-        kind = "forward" if "forward" in bundles[name].manifest["kinds"] else "scene"
-        t0 = time.perf_counter()
-        bundles[name](pcm, kind=kind)
-        torch.cuda.synchronize()
-        log(f"  load {name}: {load_s:.2f} s; first call (B={BATCH}, {kind}) "
-            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    bundles = {name: load_bundle(str(path)) for name, path in dirs.items()}
     # the live model and the bundles must run one K1 library, the package's
     # build, with nothing pinned: else the comparisons below hold the
     # bundles against a live model that runs the bundle's library
@@ -2539,12 +2368,7 @@ def check_bundles(serve, parity, dirs, card):
         tf32 = program(torch.from_numpy(pcm).to(serve.device))["clipwise_output"]
     log(f"  f32 parity program without fp32_precision('highest') (cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}): max diff "
         f"vs live {(tf32 - parity.forward(pcm)['clipwise_output']).abs().max().item():.3e}")
-    live_rate, _ = _timed_rate(lambda: serve.forward(pcm), BATCH)
-    bundle_rate, n = _timed_rate(lambda: bundles["forward"](pcm), BATCH)
-    _expect_launches("bundle forward, 11 timed calls", n, 11 * per)
-    log(f"  steady B={BATCH} (host int16 in, sync out): bundle {bundle_rate:.1f} clips/s, live "
-        f"forward {live_rate:.1f} clips/s [{card}]")
-    return bundles["forward"], total + n
+    return bundles["forward"], total
 
 
 def check_bundle_subprocess(bundle_dir: Path, want: np.ndarray, pcm: np.ndarray):
@@ -2554,37 +2378,35 @@ def check_bundle_subprocess(bundle_dir: Path, want: np.ndarray, pcm: np.ndarray)
     npy = BUNDLE_DIR / "pcm.npy"
     np.save(npy, pcm)
     code = (
-        "import sys, time\n"
+        "import sys\n"
         "for name in ('audioset_convnext_inf_torch.models', "
         "'audioset_convnext_inf_torch.checkpoint'):\n"
         "    sys.modules[name] = None\n"
         "import numpy as np, torch\n"
-        "t0 = time.perf_counter()\n"
         "from audioset_convnext_inf_torch.engine.aot_export import load_bundle\n"
         "from audioset_convnext_inf_torch.ops.fused_block import fused_block\n"
         f"b = load_bundle({str(bundle_dir)!r})\n"
-        "t1 = time.perf_counter()\n"
         f"out = b(np.load({str(npy)!r}))['clipwise_output'].float().cpu()\n"
         f"np.save({str(BUNDLE_DIR / 'out.npy')!r}, out.numpy())\n"
-        "print(fused_block.launches, round(t1 - t0, 2), round(time.perf_counter() - t1, 3))\n"
+        "print(fused_block.launches)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
     if proc.returncode != 0:
         raise AssertionError(f"bundle in a process without model code: {proc.stderr[-3000:]}")
-    launches, load_s, call_s = proc.stdout.split()[-3:]
+    launches = proc.stdout.split()[-1]
     got = np.load(BUNDLE_DIR / "out.npy")
     diff = float(np.abs(got - want).max())
-    log(f"  process without model code: load {load_s} s, first call {float(call_s) * 1e3:.1f} ms, "
-        f"K1 launches {launches}, max diff vs this process {diff:.3e}")
+    log(f"  process without model code: K1 launches {launches}, max diff vs this process "
+        f"{diff:.3e}")
     if diff != 0.0 or int(launches) != sum(K1_MAIN_PATH.values()):
         raise AssertionError(f"bundle without model code: diff {diff}, launches {launches}")
 
 
-def run_serve_bundle(bundle, bundle_dir: Path, card, http_rate):
-    """cli/serve.py --bundle: phase 8's HTTP traffic for SERVE_BUNDLE_SECONDS;
-    each answer must equal the bundle's own forward of that clip in a batch
-    of 16, and each batch must launch K1 18 times. Returns the launches."""
+def run_serve_bundle(bundle, bundle_dir: Path):
+    """cli/serve.py --bundle: phase 8's HTTP requests; each answer must
+    equal the bundle's own forward of that clip in a batch of 16, and each
+    batch must launch K1 18 times. Returns the launches."""
     from audioset_convnext_inf_torch.cli import serve as serve_cli
     from audioset_convnext_inf_torch.engine.aot_export import BundleModel
 
@@ -2606,12 +2428,10 @@ def run_serve_bundle(bundle, bundle_dir: Path, card, http_rate):
 
         _zero_counts()
         before = service.counters()
-        lat, diff, wall = _closed_loop(http_tag, pool, ref, SERVE_BUNDLE_SECONDS)
+        answers, diff = _send_all(http_tag)
         torch.cuda.synchronize()
-        n = _load_report("HTTP /tag, serve --bundle", service, before, lat, diff, wall, card)
-        log(f"  serve --bundle {len(lat) / wall:.1f} requests/s beside phase 8's "
-            f"{http_rate:.1f} (batch-size 64 asked, clamped to {BATCH})")
-        return n
+        return _check_batches(f"HTTP /tag, serve --bundle (batch-size 64 asked, clamped to "
+                              f"{BATCH})", service, before, answers, diff)
     finally:
         server.shutdown()
         server.server_close()
@@ -2619,27 +2439,13 @@ def run_serve_bundle(bundle, bundle_dir: Path, card, http_rate):
         thread.join(timeout=30)
 
 
-def time_frontend(device, card):
-    """Each DFT of the frontend alone, B=16 10-s clips on the card (CUDA
-    events), at "highest" and "default"; then ct and rfft on the card
-    against the port's CPU frontend ("highest", FRONTEND_DB_TOL)."""
-    import dataclasses
-
+def check_frontend(device):
+    """ct and rfft on the card against the port's CPU frontend ("highest",
+    FRONTEND_DB_TOL)."""
     from audioset_convnext_inf_torch.config import FrontendConfig
     from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
-    from audioset_convnext_inf_torch.ops.pcm import decode_pcm_if_int16
 
-    pcm = fixture_batch(BATCH, SEED)
-    x = decode_pcm_if_int16(torch.from_numpy(pcm).to(device))
-    for precision in ("highest", "default"):
-        times = []
-        for impl in FRONTEND_IMPLS:
-            fe = LogMelFrontend(FrontendConfig(dft_impl=impl, precision=precision), device=device)
-            with torch.inference_mode():
-                times.append(f"{impl} {cuda_ms(lambda: fe(x), iters=20):.3f}")
-        log(f"  frontend alone, B={BATCH} 10-s clips, precision {precision!r}: "
-            f"{', '.join(times)} ms [{card}]")
-    clips = torch.from_numpy(pcm[:2]).float() * (1.0 / 32767.0)
+    clips = torch.from_numpy(fixture_batch(2, SEED)).float() * (1.0 / 32767.0)
     for impl in ("ct", "rfft"):
         cfg = dataclasses.replace(FrontendConfig(), dft_impl=impl)
         with torch.inference_mode():
@@ -2653,19 +2459,19 @@ def time_frontend(device, card):
             raise AssertionError(f"frontend {impl} on the card disagrees with the CPU")
 
 
-def run_bundle_phase(serve, device, card, http_rate):
+def run_bundle_phase(serve, device):
     """Phase 11. Returns the K1 launches of its bundle paths."""
     BUNDLE_DIR.mkdir(parents=True, exist_ok=True)
     parity = build_model(device, torch.float32)
     dirs = export_bundles(serve, parity)
-    forward, launches = check_bundles(serve, parity, dirs, card)
+    forward, launches = check_bundles(serve, parity, dirs)
     pcm = fixture_batch(BATCH, SEED + 61)
     out, n = _k1_count(lambda: forward(pcm))
     want = out["clipwise_output"].float().cpu().numpy()
     launches += n
     check_bundle_subprocess(dirs["forward"], want, pcm)
-    launches += run_serve_bundle(forward, dirs["forward"], card, http_rate)
-    time_frontend(device, card)
+    launches += run_serve_bundle(forward, dirs["forward"])
+    check_frontend(device)
     return launches
 
 
@@ -2681,7 +2487,6 @@ PANN_PARITY = ["Cnn14", "Cnn14Deformable", "Cnn14_DecisionLevelAtt", "Cnn10Next"
                "Wavegram_Logmel_Cnn14"]
 # card vs CPU, probabilities: the f32 parity bound of phase 4
 PANN_PROB_TOL = F32_LOGIT_TOL
-PANN_TIMED = [("Cnn14", 16), ("Cnn14", 64), ("Cnn14_DecisionLevelMax", 16), ("Res1dNet31", 16)]
 PANN_TOP_K = 5
 
 
@@ -2730,7 +2535,6 @@ def _pann_zoo_forwards(device):
     from audioset_convnext_inf_torch.models import PANN_REGISTRY, create_pann_model
 
     clips = {}
-    t0 = time.perf_counter()
     for name in sorted(PANN_REGISTRY):
         model = create_pann_model(name, seed=SEED, device=device)
         sr = model.cfg.frontend.sample_rate
@@ -2749,8 +2553,7 @@ def _pann_zoo_forwards(device):
             raise AssertionError(f"PANN {name}: bad outputs or K1 launched ({n})")
         del model, out
     torch.cuda.empty_cache()
-    log(f"  (a) all {len(PANN_REGISTRY)} models built and forwarded on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  (a) all {len(PANN_REGISTRY)} models built and forwarded on the card")
 
 
 def _pann_card_vs_cpu(device):
@@ -2793,54 +2596,8 @@ def _pann_card_vs_cpu(device):
     torch.cuda.empty_cache()
 
 
-def _pann_flops(model, x) -> float:
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        model.forward(x)
-    return float(counter.get_total_flops())
-
-
-def _pann_times(device, card):
-    """(c) clips/s by CUDA events after warm-up (device tensors in), beside
-    the least time the card could take in f32 outside the tensor cores;
-    each model's peak memory: its own weights, input and forward, above
-    what was allocated before it was built (one model on the card at a
-    time); one trace of Cnn14 at B=16."""
-    from audioset_convnext_inf_torch.models import create_pann_model
-
-    model = None
-    for name, batch in PANN_TIMED:
-        if model is None or model.cfg.name != name:
-            model = None
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()  # what earlier phases still hold
-            model = create_pann_model(name, seed=SEED, device=device)
-        x = torch.from_numpy(pann_clips(model.cfg.frontend.sample_rate, batch)).to(device)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _, n = _k1_count(lambda: model.forward(x))
-        ms = cuda_ms(lambda: model.forward(x), iters=10)
-        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-        flops = _pann_flops(model, x)
-        nbytes = 4 * (sum(t.numel() for t in model.state_dict().values()) + x.numel()
-                      + batch * 527)
-        bound = max(flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES) * 1e3
-        log(f"  (c) {name} f32 forward B={batch} 10-s clips: {ms:.3f} ms, "
-            f"{batch / ms * 1e3:.1f} clips/s; bound {bound:.3f} ms ({flops / 1e9:.1f} GFLOP "
-            f"over 67 TFLOP/s; {bound / ms:.3f} of it); peak memory {peak:.2f} GiB; "
-            f"K1 launches {n} [{card}]")
-        if n:
-            raise AssertionError(f"PANN {name} launched K1")
-        if (name, batch) == ("Cnn14", 16):
-            profile_run(lambda: model.forward(x), "Cnn14 f32 forward B=16", top=10)
-        del x
-    del model
-    torch.cuda.empty_cache()
-
-
 def _pann_clis():
-    """(d) cli/inference.py on the fixture with its default device (the
+    """(c) cli/inference.py on the fixture with its default device (the
     card) and a reference-keyed checkpoint written here: both modes' top-k
     equal model.forward's."""
     import contextlib
@@ -2889,19 +2646,18 @@ def _pann_clis():
             want = [lm.ix_to_lb[int(i)] for i in top]
             with open(csv_path) as f:
                 got = [row[2] for row in list(csv.reader(f))[1:]]
-        log(f"  (d) cli.inference {mode} --model-type {name} (card, reference-keyed "
+        log(f"  (c) cli.inference {mode} --model-type {name} (card, reference-keyed "
             f"checkpoint): exit {rc}, K1 launches {n}; top-{PANN_TOP_K}: {got}")
         if rc != 0 or n or got != want:
             raise AssertionError(f"cli.inference {mode}: {got} != model.forward's {want}")
         del model
 
 
-def run_pann_phase(device, card):
+def run_pann_phase(device):
     """Phase 12. The PANN path launches no kernel of the port: K1 is
     counted on every forward and must stay at 0."""
     _pann_zoo_forwards(device)
     _pann_card_vs_cpu(device)
-    _pann_times(device, card)
     _pann_clis()
 
 
@@ -2950,11 +2706,10 @@ def make_audiocaps_root(root: Path):
 
     from audioset_convnext_inf_torch.labels import read_audioset_label_tags
 
-    t0 = time.perf_counter()
     with multiprocessing.get_context("spawn").Pool(AC_DISTINCT) as pool:
         encoded = pool.map(_ac_encode, range(AC_DISTINCT))
     log(f"  (a) {AC_DISTINCT} distinct 10-s clips FLAC-encoded (tests/flac_encoder.py, "
-        f"FIXED order 2) in {time.perf_counter() - t0:.1f} s, {AC_DISTINCT} processes")
+        f"FIXED order 2) in {AC_DISTINCT} processes")
     ids = read_audioset_label_tags().ids
     rng = np.random.RandomState(SEED + 13)
     data = root / "AUDIOCAPS_32000Hz"
@@ -2980,16 +2735,12 @@ def make_audiocaps_root(root: Path):
 def check_audiocaps(root: Path, ints, tags):
     """(a) The port builds its FLAC library here; every clip of every
     subset decodes to its integers / 32768 exactly; AudioCaps and
-    BasicCollate give the expected lengths, captions and one-hots. Returns
-    the decode's ms per clip."""
+    BasicCollate give the expected lengths, captions and one-hots."""
     from audioset_convnext_inf_torch.data import flac
     from audioset_convnext_inf_torch.data.audiocaps import AudioCaps, BasicCollate
 
-    t0 = time.perf_counter()
     lib = flac.build()
-    log(f"  (a) FLAC decoder built with the host C++ compiler in "
-        f"{time.perf_counter() - t0:.2f} s: {lib.relative_to(ROOT)}")
-    decode_s, n_clips = 0.0, 0
+    log(f"  (a) FLAC decoder built with the host C++ compiler: {lib.relative_to(ROOT)}")
     collate = BasicCollate(with_tags=True)
     for subset, n in AC_CLIPS.items():
         ds = AudioCaps(root=str(root), subset=subset, with_tags=True)
@@ -2997,10 +2748,7 @@ def check_audiocaps(root: Path, ints, tags):
             raise AssertionError(f"AudioCaps {subset}: {len(ds)} clips, not {n}")
         items = []
         for k in range(n):
-            t0 = time.perf_counter()
             audio = ds.at(k, "audio")
-            decode_s += time.perf_counter() - t0
-            n_clips += 1
             want = ints[(subset, k)].astype(np.float32) * np.float32(1 / 32768)
             if audio.dtype != np.float32 or not np.array_equal(audio, want):
                 raise AssertionError(f"AudioCaps {subset} clip {k} does not decode exactly")
@@ -3015,9 +2763,6 @@ def check_audiocaps(root: Path, ints, tags):
             raise AssertionError(f"BasicCollate {subset}: {batch['audio'].shape}")
         log(f"  (a) {subset}: {n} clips, {AC_CAPTIONS[subset]} caption(s) each, collated to "
             f"{batch['audio'].shape} with one-hot tags {batch['tags'].shape}: exact")
-    ms = decode_s / n_clips * 1e3
-    log(f"  (a) decode (read + FLAC decode, host): {ms:.2f} ms per 10-s clip over {n_clips} clips")
-    return ms
 
 
 def _transfer_cfg(**kw):
@@ -3106,103 +2851,51 @@ def check_transfer_card_vs_cpu(device, clips):
     torch.cuda.empty_cache()
 
 
-def time_transfer_step(device, clips, card):
-    """(c) TransferTrainer.step at B=64 on 10-s clips already on the card,
-    the CLI's recipe (Cnn14 with its dropout and SpecAugment): CUDA events
-    over 10 steps after 3; peak memory above what was allocated before the
-    model; one trace of two steps; launches of K1 and K2."""
+def check_transfer_step(device, clips):
+    """(c) One TransferTrainer.step at B=64 on 10-s clips already on the
+    card, the CLI's recipe (Cnn14 with its dropout and SpecAugment): a
+    finite loss, and no K1 or K2 launch."""
     from audioset_convnext_inf_torch.engine.transfer import TransferTrainer
     from audioset_convnext_inf_torch.models.pann import create_pann_model
 
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
     model = perturb_pann(create_pann_model("Cnn14", seed=SEED, device=device), SEED + 11)
     trainer = TransferTrainer(model)
     reps = -(-TRANSFER_BATCH // len(clips))
     audio = torch.from_numpy(np.concatenate([clips] * reps)[:TRANSFER_BATCH]).to(device)
     rng = np.random.RandomState(SEED + 12)
     tags = torch.from_numpy((rng.rand(TRANSFER_BATCH, 527) < 0.01).astype(np.float32)).to(device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    ms = cuda_ms(lambda: trainer.step_on_device(audio, tags), iters=10, warmup=3)
-    launches = _counts()
-    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     loss = float(trainer.step_on_device(audio, tags))
-    log(f"  (c) TransferTrainer.step Cnn14 B={TRANSFER_BATCH} 10-s clips (dropout, "
-        f"SpecAugment, train-mode BN, head-only AMSGrad, f32): {ms:.3f} ms/step, "
-        f"{TRANSFER_BATCH / ms * 1e3:.1f} clips/s; peak memory {peak:.2f} GiB; loss {loss:.5f}; "
-        f"K1/K1 save/K2 launches {launches} over 13 steps [{card}]")
+    launches = _counts()
+    log(f"  (c) TransferTrainer.step Cnn14 B={TRANSFER_BATCH} 10-s clips (dropout, SpecAugment, "
+        f"train-mode BN, head-only AMSGrad, f32): loss {loss:.5f}; K1/K1 save/K2 launches "
+        f"{launches}")
     if launches != (0, 0, 0) or not math.isfinite(loss):
         raise AssertionError(f"transfer step: launches {launches}, loss {loss}")
-    profile_run(lambda: [trainer.step_on_device(audio, tags) for _ in range(2)],
-                f"TransferTrainer.step x2, Cnn14 B={TRANSFER_BATCH}", top=8)
     del trainer, model, audio
     torch.cuda.empty_cache()
-    return ms
 
 
-class _Timer:
-    """Seconds spent in a wrapped function, the card synchronised after it
-    where ``sync``."""
-
-    def __init__(self, owner, name: str, sync: bool):
-        self.owner, self.name, self.fn, self.sync = owner, name, getattr(owner, name), sync
-        self.seconds, self.calls = 0.0, 0
-        setattr(owner, name, self)
-
-    def __call__(self, *args, **kw):
-        t0 = time.perf_counter()
-        out = self.fn(*args, **kw)
-        if self.sync:
-            torch.cuda.synchronize()
-        self.seconds += time.perf_counter() - t0
-        self.calls += 1
-        return out
-
-    def __get__(self, obj, objtype=None):  # as a method of a class
-        return self if obj is None else (lambda *a, **k: self(obj, *a, **k))
-
-    def restore(self):
-        setattr(self.owner, self.name, self.fn)
-
-
-def run_finetune_cli(root: Path, step_ms: float, card):
+def run_finetune_cli(root: Path):
     """(d) cli/finetune_audiocaps.py --epochs 1 --batch-size 64 over the
     root, on the card (its default), from a reference-keyed Cnn14
-    checkpoint written here; the epoch's wall time split into decode
-    (AudioCaps.at of the audio column), H2D, train steps and eval
-    forwards."""
+    checkpoint written here."""
     from audioset_convnext_inf_torch.checkpoint import (load_checkpoint, load_pann_state_dict,
                                                         pann_state_dict_from_params)
     from audioset_convnext_inf_torch.cli import finetune_audiocaps
-    from audioset_convnext_inf_torch.data import audiocaps
-    from audioset_convnext_inf_torch.engine.transfer import TransferTrainer
-    from audioset_convnext_inf_torch.models.pann import PannModel, create_pann_model
+    from audioset_convnext_inf_torch.models.pann import create_pann_model
 
     source = perturb_pann(create_pann_model("Cnn14", seed=SEED, device="cpu"), SEED + 15)
     sd = {k: v.clone() for k, v in source.state_dict().items()}
     ckpt = WORK / "Cnn14_pretrained.pth"
     torch.save({"model": dict(sd, **{"bn0.num_batches_tracked": torch.tensor(5)})}, ckpt)
     out_dir = WORK / "finetune_out"
-    timers = [_Timer(audiocaps, "read_audio", False),
-              _Timer(TransferTrainer, "to_device", True),
-              _Timer(TransferTrainer, "step_on_device", True),
-              _Timer(PannModel, "forward", True)]
     _zero_counts()
-    t0 = time.perf_counter()
-    try:
-        rc = finetune_audiocaps.main(["--root", str(root), "--checkpoint", str(ckpt),
-                                      "--epochs", "1", "--batch-size", str(TRANSFER_BATCH),
-                                      "--out-dir", str(out_dir)])
-        torch.cuda.synchronize()
-    finally:
-        for t in timers:
-            t.restore()
-    wall = time.perf_counter() - t0
+    rc = finetune_audiocaps.main(["--root", str(root), "--checkpoint", str(ckpt),
+                                  "--epochs", "1", "--batch-size", str(TRANSFER_BATCH),
+                                  "--out-dir", str(out_dir)])
+    torch.cuda.synchronize()
     launches = _counts()
-    decode, h2d, step, evals = timers
-    other = wall - decode.seconds - h2d.seconds - step.seconds - evals.seconds
     (name,) = os.listdir(out_dir)
     state = load_checkpoint(str(out_dir / name))
     got = pann_state_dict_from_params(state["params"], "Cnn14")
@@ -3220,29 +2913,21 @@ def run_finetune_cli(root: Path, step_ms: float, card):
         f"{base_equal}, head moved {head_moved}, BN running statistics moved {moved} of "
         f"{len(stats)}; read back by the port, finite {bool(torch.isfinite(probs).all())}; "
         f"K1/K1 save/K2 launches {launches}")
-    log(f"  (d) the epoch's wall {wall:.2f} s: decode {decode.seconds:.2f} s "
-        f"({decode.calls} clips, {decode.seconds / decode.calls * 1e3:.1f} ms each), H2D "
-        f"{h2d.seconds * 1e3:.1f} ms ({h2d.calls} batches), train steps "
-        f"{step.seconds * 1e3:.1f} ms ({step.calls}; (c) timed one at {step_ms:.1f} ms), "
-        f"eval forwards {evals.seconds * 1e3:.1f} ms ({evals.calls}), "
-        f"the rest (model build, checkpoint load and save, collate) {other:.2f} s; decode per "
-        f"train batch / step alone: {decode.seconds / decode.calls * TRANSFER_BATCH * 1e3 / step_ms:.1f}x "
-        f"[{card}]")
     if not (rc == 0 and base_equal and head_moved and moved == len(stats)
             and launches == (0, 0, 0) and bool(torch.isfinite(probs).all())):
         raise AssertionError("cli.finetune_audiocaps: see the lines above")
 
 
-def run_transfer_phase(device, card):
+def run_transfer_phase(device):
     """Phase 13. The transfer path launches no kernel of the port: K1 and
     K2 are counted over (b)-(d) and must stay at 0."""
     root = WORK / "audiocaps"
     ints, tags = make_audiocaps_root(root)
     check_audiocaps(root, ints, tags)
     clips = np.stack([ints[("train", k)] for k in range(4)]).astype(np.float32) / 32768
-    check_transfer_card_vs_cpu(device, clips.astype(np.float32))
-    step_ms = time_transfer_step(device, clips.astype(np.float32), card)
-    run_finetune_cli(root, step_ms, card)
+    check_transfer_card_vs_cpu(device, clips)
+    check_transfer_step(device, clips)
+    run_finetune_cli(root)
 
 
 # ---------------------------------------------------------------------------
@@ -3288,29 +2973,16 @@ def _wav_bytes(data: np.ndarray, sr: int, bits: int, fmt: int = 1) -> bytes:
     return b"RIFF" + struct.pack("<I", len(body)) + body
 
 
-def _host_ms(fn, reps: int = 5) -> float:
-    """Median host wall time of fn() in ms, after one call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
-    return sorted(times)[reps // 2] * 1e3
-
-
-def check_native_plane(card):
+def check_native_plane():
     """(a) The host audio library (utils/native.py over csrc/audio_host.cpp)
     built with the host's compiler, then against its plain versions."""
     from audioset_convnext_inf_torch.data import audio_io
     from audioset_convnext_inf_torch.utils import host_build, native
 
-    t0 = time.perf_counter()
     lib = host_build.build("audio_host", [native.SOURCE], native.CXX_FLAGS,
-                           "the host audio library", WORK / "host_build_timing", native.LINK_FLAGS)
+                           "the host audio library", WORK / "host_build", native.LINK_FLAGS)
     log(f"  (a) host library built by {host_build.compiler('the host audio library')} "
-        f"{' '.join(native.CXX_FLAGS)}, then {' '.join(native.LINK_FLAGS)}, in "
-        f"{time.perf_counter() - t0:.2f} s ({lib.name}; "
+        f"{' '.join(native.CXX_FLAGS)}, then {' '.join(native.LINK_FLAGS)} ({lib.name}; "
         f"{native._load().omp_thread_count()} OpenMP threads)")
     raw = FIXTURE.read_bytes()
     got, sr = audio_io.read_wav(str(FIXTURE))
@@ -3336,11 +3008,8 @@ def check_native_plane(card):
         got = audio_io.resample_poly(clip, sr, 32000)
         want = native.resample_poly_kaiser_reference(clip, 32000 // g, sr // g)
         err = float(np.abs(got - want).max())
-        lib_ms = _host_ms(lambda: audio_io.resample_poly(clip, sr, 32000))
-        scipy_ms = _host_ms(lambda: native.resample_poly_kaiser_reference(clip, 32000 // g, sr // g))
         log(f"  resample a 10-s clip {sr}->32000 Hz: {got.shape[0]} samples, max abs diff from "
-            f"scipy (f64) {err:.3e} (tol {RESAMPLE_TOL}); {lib_ms:.2f} ms per clip in the library "
-            f"({native._load().omp_thread_count()} OpenMP threads), scipy {scipy_ms:.2f} ms [{card}]")
+            f"scipy (f64) {err:.3e} (tol {RESAMPLE_TOL})")
         if got.shape != want.shape or not err <= RESAMPLE_TOL:
             raise AssertionError(f"resampling {sr}->32000 is {err} away from scipy's")
 
@@ -3358,7 +3027,7 @@ def _load_test_helper(name: str):
     return module
 
 
-def check_decoder_fuzz(card):
+def check_decoder_fuzz():
     """(a) About 240 of tests/test_fuzz_decoders.py's mutations, drawn with
     its seeds by tests/torch_fuzz_util.py, against the FLAC and WAV
     libraries this machine's compiler built with the port's flags: each
@@ -3380,7 +3049,6 @@ def check_decoder_fuzz(card):
         ("WAV truncations", native.decode_wav_bytes, islice(fz.truncations(wav, 13), 0, None, 10)),
         ("WAV geometry", native.decode_wav_bytes, (b for _, b in fz.wav_absurd_geometry(wav))),
     ]
-    t0 = time.perf_counter()
     fz.well_formed(decode_flac_bytes(flac), len(flac))
     fz.well_formed(native.decode_wav_bytes(wav), len(wav))
     counts = []
@@ -3406,35 +3074,20 @@ def check_decoder_fuzz(card):
         raise AssertionError(f"the {label} mutation decoded; it must raise")
     log(f"  (a) decoder fuzzing, accepted / mutations: {', '.join(counts)}; "
         f"{len(must_raise)} that must raise raised; every other mutation decoded well formed or "
-        f"raised ValueError, in {time.perf_counter() - t0:.2f} s [{card}]")
+        f"raised ValueError")
 
 
-def check_kaldi_fbank(device, card):
+def check_kaldi_fbank(device):
     """(b) kaldi_fbank of FBANK_CLIPS 10-s clips on the card against the port
-    on the host; the host's time per clip, by op on one thread."""
+    on the host."""
     from audioset_convnext_inf_torch.ops.kaldi_fbank import kaldi_fbank
-    from audioset_convnext_inf_torch.utils.profiling import profile_ops
 
     wav = torch.from_numpy(fixture_batch(FBANK_CLIPS, SEED + 14).astype(np.float32) / 32767.0)
     host = kaldi_fbank(wav)
     card_out = kaldi_fbank(wav.to(device))
     err = (card_out.cpu() - host).abs().max().item()
-    ms = cuda_ms(lambda: kaldi_fbank(wav.to(device)), iters=10)
-    on_card = wav.to(device)
-    dev_ms = cuda_ms(lambda: kaldi_fbank(on_card), iters=10)
-    host_ms = _host_ms(lambda: kaldi_fbank(wav[0]))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        one_ms = _host_ms(lambda: kaldi_fbank(wav[0]))
-        rows = profile_ops(kaldi_fbank, wav[0], iters=3)
-    finally:
-        torch.set_num_threads(threads)
     log(f"  (b) kaldi_fbank {tuple(host.shape)}: card vs host max abs diff {err:.3e} (log domain, "
-        f"tol {FBANK_LOG_TOL}); the card {dev_ms:.3f} ms per batch of {FBANK_CLIPS} "
-        f"({ms:.3f} with the host->card copy), the host {host_ms:.2f} ms per clip "
-        f"({threads} threads), {one_ms:.2f} ms on one thread [{card}]; one thread by op: "
-        + ", ".join(f"{r['name']} {r['ms_per_iter']:.2f}" for r in rows[:5]))
+        f"tol {FBANK_LOG_TOL})")
     if tuple(card_out.shape) != (FBANK_CLIPS, 994, 224) or not err <= FBANK_LOG_TOL:
         raise AssertionError(f"kaldi_fbank on the card is {err} from the host's")
 
@@ -3479,7 +3132,7 @@ def _k1_shapes(model, spec):
     return shapes
 
 
-def check_fbank_route(serve, device, card, waveform_rate):
+def check_fbank_route(serve, device):
     """(c) The Kaldi-fbank evaluation route at full width: int16 clips ->
     AudioSetDataset(use_kaldi_fbank=True)'s per-clip transform on the host ->
     DataLoader -> Evaluator -> ``serve`` (convnext_tiny bf16 serving).
@@ -3521,19 +3174,6 @@ def check_fbank_route(serve, device, card, waveform_rate):
     if not prob_err <= SERVING_PROB_TOL:
         raise AssertionError("bf16 serving on fbank images drifts from f32 parity")
     del parity, cpu
-    runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        ev.infer_probs(fbank_loader(pcm, target, EVAL_CLIPS))
-        runs.append(time.perf_counter() - t0)
-    dt = sorted(runs)[1]
-    log(f"  fbank route, {EVAL_CLIPS} clips at B={EVAL_BATCH}, host fbank in 4 loader threads "
-        f"included: {', '.join(f'{r * 1e3:.1f}' for r in runs)} ms (median {dt * 1e3:.1f}): "
-        f"{EVAL_CLIPS / dt:.1f} clips/s, beside the waveform route's "
-        + (f"{waveform_rate:.1f} clips/s (phase 7)" if waveform_rate else "(phase 7 not run)")
-        + f" [{card}]")
-    profile_run(lambda: ev.infer_probs(fbank_loader(pcm, target, 2 * EVAL_BATCH)),
-                f"fbank route, 2 batches of {EVAL_BATCH}", top=8)
     host = []
 
     def kept():
@@ -3589,7 +3229,7 @@ def check_augment_on_card(device):
         f"(tol {LINEAR_RESAMPLE_TOL})")
 
 
-def check_profiling(serve, card):
+def check_profiling(serve):
     """(e) count_parameters, count_flops, profile_ops and trace on ``serve``.
     Returns profile_ops' K1 launches."""
     from audioset_convnext_inf_torch.ops.fused_block import fused_block
@@ -3608,12 +3248,8 @@ def check_profiling(serve, card):
     rows = P.profile_ops(serve.forward, pcm, iters=3)
     launched = fused_block.launches
     k1 = [r for r in rows if "fused_block" in r["name"]]
-    for r in rows[:6]:
-        log(f"    {r['ms_per_iter']:8.3f} ms x{r['count_per_iter']:<3d} {r['category']:7s} "
-            f"{r['name'][:80]}")
     log(f"  profile_ops, bf16 forward B={BATCH}, 3 iterations: {len(rows)} rows; K1: "
-        + ", ".join(f"{r['name']} x{r['count_per_iter']} {r['ms_per_iter']:.3f} ms" for r in k1)
-        + f" [{card}]")
+        + ", ".join(f"{r['name']} x{r['count_per_iter']}" for r in k1))
     if sum(r["count_per_iter"] for r in k1) != sum(K1_MAIN_PATH.values()):
         raise AssertionError(f"profile_ops does not list K1 {sum(K1_MAIN_PATH.values())} times "
                              f"per forward")
@@ -3672,20 +3308,20 @@ def check_cache(first, cache_dir: Path):
         raise AssertionError("the compilation cache did not build once and load after")
 
 
-def run_rest_phase(device, card, waveform_rate):
+def run_rest_phase(device):
     """Phase 14. Returns the K1 launches of the fbank route and of profile_ops."""
     WORK.mkdir(parents=True, exist_ok=True)
     cache_dir = WORK / "compile_cache"
     shutil.rmtree(cache_dir, ignore_errors=True)
-    check_native_plane(card)
-    check_decoder_fuzz(card)
-    check_kaldi_fbank(device, card)
+    check_native_plane()
+    check_decoder_fuzz()
+    check_kaldi_fbank(device)
     serve = build_model(device, torch.bfloat16)  # the phase-4 model
-    launches = check_fbank_route(serve, device, card, waveform_rate)
+    launches = check_fbank_route(serve, device)
     torch.cuda.empty_cache()
     probe = start_cache_probe(cache_dir)  # nvcc on the host while the card works
     check_augment_on_card(device)
-    launches += check_profiling(serve, card)
+    launches += check_profiling(serve)
     check_cache(probe, cache_dir)
     log("  packing (data/pack.py, cli/pack_dataset.py) is not run: the card machine has no "
         "h5py; tests/test_torch_pack.py holds it against the JAX package on the CPU")
@@ -3704,7 +3340,6 @@ LEARN_CLASSES = 16
 LEARN_COLUMNS = [7 * (k + 1) for k in range(LEARN_CLASSES)]
 LEARN_STEPS = 400
 LEARN_BATCH = 32
-LEARN_TIMED_FROM = 50  # ms per step: the median of steps 50-399
 # Gates of the JAX certificate (train_learn_tpu.py:128): the mean loss of
 # the last 10 steps under LEARN_LOSS_RATIO of the first 10's, and train mAP
 # over the 16 columns above LEARN_MAP through the bf16 serving forward.
@@ -3767,20 +3402,16 @@ class LearnRun(NamedTuple):
     """One 400-step run of (a) or (b)."""
 
     losses: np.ndarray
-    ms: np.ndarray  # per step, synchronised
-    train_s: float
     launches: tuple  # (K1, K1 save, K2) over the run
     state: dict  # the trained weights
     cfg: object
-    trace: object  # profile_run's (wall ms, device-busy ms, idle share) of one more step
 
 
 def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
     """(a) or (b): convnext_tiny at full width from the port's own init
     (layer scale 1e-6), the fused bf16 recipe with fused_train_blocks
     ``fused``, LEARN_STEPS Trainer.step calls. Each step must launch K1's
-    save mode and K2 12 times on the fused route and neither on the other.
-    After the run and the copy of its weights, one more step is traced."""
+    save mode and K2 12 times on the fused route and neither on the other."""
     from audioset_convnext_inf_torch.config import FrontendConfig
     from audioset_convnext_inf_torch.engine.trainer import TrainConfig, Trainer
     from audioset_convnext_inf_torch.models import convnext_tiny
@@ -3793,43 +3424,33 @@ def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
                                          weight_decay=0.01, seed=7, bf16_compute=True))
     per_step = sum(K1_STAGES_34.values()) if fused else 0
     order = np.random.RandomState(42)
-    losses, ms = [], []
-    torch.cuda.synchronize()
+    losses = []
     _zero_counts()
-    t0 = time.perf_counter()
     for step in range(LEARN_STEPS):
         idx = order.permutation(len(clips))[:LEARN_BATCH]
         before = _counts()
-        s0 = time.perf_counter()
         losses.append(trainer.step_async(clips[idx], targets[idx]))
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - s0))
         delta = tuple(a - b for a, b in zip(_counts(), before))
         if delta != (per_step, per_step, per_step):
             raise AssertionError(f"learning step {step} launched (K1, K1 save, K2) {delta}, "
                                  f"expected {per_step} each")
-    train_s = time.perf_counter() - t0
     launches = _counts()
     check_fused_updates(trainer.optimizer, LEARN_STEPS, label)
     losses = torch.stack(losses).float().cpu().numpy()
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite loss at steps {np.where(~np.isfinite(losses))[0][:10]}")
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    idx = order.permutation(len(clips))[:LEARN_BATCH]
-    trace = profile_run(lambda: trainer.step(clips[idx], targets[idx]),
-                        f"{label} step {LEARN_STEPS + 2} ({LEARN_BATCH} clips, f32 host arrays)",
-                        top=8)
     _zero_counts()
-    return LearnRun(losses, np.asarray(ms), train_s, launches, state, model.cfg, trace)
+    return LearnRun(losses, launches, state, model.cfg)
 
 
-def learn_gates(label, device, run: LearnRun, clips, targets, card):
+def learn_gates(label, device, run: LearnRun, clips, targets):
     """The JAX certificate's gates on one run: the loss ratio and train mAP
     through the bf16 serving forward (18 K1 launches a forward). Returns
-    (mAP, loss ratio, ms per step, K1 serving launches)."""
+    (mAP, loss ratio, K1 serving launches)."""
     from audioset_convnext_inf_torch.models import ConvNeXt
 
-    losses, ms, train_s = run.losses, run.ms, run.train_s
+    losses = run.losses
     serve = ConvNeXt(dataclasses.replace(run.cfg, drop_path_rate=0.0),
                      compute_dtype=torch.bfloat16, device=device)
     serve.load_state_dict(run.state, strict=True)
@@ -3840,23 +3461,19 @@ def learn_gates(label, device, run: LearnRun, clips, targets, card):
     m, ap = _map(probs, targets, LEARN_COLUMNS)
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     ratio = last / first
-    step_ms = float(np.median(ms[LEARN_TIMED_FROM:]))
     low = int(np.argmin(ap))
-    log(f"  {label}: {LEARN_STEPS} steps in {train_s:.1f} s, {step_ms:.2f} ms/step (median of "
-        f"steps {LEARN_TIMED_FROM}-{LEARN_STEPS - 1}, synchronised; first step {ms[0]:.1f} ms) "
-        f"[{card}]")
     log(f"  {label}: loss mean of the first 10 steps {first:.6f}, of the last 10 {last:.6f}, "
         f"ratio {ratio:.6f} (gate < {LEARN_LOSS_RATIO}); train mAP over the {LEARN_CLASSES} "
         f"columns {m:.6f} (gate > {LEARN_MAP}), lowest AP {ap[low]:.6f} (class {low}, "
-        f"{130.0 * 2.0 ** (low / 2.1):.0f} Hz) [{card}]")
+        f"{130.0 * 2.0 ** (low / 2.1):.0f} Hz)")
     if not ratio < LEARN_LOSS_RATIO:
         raise AssertionError(f"{label}: the loss fell only to {ratio:.4f} of its start")
     if not m > LEARN_MAP:
         raise AssertionError(f"{label}: train mAP {m:.4f}, per class {np.round(ap, 4).tolist()}")
-    return m, ratio, step_ms, n
+    return m, ratio, n
 
 
-def check_serving_parity(device, path: Path, card):
+def check_serving_parity(device, path: Path):
     """(c) Run (a)'s weights, read from their safetensors file by
     ConvNeXt.from_pretrained into the f32 parity config and the bf16 serving
     config at frontend "default" and "high", over the held-out clips through
@@ -3876,10 +3493,7 @@ def check_serving_parity(device, path: Path, card):
     for label, dtype, cfg in configs:
         model = ConvNeXt.from_pretrained(str(path), compute_dtype=dtype, cfg=cfg, device=device)
         ev = Evaluator(model, device=device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         out, n = _k1_count(lambda: ev.infer_probs(loader))
-        dt = time.perf_counter() - t0
         want = len(loader) * sum(K1_MAIN_PATH.values()) if dtype == torch.bfloat16 else 0
         _expect_launches(f"(c) {label} ({model.cfg.block_impl}, frontend "
                          f"{model.cfg.frontend.precision}), {len(clips)} clips in "
@@ -3887,17 +3501,16 @@ def check_serving_parity(device, path: Path, card):
         launches += n
         if not np.array_equal(out["target"], targets):
             raise AssertionError(f"{label}: the Evaluator returned other targets")
-        results[label] = (out["clipwise_output"], dt)
+        results[label] = out["clipwise_output"]
         del model, ev
-    ref = results["f32 parity"][0]
+    ref = results["f32 parity"]
     m_ref, _ = _map(ref, targets, LEARN_COLUMNS)
-    log(f"  (c) f32 parity: held-out mAP {m_ref:.6f} (gate > {HELDOUT_MAP}), "
-        f"{len(clips) / results['f32 parity'][1]:.1f} clips/s [{card}]")
+    log(f"  (c) f32 parity: held-out mAP {m_ref:.6f} (gate > {HELDOUT_MAP})")
     if not m_ref > HELDOUT_MAP:
         raise AssertionError(f"held-out mAP of the f32 model {m_ref:.4f}")
     top1_ref = np.argmax(ref, axis=1)
     top6_ref = np.argsort(-ref, axis=1)[:, :6]
-    for label, (probs, dt) in list(results.items())[1:]:
+    for label, probs in list(results.items())[1:]:
         m, _ = _map(probs, targets, LEARN_COLUMNS)
         top1 = float(np.mean(np.argmax(probs, axis=1) == top1_ref))
         top6 = float(np.mean([len(set(a) & set(b)) / 6.0
@@ -3905,8 +3518,7 @@ def check_serving_parity(device, path: Path, card):
         gap = float(np.abs(probs - ref).max())
         log(f"  (c) {label}: mAP {m:.6f}, |delta| {abs(m - m_ref):.3e} (gate < {PARITY_MAP_TOL}); "
             f"top-1 agreement {top1:.4f} (gate >= {PARITY_TOP1}); top-6 rank agreement "
-            f"{top6:.4f}; largest probability gap {gap:.3e} (gate < {PARITY_PROB_GAP}); "
-            f"{len(clips) / dt:.1f} clips/s [{card}]")
+            f"{top6:.4f}; largest probability gap {gap:.3e} (gate < {PARITY_PROB_GAP})")
         if not abs(m - m_ref) < PARITY_MAP_TOL:
             raise AssertionError(f"{label}: mAP {m:.6f} vs the f32 parity config's {m_ref:.6f}")
         if not top1 >= PARITY_TOP1:
@@ -3916,7 +3528,7 @@ def check_serving_parity(device, path: Path, card):
     return launches
 
 
-def check_transfer_learns(device, card):
+def check_transfer_learns(device):
     """(d) Cnn14 at its published widths, registry dropout and SpecAugment,
     head-only TransferTrainer at 1e-3: the transfer certificate's task and
     five gates (tests/torch_transfer_cert.py, loaded by its path), and no
@@ -3929,35 +3541,27 @@ def check_transfer_learns(device, card):
     model = create_pann_model("Cnn14", seed=0, device=device)
     start = {k: v.clone() for k, v in model.state_dict().items()}
     trainer = TransferTrainer(model, learning_rate=1e-3)
-    losses, ms = [], []
+    losses = []
     _zero_counts()
-    t0 = time.perf_counter()
     for idx in tc.batches(len(clips), TRANSFER_STEPS, TRANSFER_CERT_BATCH):
-        s0 = time.perf_counter()
         losses.append(trainer.step_on_device(*trainer.to_device(clips[idx], tags[idx])))
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - s0))
-    train_s = time.perf_counter() - t0
     losses = torch.stack(losses).cpu().numpy()
     probs = model.forward(clips)["clipwise_output"].cpu().numpy()
     torch.cuda.synchronize()
     if _counts() != (0, 0, 0):
         raise AssertionError(f"the transfer run launched (K1, K1 save, K2) {_counts()}")
     got = tc.report(model, start, losses, probs, tags)
-    log(f"  (d) Cnn14 head-only, {TRANSFER_STEPS} steps of {TRANSFER_CERT_BATCH} 1-s clips in "
-        f"{train_s:.1f} s, {np.median(ms[LEARN_TIMED_FROM:]):.2f} ms/step (median, synchronised) "
-        f"[{card}]")
-    log(f"  (d) loss mean of the first 8 steps {got.first:.6f}, of the last 8 {got.last:.6f}, "
+    log(f"  (d) Cnn14 head-only, {TRANSFER_STEPS} steps of {TRANSFER_CERT_BATCH} 1-s clips: loss "
+        f"mean of the first 8 steps {got.first:.6f}, of the last 8 {got.last:.6f}, "
         f"ratio {got.ratio:.6f} (gate < {tc.LOSS_RATIO}); train mAP over the {tc.CLASSES} "
         f"columns {got.map:.6f} (gate > {tc.MIN_MAP}), lowest AP {got.ap.min():.6f}; "
         f"{got.frozen} frozen parameters bit-identical {got.frozen_ok}; BN statistics changed "
-        f"{got.moved_stats} of {got.stats}; fc_audioset moved {got.head_moved}; K1/K2 launches 0 "
-        f"[{card}]")
+        f"{got.moved_stats} of {got.stats}; fc_audioset moved {got.head_moved}; K1/K2 launches 0")
     if got.failures():
         raise AssertionError("transfer certificate: " + "; ".join(got.failures()))
 
 
-def run_learning_phase(device, card):
+def run_learning_phase(device):
     """Phase 15. Returns the fused run's K1 save-mode and K2 launches and
     the K1 serving launches of the evaluations."""
     WORK.mkdir(parents=True, exist_ok=True)
@@ -3968,20 +3572,14 @@ def run_learning_phase(device, card):
         log(f"  {label}: convnext_tiny, fused_train_blocks={fused}, {LEARN_STEPS} steps of "
             f"{LEARN_BATCH} ten-second clips")
         runs[fused] = learn_run(device, fused, clips, targets, label)
-        m, ratio, step_ms, n = learn_gates(label, device, runs[fused], clips, targets, card)
+        m, ratio, n = learn_gates(label, device, runs[fused], clips, targets)
         serving += n
-        summary[label] = (m, ratio, step_ms)
+        summary[label] = (m, ratio)
         torch.cuda.empty_cache()
     gap = np.abs(runs[True].losses - runs[False].losses)
     log(f"  (a) vs (b): train mAP {summary['(a) fused'][0]:.6f} / {summary['(b) unfused'][0]:.6f}, "
-        f"loss ratio {summary['(a) fused'][1]:.6f} / {summary['(b) unfused'][1]:.6f}, ms per step "
-        f"{summary['(a) fused'][2]:.2f} / {summary['(b) unfused'][2]:.2f}; largest per-step loss "
-        f"gap {gap.max():.6f} (step {int(np.argmax(gap))}), mean {gap.mean():.6f} [{card}]")
-    traces = [runs[f].trace for f in labels]
-    if None not in traces:
-        (fw, fb, fi), (uw, ub, ui) = traces
-        log(f"  (a) vs (b), one traced step each: wall {fw:.2f} / {uw:.2f} ms, device busy "
-            f"{fb:.2f} / {ub:.2f} ms, idle share {fi:.3f} / {ui:.3f} [{card}]")
+        f"loss ratio {summary['(a) fused'][1]:.6f} / {summary['(b) unfused'][1]:.6f}; largest "
+        f"per-step loss gap {gap.max():.6f} (step {int(np.argmax(gap))}), mean {gap.mean():.6f}")
     path = WORK / "learned.safetensors"
     from audioset_convnext_inf_torch.checkpoint.io import save_safetensors
 
@@ -3989,9 +3587,9 @@ def run_learning_phase(device, card):
     launches = runs[True].launches
     del runs
     torch.cuda.empty_cache()
-    serving += check_serving_parity(device, path, card)
+    serving += check_serving_parity(device, path)
     torch.cuda.empty_cache()
-    check_transfer_learns(device, card)
+    check_transfer_learns(device)
     shutil.rmtree(WORK)
     return launches[1], launches[2], serving
 
@@ -4089,10 +3687,10 @@ def run_phases() -> int:
 
     phase(f"[5/15] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
-    trainer, batch, train_launches = run_training_path(device)
+    train_launches = run_training_path(device)
     check_fused_vs_unfused(device)
 
-    phase(f"[6/15] times on {card}")
+    phase(f"[6/15] kernel table: each kernel alone on {card}")
     per_shape = time_k1(device)
     save_shape = time_k1_save(device)
     profile_k1(device)
@@ -4101,9 +3699,6 @@ def run_phases() -> int:
     products = time_products(device)
     compare_yardsticks(per_shape, save_shape, k2_shape, unfused, unfused_bwd, products)
     time_adamw(device)
-    time_end_to_end(serve, "bf16 serving")
-    profile_forward(serve, BATCH)
-    time_training(trainer, batch)
 
     phase("[7/15] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
     WORK.mkdir(parents=True, exist_ok=True)
@@ -4113,53 +3708,52 @@ def run_phases() -> int:
         "the HDF5 route, EvaluateSampler + AudioSetDataset, cli.evaluate and "
         "cli.extract_embeddings are held against the JAX package by tests/test_torch_eval.py "
         "and tests/test_torch_infer.py on the CPU)")
-    ev, n = check_evaluator(serve, device, pcm, target)
-    surface_launches += n + check_tagging(serve) + run_clis()
+    surface_launches += check_evaluator(serve, device, pcm, target) + check_tagging(serve) \
+        + run_clis()
     log(f"  inference surfaces: K1 launches {surface_launches} in all")
-    one_rate = time_evaluator(serve, ev, pcm, target, card)
-    del ev
 
     phase(f"[8/15] tagging service: cli/serve.py on the phase-4 model, batch {BATCH}")
-    service_launches, http_rate = run_service(serve, card)
+    service_launches = run_service(serve)
     torch.cuda.empty_cache()
 
     phase("[9/15] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
     runner = CliRunner()
-    cli_launches, three = run_train_cli(runner, card)
+    cli_launches, three = run_train_cli(runner)
 
     phase("[10/15] data parallelism on the one card")
     torch.cuda.empty_cache()
     log("  (a) cli/train.py under torchrun's environment, world size 1, NCCL")
-    nccl_launches = run_nccl_world_1(runner, three, card)
+    nccl_launches = run_nccl_world_1(runner, three)
     del three
     log(f"  (b) {DP_WORLD} processes, backend gloo, one Trainer step of {TRAIN_CLIPS} clips")
     torch.cuda.empty_cache()
-    pair_launches = run_dp_pair(device, card)
+    pair_launches = run_dp_pair(device)
     log("  (c) the Evaluator over two replicas on the one card")
-    sharded_eval_launches = check_sharded_evaluator(serve, device, pcm, target, one_rate, card)
+    sharded_eval_launches = check_sharded_evaluator(serve, device, pcm, target)
     log("  (d) cli/serve.py --mesh")
-    mesh_launches = run_service_mesh(serve, card)
+    mesh_launches = run_service_mesh(serve)
 
-    phase("[11/15] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend alone")
-    bundle_launches = run_bundle_phase(serve, device, card, http_rate)
+    phase("[11/15] AOT serving bundles: convnext_tiny bf16 serving, int16 in; the frontend's "
+          "ct and rfft on the card")
+    bundle_launches = run_bundle_phase(serve, device)
     del serve
     torch.cuda.empty_cache()
 
     phase("[12/15] PANN zoo: 49 models, f32 under fp32_precision(\"highest\"), 10-s clips")
-    run_pann_phase(device, card)
+    run_pann_phase(device)
 
     phase("[13/15] PANN transfer: AudioCaps FLAC root, forward_train, TransferTrainer, "
           "cli/finetune_audiocaps.py; Cnn14 f32, 10-s clips")
-    run_transfer_phase(device, card)
+    run_transfer_phase(device)
 
     phase("[14/15] the rest: host audio library, Kaldi fbank and its evaluation route, "
           "augmentations, profiling, compilation cache")
-    rest_launches = run_rest_phase(device, card, one_rate)
+    rest_launches = run_rest_phase(device)
     shutil.rmtree(WORK)
 
     phase(f"[15/15] learning certificates: convnext_tiny fused and unfused bf16 recipe, "
           f"{LEARN_STEPS} steps; serving parity with the trained weights; Cnn14 transfer")
-    learn_save, learn_bwd, learn_serving = run_learning_phase(device, card)
+    learn_save, learn_bwd, learn_serving = run_learning_phase(device)
     phase("done")
 
     kernels = [

@@ -11,10 +11,10 @@ import pytest
 from audioset_convnext_inf_torch.ops import _build
 
 KERNELS = ("fused_block", "fused_block_bwd")
-# what each kernel compiles from csrc/: the shared pieces (mma_bf16.cuh)
-# and the Hopper header (wgmma, TMA, mbarrier, clusters), both kernels
-SOURCES = {"fused_block": ["fused_block.cu", "mma_bf16.cuh", "wgmma_bf16.cuh"],
-           "fused_block_bwd": ["fused_block_bwd.cu", "mma_bf16.cuh", "wgmma_bf16.cuh"]}
+# what each kernel compiles from csrc/: its source and the one header both
+# kernels share (the bf16 pieces, wgmma, TMA, mbarrier, clusters)
+SOURCES = {"fused_block": ["fused_block.cu", "wgmma_bf16.cuh"],
+           "fused_block_bwd": ["fused_block_bwd.cu", "wgmma_bf16.cuh"]}
 
 
 @pytest.fixture
@@ -41,8 +41,8 @@ def test_sources_list_the_kernel_and_the_shared_header(name):
     assert [p.name for p in _build.sources(name)] == SOURCES[name]
 
 
-def test_editing_the_hopper_header_changes_only_k2s_library(csrc, before):
-    """Editing the Hopper header rebuilds both libraries: K1 and K2 both
+def test_the_shared_header_renames_both_libraries_and_a_kernels_own_header_only_its(csrc, before):
+    """Editing the shared header renames both libraries: K1 and K2 both
     include wgmma_bf16.cuh. A header that only one kernel includes renames
     only that kernel's library."""
     _append(csrc / "wgmma_bf16.cuh")
@@ -66,7 +66,7 @@ def test_an_unchanged_tree_keeps_its_library(csrc, before, name):
 
 @pytest.mark.parametrize("name", KERNELS)
 def test_editing_the_shared_header_changes_the_library(csrc, before, name):
-    _append(csrc / "mma_bf16.cuh")
+    _append(csrc / "wgmma_bf16.cuh")
     assert _build.library_path(name) != before[name]
 
 
@@ -80,10 +80,9 @@ def test_editing_the_source_changes_only_its_library(csrc, before, name):
 
 def test_the_adamw_kernel_compiles_its_source_alone(csrc, before):
     """csrc/adamw.cu includes no header of csrc/: editing the shared
-    headers leaves its library, editing it leaves K1's and K2's."""
+    header leaves its library, editing it leaves K1's and K2's."""
     assert [p.name for p in _build.sources("adamw")] == ["adamw.cu"]
     adamw = _build.library_path("adamw")
-    _append(csrc / "mma_bf16.cuh")
     _append(csrc / "wgmma_bf16.cuh")
     assert _build.library_path("adamw") == adamw
     k1, k2 = _build.library_path("fused_block"), _build.library_path("fused_block_bwd")
@@ -94,7 +93,7 @@ def test_the_adamw_kernel_compiles_its_source_alone(csrc, before):
 
 def test_headers_included_through_headers_are_followed(csrc):
     (csrc / "inner.cuh").write_text("#pragma once\n")
-    _append(csrc / "mma_bf16.cuh", '\n#include "inner.cuh"\n')
+    _append(csrc / "wgmma_bf16.cuh", '\n#include "inner.cuh"\n')
     with_inner = _build.library_path("fused_block")
     assert [p.name for p in _build.sources("fused_block")][-1] == "inner.cuh"
     _append(csrc / "inner.cuh")
@@ -113,9 +112,9 @@ def test_files_that_are_not_included_do_not_count(csrc):
 def test_an_include_cycle_ends(csrc):
     (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
     (csrc / "b.cuh").write_text('#pragma once\n#include "a.cuh"\n')
-    _append(csrc / "mma_bf16.cuh", '\n#include "a.cuh"\n')
+    _append(csrc / "wgmma_bf16.cuh", '\n#include "a.cuh"\n')
     names = [p.name for p in _build.sources("fused_block")]
-    assert names == ["fused_block.cu", "mma_bf16.cuh", "wgmma_bf16.cuh", "a.cuh", "b.cuh"]
+    assert names == ["fused_block.cu", "wgmma_bf16.cuh", "a.cuh", "b.cuh"]
 
 
 @pytest.mark.parametrize("name", KERNELS)
