@@ -13,18 +13,23 @@
 // training ("save") mode passes the per-sample drop-path scale s (B,) and
 // a d_out buffer, which receives d exactly as rounded before the LN; the
 // serving mode passes neither (s = 1, d not stored).
-// The unfused-rounding mode (bf16 serving only, template flag UNF) rounds
-// where the unfused block of ops does (ops/nhwc.py::convnext_block, the
-// JAX package's _block_apply), so that it computes that function:
+// The unfused-rounding mode (bf16, template flag UNF) rounds where the
+// unfused block of ops does (ops/nhwc.py::convnext_block, the JAX
+// package's _block_apply), so that it computes that function:
 //
 //   d   = round(round(dwconv7x7(x)) + b_dw)          taps given in bf16
 //   xn  = round(LN(d) * ln_w + ln_b)                 as above
 //   h   = round(gelu_tanh(round(xn . W1^T + b1)))     ATen's GELU expression
-//   y   = round(round(h . W2^T + b2) * gamma)         gamma given in bf16
-//   out = round(x + y)
+//   z   = round(h . W2^T + b2)
+//   y   = round(z * gamma)                            gamma given in bf16
+//   out = round(x + y)                                serving
+//   out = round(x + round(y * s[b]))                  save: s given in bf16
 //
-// Only the stencil's and the two epilogues' arithmetic differ; the
-// products, the ring and the TMA schedule are the same.
+// and in save mode (the bf16 training step's stages 1-2: TRAIN and UNF, NB
+// = 1 and 2 only) d_out is (2, N, C): d, then z, which the backward's
+// unfused-rounding mode reads for dgamma. Only the stencil's and the two
+// epilogues' arithmetic differ; the products, the ring and the TMA
+// schedule are the same.
 // Weights arrive in the reference layouts: dww (49, C) f32 tap-major (the
 // wrapper transposes the (C,1,7,7) conv weight), W1 (4C, C) and W2 (C, 4C)
 // in T; biases, LN affine and gamma in f32. Any C in [1, 1024].
@@ -279,7 +284,8 @@ template <int NB, bool TRAIN, bool UNF>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT_BF, blocks_per_sm<NB>())
 fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
                          const __grid_constant__ CUtensorMap tw2, const Bf16Args a) {
-  static_assert(NB >= 1 && NB <= 4 && !(TRAIN && UNF), "a plan's NB; UNF is a serving mode");
+  static_assert(NB >= 1 && NB <= 4 && !(TRAIN && UNF && NB > 2),
+                "a plan's NB; the unfused-rounding save mode is built for NB = 1, 2");
   // a warpgroup's output channels: piece 0 (acc0), 64 wide at NB = 1, else
   // 128; piece 1 (acc1), 64 wide at NB = 3, 128 at NB = 4, none below;
   // each inside one W2 box
@@ -753,11 +759,22 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
         return;
       }
       const bool two = c + 1 < C;
+      const long long off = (long long)p * C + c;
       y0 += a.b2[c];
       y1 += two ? a.b2[c + 1] : 0.f;
       if constexpr (UNF) {
         y0 = round_bf16(y0);
         y1 = round_bf16(y1);
+        if constexpr (TRAIN) {  // z, after d in d_out
+          bf16* zp = a.d_out + (long long)npix * C + off;
+          const __nv_bfloat162 zv = __floats2bfloat162_rn(y0, y1);
+          if (pairs_out) {  // z's offset from d_out, N C, is even with C
+            *reinterpret_cast<__nv_bfloat162*>(zp) = zv;
+          } else {
+            zp[0] = zv.x;
+            if (two) zp[1] = zv.y;
+          }
+        }
       }
       if (a.gamma != nullptr) {
         y0 *= a.gamma[c];
@@ -771,8 +788,11 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
         const float sc = a.dps[p / HW];
         y0 *= sc;
         y1 *= sc;
+        if constexpr (UNF) {
+          y0 = round_bf16(y0);
+          y1 = round_bf16(y1);
+        }
       }
-      const long long off = (long long)p * C + c;
       if (pairs_x) {
         const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.x + off));
         *reinterpret_cast<__nv_bfloat162*>(a.out + off) = __floats2bfloat162_rn(xv.x + y0, xv.y + y1);
@@ -800,12 +820,12 @@ fused_block_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
 
 // out = round(x + ((sum of the ranges' partials in range order + b2) * gamma)
 // * s[b]), one thread an element: the hidden ranges' fixed-order sum (UNF:
-// the kernel's unfused-rounding epilogue).
+// the kernel's unfused-rounding epilogue, in save mode z into z_out).
 template <bool TRAIN, bool UNF>
 __global__ void __launch_bounds__(NT) fused_block_sum_kernel(
     const float* __restrict__ part, int splits, const bf16* __restrict__ x, bf16* __restrict__ out,
     const float* __restrict__ b2, const float* __restrict__ gamma, const float* __restrict__ dps,
-    int npix, int HW, int C, int cp) {
+    bf16* __restrict__ z_out, int npix, int HW, int C, int cp) {
   const long long i = (long long)blockIdx.x * NT + threadIdx.x;
   if (i >= (long long)npix * C) return;
   const int p = (int)(i / C), c = (int)(i - (long long)p * C);
@@ -813,8 +833,9 @@ __global__ void __launch_bounds__(NT) fused_block_sum_kernel(
   for (int r = 1; r < splits; ++r) s += part[((long long)r * npix + p) * cp + c];
   float y = s + b2[c];
   if constexpr (UNF) y = round_bf16(y);
+  if constexpr (TRAIN && UNF) z_out[i] = __float2bfloat16_rn(y);
   if (gamma != nullptr) y = UNF ? round_bf16(y * gamma[c]) : y * gamma[c];
-  if constexpr (TRAIN) y *= dps[p / HW];
+  if constexpr (TRAIN) y = UNF ? round_bf16(y * dps[p / HW]) : y * dps[p / HW];
   out[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + y);
 }
 
@@ -1023,19 +1044,28 @@ int launch_wgmma(const Args& a, const Plan& p, cudaStream_t st) {
                                              p.smem, st>>>(w1, w2, ka);
   if ((err = cudaGetLastError()) != cudaSuccess || p.hidden_split == 1) return (int)err;
   const long long n = (long long)npix * a.C;
+  bf16* z_out = TRAIN && UNF ? static_cast<bf16*>(a.d_out) + n : nullptr;
   fused_block_sum_kernel<TRAIN, UNF><<<(unsigned)((n + NT - 1) / NT), NT, 0, st>>>(
-      a.part, p.hidden_split, cb(a.x), static_cast<bf16*>(a.out), a.b2, a.gamma, a.s, npix,
-      a.H * a.W, a.C, cp);
+      a.part, p.hidden_split, cb(a.x), static_cast<bf16*>(a.out), a.b2, a.gamma, a.s, z_out,
+      npix, a.H * a.W, a.C, cp);
   return (int)cudaGetLastError();
 }
 
 template <bool TRAIN, bool UNF>
 int launch_bf16(const Args& a, const Plan& p, cudaStream_t st) {
-  switch (p.nb) {
-    case 1: return launch_wgmma<1, TRAIN, UNF>(a, p, st);
-    case 2: return launch_wgmma<2, TRAIN, UNF>(a, p, st);
-    case 3: return launch_wgmma<3, TRAIN, UNF>(a, p, st);
-    default: return launch_wgmma<4, TRAIN, UNF>(a, p, st);
+  if constexpr (TRAIN && UNF) {  // built for the training route's widths only
+    switch (p.nb) {
+      case 1: return launch_wgmma<1, true, true>(a, p, st);
+      case 2: return launch_wgmma<2, true, true>(a, p, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (p.nb) {
+      case 1: return launch_wgmma<1, TRAIN, UNF>(a, p, st);
+      case 2: return launch_wgmma<2, TRAIN, UNF>(a, p, st);
+      case 3: return launch_wgmma<3, TRAIN, UNF>(a, p, st);
+      default: return launch_wgmma<4, TRAIN, UNF>(a, p, st);
+    }
   }
 }
 
@@ -1082,8 +1112,9 @@ extern "C" long long fused_block_plan_smem(int C, int dtype, long long npix, int
 
 // Plain C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16.
 // gamma may be null; s and d_out are both given (save mode) or both null;
-// unfused = 1 selects the unfused-rounding mode (bf16 serving only: the
-// taps and gamma hold bf16 values).
+// unfused = 1 selects the unfused-rounding mode (bf16 only: the taps, gamma
+// and s hold bf16 values; in save mode C <= 256, and d_out holds 2 N C
+// values: d, then z).
 // The plan's numbers are the wrapper's (see fused_block_plan_smem); in
 // bf16, w1 is (4cp, cp) and w2 (cp, 4cp), zero beyond C and 4C, and `part`
 // is an f32 (hidden_split, npix, cp) workspace when hidden_split > 1 (else
@@ -1100,7 +1131,8 @@ extern "C" int fused_block_forward(
       fused_block_plan_smem(C, dtype, npix, mt, cp, out_split, hidden_split, per, stages);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   if ((s == nullptr) != (d_out == nullptr)) return (int)cudaErrorInvalidValue;
-  if (unfused && (dtype != 1 || s != nullptr)) return (int)cudaErrorInvalidValue;
+  if (unfused && (dtype != 1 || (s != nullptr && padded_c(C) > 256)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1 && (hidden_split > 1) != (part != nullptr)) return (int)cudaErrorInvalidValue;
   if (npix == 0) return 0;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -1110,6 +1142,6 @@ extern "C" int fused_block_forward(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return train ? launch_f32<true>(a, smem, st) : launch_f32<false>(a, smem, st);
   const Plan p = bf16_plan(C, npix, FORCED_SPLIT);
-  if (train) return launch_bf16<true, false>(a, p, st);
+  if (train) return unfused ? launch_bf16<true, true>(a, p, st) : launch_bf16<true, false>(a, p, st);
   return unfused ? launch_bf16<false, true>(a, p, st) : launch_bf16<false, false>(a, p, st);
 }

@@ -12,6 +12,16 @@
 // the TPU kernel's: xn, gact, dys = dy*s, dz2 = dys*gamma, dh1 and dd round
 // to T, and dx = round(dy + dgrad stencil of dd).
 //
+// The unfused-rounding mode (bf16, template flag UNF) differentiates the
+// forward's unfused-rounding save mode (fused_block.cu), the unfused
+// block's function: h1 = round(xn . W1^T + b1) and gact = round(gelu(h1))
+// in ATen's expression, gelu' in the form of ATen's tanh-GELU backward at
+// that h1; the taps, gamma and s come in bf16, as the forward took them;
+// and dgamma = sum dy*s * z over the pixels, z = round(gact . W2^T + b2)
+// as the forward saved it after d (d is then (2, N, C)), added per block
+// in step 1 and summed in step 7. Every other step, sum and rounding is
+// the same.
+//
 // What bounds it on an H100: five products of 2*N*C*4C operations each
 // (h1, dg = dz2 . W2, dxn = dh1 . W1, M = dys^T . gact, dW1 = dh1^T . xn)
 // against 2*49*C per pixel for the two stencils:
@@ -178,15 +188,18 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
 // shared memory ([lanes][cp] = NT * 8 floats) and are added in lane order.
 
 // part_vec row of a block: [sum dy*s | dlnb | dlns | db_dw] (C each); this
-// step writes the first quarter, ln_bwd_kernel the rest.
+// step writes the first quarter, ln_bwd_kernel the rest. UNF: the block's
+// sums of dy*s * z (z after d) into its row of part_dg (C).
+template <bool UNF>
 __global__ void __launch_bounds__(NT) prep_kernel(
     const bf16* __restrict__ d, const bf16* __restrict__ dy, const float* __restrict__ lnw,
     const float* __restrict__ lnb, const float* __restrict__ gamma, const float* __restrict__ dps,
     bf16* __restrict__ xn_ws, bf16* __restrict__ dys_ws, bf16* __restrict__ dz2_ws,
-    float2* __restrict__ stats, float* __restrict__ part_vec, long long npix, int HW, int C,
-    int cp, float eps) {
+    float2* __restrict__ stats, float* __restrict__ part_vec, float* __restrict__ part_dg,
+    long long npix, int HW, int C, int cp, float eps) {
   __shared__ float mean_s[PX], rstd_s[PX];
   __shared__ __align__(16) float red[NT * 8];
+  __shared__ __align__(16) float red_dg[UNF ? NT * 8 : 1];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long p0 = (long long)blockIdx.x * PX;
   const float inv_c = 1.0f / (float)C;
@@ -222,14 +235,14 @@ __global__ void __launch_bounds__(NT) prep_kernel(
   // ---- 2: xn, dys, dz2 (zero beyond C); sums of dy*s -------------------------
   const int g = tid % G, l = tid / G, c = 8 * g;
   if (l < L) {
-    float lw[8], lb[8], gm[8], sd[8];
+    float lw[8], lb[8], gm[8], sd[8], sg[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const bool in = c + e < C;
       lw[e] = in ? lnw[c + e] : 0.f;
       lb[e] = in ? lnb[c + e] : 0.f;
       gm[e] = in ? gamma[c + e] : 0.f;
-      sd[e] = 0.f;
+      sd[e] = sg[e] = 0.f;
     }
 #pragma unroll 4
     for (int m = l; m < PX; m += L) {
@@ -252,17 +265,30 @@ __global__ void __launch_bounds__(NT) prep_kernel(
         *reinterpret_cast<uint4*>(xn_ws + p * cp + c) = pack8(xn);
         *reinterpret_cast<uint4*>(dys_ws + p * cp + c) = pack8(ys);
         *reinterpret_cast<uint4*>(dz2_ws + p * cp + c) = pack8(zz);
+        if constexpr (UNF) {
+          float zv[8];
+          load8(d + npix * C, p * C + c, c, C, vec, zv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sg[e] += ys[e] * zv[e];
+        }
       }
     }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) red[l * cp + c + e] = sd[e];
+    for (int e = 0; e < 8; ++e) {
+      red[l * cp + c + e] = sd[e];
+      if constexpr (UNF) red_dg[l * cp + c + e] = sg[e];
+    }
   }
   __syncthreads();
   float* pb = part_vec + (long long)blockIdx.x * 4 * C;
   for (int cc = tid; cc < C; cc += NT) {
-    float t = 0.f;
-    for (int k = 0; k < L; ++k) t += red[k * cp + cc];
+    float t = 0.f, tg = 0.f;
+    for (int k = 0; k < L; ++k) {
+      t += red[k * cp + cc];
+      if constexpr (UNF) tg += red_dg[k * cp + cc];
+    }
     pb[cc] = t;
+    if constexpr (UNF) part_dg[(long long)blockIdx.x * C + cc] = tg;
   }
 }
 
@@ -273,7 +299,9 @@ __global__ void __launch_bounds__(NT) prep_kernel(
 // Block (x = 128 hidden units, y = 128 pixels). Ring stage: xn [128 px][64
 // c], dz2 [128 px][64 c], W1 [128 j][64 c] (K-major, 16 KB each), W2 [64
 // c][64 j] x 2 (N-major). part_db1 row y: the block's sums of dh1 before
-// rounding, for its 128 hidden units.
+// rounding, for its 128 hidden units. UNF: h1 and gact at the unfused
+// block's rounding points, gelu' as ATen's tanh-GELU backward takes it.
+template <bool UNF>
 __global__ void __launch_bounds__(NT, 1) chain_h_kernel(
     const __grid_constant__ CUtensorMap t_xn, const __grid_constant__ CUtensorMap t_dz2,
     const __grid_constant__ CUtensorMap t_w1, const __grid_constant__ CUtensorMap t_w2,
@@ -351,11 +379,21 @@ __global__ void __launch_bounds__(NT, 1) chain_h_kernel(
       for (int e = 0; e < 2; ++e) {
         const int j = n0 + col + e;
         const float h1 = h[4 * i + 2 * hh + e] + (j < hidden ? b1[j] : 0.f);
-        const float th = tanhf(C0 * (h1 + C1 * h1 * h1 * h1));
-        const float gp = 0.5f * (1.0f + th) + 0.5f * h1 * (1.0f - th * th) * C0 *
-                         (1.0f + 3.0f * C1 * h1 * h1);
-        fv[e] = g[4 * i + 2 * hh + e] * gp;
-        gv[e] = 0.5f * h1 * (1.0f + th);
+        if constexpr (UNF) {
+          const float hr = __bfloat162float(__float2bfloat16_rn(h1));
+          const float sq = hr * hr;
+          const float th = tanhf(C0 * (hr + C1 * (sq * hr)));
+          const float left = 0.5f * hr, right = 1.0f + th;
+          fv[e] = g[4 * i + 2 * hh + e] *
+                  (0.5f * right + left * (1.0f - th * th) * (C0 * (1.0f + 3.0f * C1 * sq)));
+          gv[e] = left * right;
+        } else {
+          const float th = tanhf(C0 * (h1 + C1 * h1 * h1 * h1));
+          const float gp = 0.5f * (1.0f + th) + 0.5f * h1 * (1.0f - th * th) * C0 *
+                           (1.0f + 3.0f * C1 * h1 * h1);
+          fv[e] = g[4 * i + 2 * hh + e] * gp;
+          gv[e] = 0.5f * h1 * (1.0f + th);
+        }
         sb[e] += fv[e];
       }
       const int row = rbase + 8 * hh;
@@ -1141,6 +1179,7 @@ struct Args {
   void *xn_ws, *dys_ws, *dz2_ws, *gact_ws, *dh1_ws, *dd_ws; float* dxn_ws; float2* stats;
   float *part_vec, *part_db1, *part_dww, *part_mm;
   int B, H, W, C, cp, split, split_px, ksplit; float eps;
+  float *dg_out, *part_dg;  // the unfused-rounding mode's dgamma and its block sums, else null
 };
 
 template <typename T>
@@ -1175,13 +1214,18 @@ void vec_segments(const Args& a, int rows, int ld, Seg* s) {
   for (int i = 0; i < 4; ++i) s[i] = Seg{a.part_vec + i * a.C, outs[i], rows, a.C, ld, 0, 1, 1};
 }
 
+// allow_smem's record of what the kernels both modes launch were granted:
+// one per kernel, or one mode's smaller grant would lower the other's
+std::atomic<int> g_dxn[32], g_wgrad[32], g_ln[32];
+
+template <bool UNF>
 cudaError_t launch_bf16(const Args& a, const StencilPlan& sp, cudaStream_t st) {
-  static std::atomic<int> g_chain[32], g_dxn[32], g_wgrad[32], g_ln[32];
+  static std::atomic<int> g_chain[32];  // chain_h_kernel<UNF>'s own
   const long long npix = (long long)a.B * a.H * a.W;
   const int cp = a.cp, hid = 4 * cp, C = a.C;
   const size_t ln_smem = sizeof(float) * PX * cp;
   cudaError_t err;
-  if ((err = allow_smem(chain_h_kernel, CHAIN_SMEM, g_chain)) != cudaSuccess) return err;
+  if ((err = allow_smem(chain_h_kernel<UNF>, CHAIN_SMEM, g_chain)) != cudaSuccess) return err;
   if ((err = allow_smem(gemm_kernel<false>, GEMM_SMEM, g_dxn)) != cudaSuccess) return err;
   if ((err = allow_smem(gemm_kernel<true>, GEMM_SMEM, g_wgrad)) != cudaSuccess) return err;
   if ((err = allow_smem(ln_bwd_kernel, ln_smem, g_ln)) != cudaSuccess) return err;
@@ -1203,11 +1247,11 @@ cudaError_t launch_bf16(const Args& a, const StencilPlan& sp, cudaStream_t st) {
   const auto cb = [](const void* p) { return static_cast<const bf16*>(p); };
   const auto mb = [](void* p) { return static_cast<bf16*>(p); };
   const unsigned nblk = blocks(npix, PX), mtiles = blocks(npix, BM);
-  prep_kernel<<<nblk, NT, 0, st>>>(cb(a.d), cb(a.dy), a.lnw, a.lnb, a.gamma, a.dps, mb(a.xn_ws),
-                                   mb(a.dys_ws), mb(a.dz2_ws), a.stats, a.part_vec, npix,
-                                   a.H * a.W, C, cp, a.eps);
+  prep_kernel<UNF><<<nblk, NT, 0, st>>>(cb(a.d), cb(a.dy), a.lnw, a.lnb, a.gamma, a.dps,
+                                        mb(a.xn_ws), mb(a.dys_ws), mb(a.dz2_ws), a.stats,
+                                        a.part_vec, a.part_dg, npix, a.H * a.W, C, cp, a.eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  chain_h_kernel<<<dim3(hid / BN, mtiles), NT, CHAIN_SMEM, st>>>(
+  chain_h_kernel<UNF><<<dim3(hid / BN, mtiles), NT, CHAIN_SMEM, st>>>(
       xn_k, dz2_k, w1_k, w2_n, a.b1, mb(a.gact_ws), mb(a.dh1_ws), a.part_db1, npix, C, cp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const GemmShape dxn_shape{{(int)npix, 0}, {cp, 0}, 0, npix * cp, {(int)npix, 0}, hid,
@@ -1230,7 +1274,9 @@ cudaError_t launch_bf16(const Args& a, const StencilPlan& sp, cudaStream_t st) {
   segs.s[4] = Seg{a.part_db1, a.db1_out, (int)mtiles, 4 * C, 4 * C, 0, 1, 1};
   segs.s[5] = Seg{a.part_dww, a.dww_out, a.B * sp.nth * sp.ntw, K * K * C, K * K * C, C, 1, 1};
   segs.s[6] = Seg{a.part_mm, a.mm_out, a.split, 2 * hid * cp, 2 * hid * cp, 0, 1, 1};
-  return launch_sums(segs, 7, st);
+  if (!UNF) return launch_sums(segs, 7, st);
+  segs.s[7] = Seg{a.part_dg, a.dg_out, (int)nblk, C, C, 0, 1, 1};
+  return launch_sums(segs, 8, st);
 }
 
 cudaError_t launch_f32(const Args& a, size_t smem, const StencilPlan& sp, cudaStream_t st) {
@@ -1307,7 +1353,10 @@ extern "C" long long fused_block_bwd_stencil_smem(int H, int W, int dtype, int t
 // C) in T; part_vec (f32: ceil(N/16) x 8C; bf16: ceil(N/px) x 4C) and
 // part_dww (B * stencil tiles x 49C) in f32; bf16 only: dz2 (N x cp) in
 // T, dxn (ksplit x N x cp), stats (2N), part_db1 (ceil(N/mt) x 4C) and
-// part_mm (split x 8cp^2) in f32 (null in f32). The plan: mt pixels per
+// part_mm (split x 8cp^2) in f32 (null in f32). unfused = 1 (bf16 only)
+// selects the unfused-rounding mode: d then holds 2 N C values (d, then z),
+// dww, gamma and s hold bf16 values, and dg_out (C, dgamma) and part_dg
+// (ceil(N/px) x C) are given (null otherwise). The plan: mt pixels per
 // chain block, px per prep / LN-backward block, split ranges of split_px
 // pixels (a multiple of 64, split = ceil(N / split_px)) for the
 // weight-gradient products, ksplit ranges of dxn's reduction, the stencil
@@ -1321,9 +1370,12 @@ extern "C" int fused_block_backward(
     void* dys_ws, void* dz2_ws, void* gact_ws, void* dh1_ws, void* dd_ws, void* dxn_ws,
     void* stats_ws, void* part_vec, void* part_db1, void* part_dww, void* part_mm, int B, int H,
     int W, int C, float eps, int dtype, void* stream, int mt, int cp, int px, int split,
-    int split_px, int ksplit, int th, int tw) {
+    int split_px, int ksplit, int th, int tw, void* dg_out, void* part_dg, int unfused) {
   const int bad = (int)cudaErrorInvalidValue;
   if (B < 0 || H < 0 || W < 0) return bad;
+  if (unfused ? dtype != 1 || dg_out == nullptr || part_dg == nullptr
+              : dg_out != nullptr || part_dg != nullptr)
+    return bad;
   const long long smem = fused_block_bwd_plan_smem(C, dtype, mt, cp);
   if (smem < 0) return bad;
   const long long npix = (long long)B * H * W;
@@ -1348,8 +1400,9 @@ extern "C" int fused_block_backward(
                fm(sdys_out), fm(dlnb_out), fm(dlns_out), fm(dbdw_out), fm(db1_out),
                fm(dww_out), fm(mm_out), xn_ws, dys_ws, dz2_ws, gact_ws, dh1_ws,
                dd_ws, fm(dxn_ws), static_cast<float2*>(stats_ws), fm(part_vec), fm(part_db1),
-               fm(part_dww), fm(part_mm), B, H, W, C, cp, split, split_px, ksplit, eps};
+               fm(part_dww), fm(part_mm), B, H, W, C, cp, split, split_px, ksplit, eps,
+               fm(dg_out), fm(part_dg)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? launch_f32(a, (size_t)smem, sp, st) : launch_bf16(a, sp, st);
-  return (int)err;
+  if (dtype == 0) return (int)launch_f32(a, (size_t)smem, sp, st);
+  return (int)(unfused ? launch_bf16<true>(a, sp, st) : launch_bf16<false>(a, sp, st));
 }

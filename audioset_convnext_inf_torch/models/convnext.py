@@ -19,7 +19,9 @@ at its own rounding points, and with bf16 activations every block of stages
 ``_block_apply``'s function; the other blocks run ``_block_apply`` in plain
 PyTorch. In training mode (``model.training``) with ``fused_train_blocks``,
 the blocks of stages 3 and 4 run ``FusedBlockTrain``: the fused kernel's
-save mode forward and the fused backward kernel (``ops/fused_block_bwd.py``).
+save mode forward and the fused backward kernel (``ops/fused_block_bwd.py``);
+with bf16 activations the blocks of stages 1 and 2 run it too, both
+kernels in their unfused-rounding modes (``_block_apply``'s function).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from audioset_convnext_inf_torch.config import ConvNeXtConfig
 from audioset_convnext_inf_torch.models import layers as L
 from audioset_convnext_inf_torch.ops import augment as A
 from audioset_convnext_inf_torch.ops.frontend import LogMelFrontend
-from audioset_convnext_inf_torch.ops.fused_block import fused_block
+from audioset_convnext_inf_torch.ops.fused_block import fused_block, unfused_save_fits
 from audioset_convnext_inf_torch.ops.fused_block_train import FusedBlockTrain
 from audioset_convnext_inf_torch.ops.mixup import do_mixup
 from audioset_convnext_inf_torch.ops.nhwc import convnext_block
@@ -193,13 +195,14 @@ def _fused_block(x: torch.Tensor, blk: Block, unfused_rounding: bool = False) ->
                        blk.norm.eps, unfused_rounding=unfused_rounding)
 
 
-def _fused_block_train(x: torch.Tensor, blk: Block, s: Optional[torch.Tensor]) -> torch.Tensor:
+def _fused_block_train(x: torch.Tensor, blk: Block, s: Optional[torch.Tensor],
+                       unfused_rounding: bool = False) -> torch.Tensor:
     if s is not None:
         s = s.to(device=x.device, dtype=torch.float32)
     return FusedBlockTrain.apply(
         x.contiguous(), blk.dwconv.weight, blk.dwconv.bias, blk.norm.weight, blk.norm.bias,
         blk.pwconv1.weight, blk.pwconv1.bias, blk.pwconv2.weight, blk.pwconv2.bias,
-        blk.gamma, s, blk.norm.eps)
+        blk.gamma, s, blk.norm.eps, unfused_rounding)
 
 
 def draw_drop_path_scales(generator: Optional[torch.Generator], batch: int,
@@ -212,7 +215,8 @@ def draw_drop_path_scales(generator: Optional[torch.Generator], batch: int,
 
 def fused_train_route(model: nn.Module, cfg: ConvNeXtConfig) -> bool:
     """Whether training runs stages 3-4 through the fused training block:
-    the JAX package's gate without its TPU tiling conditions."""
+    the JAX package's gate without its TPU tiling conditions (and, with
+    bf16 activations, stages 1-2 in its unfused-rounding modes)."""
     return (model.training and cfg.fused_train_blocks and cfg.block_impl == "xla_approx"
             and cfg.layer_scale_init_value > 0 and not cfg.remat_blocks)
 
@@ -255,6 +259,10 @@ def forward_features(
     # _block_apply's, on the bf16 serving path only
     unfused_k1 = fused and x.dtype == torch.bfloat16
     fused_train = fused_train_route(model, cfg)
+    # in bf16 training they run the fused training block, both kernels in
+    # their unfused-rounding modes: the same function again, where the
+    # kernels take the width (else _block_apply)
+    unfused_train = fused_train and x.dtype == torch.bfloat16
     remat = train and cfg.remat_blocks
     scales = drop_path_scales if train and drop_path_scales is not None \
         else [None] * sum(cfg.depths)
@@ -279,6 +287,8 @@ def forward_features(
                     x = _fused_block_train(x, blk, s) if train else _fused_block(x, blk)
                 elif unfused_k1:
                     x = _fused_block(x, blk, unfused_rounding=True)
+                elif unfused_train and unfused_save_fits(x.shape[-1]):
+                    x = _fused_block_train(x, blk, s, unfused_rounding=True)
                 elif remat:
                     x = torch.utils.checkpoint.checkpoint(
                         _block_apply, x, blk, cfg.block_impl, s, use_reentrant=False)

@@ -15,7 +15,7 @@ scale ``s`` (B,), which multiplies the branch after gamma and before the
 residual, and also returns ``d``, the dwconv output as rounded before the
 LN, for the fused backward (``ops/fused_block_bwd.py``).
 
-The unfused-rounding mode (``unfused_rounding=True``, bf16 serving only)
+The unfused-rounding mode (``unfused_rounding=True``, bf16 only)
 computes the block at the rounding points of the unfused block,
 ``ops/nhwc.py::convnext_block`` (the JAX package's ``_block_apply``): the
 depthwise sum rounds to bf16 before its bias is added and again after, the
@@ -23,6 +23,13 @@ LN output rounds, ``h . W1^T + b1`` rounds before the GELU and again after,
 ``h . W2^T + b2`` rounds before the product with bf16 gamma and again
 after, and the residual sum rounds; the depthwise taps enter in bf16. Its
 CPU leg is ``convnext_block`` itself, on x in whatever layout it comes in.
+In the save mode (the bf16 training step's stages 1-2) it also takes the
+product with the bf16 drop-path scale ``s``, rounded, before the residual
+sum, and saves ``dz`` (2, B, H, W, C): d as the LN reads it and z =
+``h . W2^T + b2`` as gamma multiplies it, both rounded, for the fused
+backward's unfused-rounding mode; x then comes contiguous, and C is at most
+``UNFUSED_SAVE_MAX_C`` (the kernel is built for one and two 128-channel
+output blocks).
 
 The kernel is two ``torch.library`` custom ops, ``fused_block`` (serving,
 either rounding) and ``fused_block_save`` (training), in the namespace
@@ -57,6 +64,7 @@ MAX_C = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 CPAD = 128  # the bf16 kernels pad C to a multiple of this for their weight tiles
+UNFUSED_SAVE_MAX_C = 256  # widest C of the unfused-rounding save mode (NB = 1, 2)
 
 # The bf16 kernel's plan, as csrc/fused_block.cu's bf16_plan sets it (the
 # kernel refuses any other plan).
@@ -83,6 +91,11 @@ STAGE_CAP = 12  # most slots of the weight ring (one box each)
 def padded_c(c: int) -> int:
     """C padded to CPAD: the channels the bf16 kernels' tiles see."""
     return -(-c // CPAD) * CPAD
+
+
+def unfused_save_fits(c: int) -> bool:
+    """Whether the unfused-rounding save mode takes C channels."""
+    return 1 <= c <= UNFUSED_SAVE_MAX_C
 
 
 class LaunchPlan(NamedTuple):
@@ -281,28 +294,34 @@ def fused_block(
 ):
     """One ConvNeXt block on NHWC ``x``; weights in the reference layouts.
     With ``s`` (B,) the branch is scaled per sample; with ``save_dwconv``
-    the call returns (y, d). With ``unfused_rounding`` (bf16, serving) the
-    block rounds where the unfused block does, and x may come in any
-    layout. It calls the custom op ``fused_block`` (serving mode, either
-    rounding) or ``fused_block_save`` (``s`` or ``save_dwconv`` given):
-    CUDA tensors launch the kernel (``fused_block.launches`` counts each
-    launch); CPU tensors run the plain version."""
-    _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s, any_layout=unfused_rounding)
+    the call returns (y, d). With ``unfused_rounding`` (bf16) the block
+    rounds where the unfused block does; in serving mode x may come in any
+    layout, and with ``save_dwconv`` the call returns (y, dz), dz = d and
+    z stacked (see the module docstring). It calls the custom op
+    ``fused_block`` (serving mode) or ``fused_block_save`` (``s`` or
+    ``save_dwconv`` given), either in either rounding: CUDA tensors launch
+    the kernel (``fused_block.launches`` counts each launch); CPU tensors
+    run the plain version."""
+    save = s is not None or save_dwconv
+    _check(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, s,
+           any_layout=unfused_rounding and not save)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block runs on cuda or cpu tensors, got {x.device}")
     if unfused_rounding:
-        if s is not None or save_dwconv:
-            raise ValueError("fused_block: the unfused-rounding mode is a serving mode "
-                             "(no s, no save_dwconv)")
         if x.dtype != torch.bfloat16:
             raise TypeError(f"fused_block: the unfused-rounding mode takes bfloat16 "
                             f"activations, got {x.dtype}")
-        return _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps), True)
-    if s is None and not save_dwconv:
-        return _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps))
+        if save and not unfused_save_fits(x.shape[-1]):
+            raise ValueError(f"fused_block: the unfused-rounding save mode takes C <= "
+                             f"{UNFUSED_SAVE_MAX_C}, got C={x.shape[-1]}")
+    # the flag is passed only when set, so a traced program of the default
+    # modes reads as it did before there was one
+    flag = (True,) if unfused_rounding else ()
+    if not save:
+        return _serving_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps), *flag)
     if s is None:  # the kernel's save mode takes a scale: ones
         s = torch.ones(x.shape[0], device=x.device)
-    y, d = _save_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps), s)
+    y, d = _save_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, float(eps), s, *flag)
     return (y, d) if save_dwconv else y
 
 
@@ -339,38 +358,46 @@ def _serving_fake(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, unfused
 
 
 @torch.library.custom_op(f"{OPS}::fused_block_save", mutates_args=(), device_types="cpu",
-                         schema=f"({_ARGS}, Tensor s) -> (Tensor, Tensor)")
-def _save_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s):
+                         schema=f"({_ARGS}, Tensor s, bool unfused_rounding=False) "
+                                "-> (Tensor, Tensor)")
+def _save_op(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, unfused_rounding=False):
+    if unfused_rounding:
+        y, d, z = convnext_block(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps,
+                                 drop_scale=s, saves=True)
+        return y, torch.stack((d, z))
     return fused_block_reference(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, True)
 
 
 @_save_op.register_kernel("cuda")
-def _save_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s):
+def _save_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, unfused_rounding=False):
     b, h, w, c = x.shape
     return _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, True,
-                         launch_plan(c, x.dtype, b * h * w))
+                         launch_plan(c, x.dtype, b * h * w), unfused=unfused_rounding)
 
 
 @_save_op.register_fake
-def _save_fake(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s):
-    return torch.empty_like(x), torch.empty_like(x)
+def _save_fake(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, unfused_rounding=False):
+    d = x.new_empty((2, *x.shape)) if unfused_rounding else torch.empty_like(x)
+    return torch.empty_like(x), d
 
 
 def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save: bool,
                   plan: LaunchPlan, defines: Tuple[str, ...] = (), unfused: bool = False):
     """One launch of the kernel under ``plan`` (checked arguments, CUDA x),
     from the library built with ``defines``: serving mode (``s`` None) ->
-    y, or save mode (``s`` (B,) given) -> (y, d); ``unfused``: serving
-    mode at the unfused block's rounding points (bf16)."""
+    y, or save mode (``s`` (B,) given) -> (y, d); ``unfused``: either mode
+    at the unfused block's rounding points (bf16), the save mode's d then
+    (2, B, H, W, C), d and z."""
     if save == (s is None):
         raise ValueError("the kernel's save mode takes s, and serving mode none")
-    if unfused and (save or x.dtype != torch.bfloat16):
-        raise ValueError("the kernel's unfused-rounding mode is bf16 serving only")
+    if unfused and (x.dtype != torch.bfloat16 or save and plan.out_blocks > 2):
+        raise ValueError("the kernel's unfused-rounding mode is bf16 only, and its save mode "
+                         "takes one or two 128-channel output blocks")
     lib = _lib(defines)
     b, h, w, c = x.shape
     dt = x.dtype
 
-    def taps(t):  # the unfused block's depthwise taps and gamma enter in bf16
+    def taps(t):  # the unfused block's depthwise taps, gamma and s enter in bf16
         return _f32(t.detach().to(dt) if unfused else t)
 
     with span("fused_block.prep"):
@@ -380,8 +407,8 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
         b1c, b2c = _f32(b1), _f32(b2)
         g = taps(gamma) if gamma is not None else None
         out = torch.empty_like(x)
-        sc = _f32(s) if save else None
-        d = torch.empty_like(x) if save else None
+        sc = taps(s) if save else None
+        d = (x.new_empty((2, *x.shape)) if unfused else torch.empty_like(x)) if save else None
         part = (torch.empty(plan.hidden_split, b * h * w, plan.cp, device=x.device)
                 if dt == torch.bfloat16 and plan.hidden_split > 1 else None)
     with torch.cuda.device(x.device):
@@ -398,10 +425,12 @@ def _forward_cuda(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, s, save
         raise RuntimeError(f"fused_block kernel launch failed: cudaError {err}")
     fused_block.launches += 1
     fused_block.save_launches += int(save)
-    fused_block.unfused_rounding_launches += int(unfused)
+    fused_block.unfused_rounding_launches += int(unfused and not save)
+    fused_block.unfused_rounding_save_launches += int(unfused and save)
     return (out, d) if save else out
 
 
 fused_block.launches = 0  # every launch
 fused_block.save_launches = 0  # the launches in save mode (of those counted above)
-fused_block.unfused_rounding_launches = 0  # the launches in the unfused-rounding mode
+fused_block.unfused_rounding_launches = 0  # serving launches in the unfused-rounding mode
+fused_block.unfused_rounding_save_launches = 0  # save-mode launches in that mode

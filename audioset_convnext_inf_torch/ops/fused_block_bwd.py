@@ -21,13 +21,19 @@ source says what bounds it on the card and how its launches divide the work
 the dxn and weight-gradient products, the stencil tile, shared memory) and
 the workspace sizes from (C, dtype, image shape); the wrapper allocates what
 it says and passes it to the kernel, which refuses a plan it cannot run.
+
+The unfused-rounding mode (``unfused_rounding=True``, bf16) differentiates
+the forward's unfused-rounding save mode, the unfused block's function
+(``ops/nhwc.py::convnext_block``): ``d`` is then the forward's (2, B, H, W,
+C) save, d and z, and the block's rounding points are those of
+``fused_block_bwd_reference(..., unfused_rounding=True)``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import itertools
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,9 +110,11 @@ class BwdPlan(NamedTuple):
     launches: Tuple[Tuple[str, int], ...]  # (kernel, thread blocks) of each launch, in order
 
 
-def launch_plan(c: int, dtype: torch.dtype, b: int, h: int, w: int) -> BwdPlan:
+def launch_plan(c: int, dtype: torch.dtype, b: int, h: int, w: int,
+                unfused_rounding: bool = False) -> BwdPlan:
     """The backward's launches and workspaces for C channels on (b, h, w)
-    pixels. bf16: the chain as 128-pixel x 128-hidden-unit wgmma tiles;
+    pixels (``unfused_rounding``: bf16, one more partial sum, dgamma's).
+    bf16: the chain as 128-pixel x 128-hidden-unit wgmma tiles;
     dxn = dh1 . W1 as 128 x 128 tiles, its 4C reduction cut into
     ``ksplit`` ranges when the tiles alone are fewer than two a SM; the two
     weight-gradient products as 128 x 128 tiles in one launch, the pixels
@@ -143,8 +151,11 @@ def launch_plan(c: int, dtype: torch.dtype, b: int, h: int, w: int) -> BwdPlan:
         esize = 2
     else:
         raise TypeError(f"fused_block_bwd takes float32 or bfloat16 activations, got {dtype}")
-    st = stencil_tile(h, w, esize)
     bf = dtype == torch.bfloat16
+    if unfused_rounding and not bf:
+        raise TypeError(f"fused_block_bwd: the unfused-rounding mode takes bfloat16 "
+                        f"activations, got {dtype}")
+    st = stencil_tile(h, w, esize)
     stencil_ctas = b * st.nth * st.ntw * -(-c // SLAB)
     workspace = {
         "xn": npix * cp, "dys": npix * cp, "dz2": npix * cp if bf else 0,
@@ -155,13 +166,17 @@ def launch_plan(c: int, dtype: torch.dtype, b: int, h: int, w: int) -> BwdPlan:
         "part_dww": b * st.nth * st.ntw * K * K * c,
         "part_mm": split * 2 * 4 * cp * cp if bf else 0,
     }
+    if unfused_rounding:  # dgamma's block sums
+        workspace["part_dg"] = -(-npix // px) * c
     # the fixed-order sums: one launch over every partial, a segment per
-    # output (sum dy*s, dlnb, dlns, db_dw, db1, dW_dw, bf16: M | dW1) as
-    # (rows, columns)
+    # output (sum dy*s, dlnb, dlns, db_dw, db1, dW_dw, bf16: M | dW1,
+    # unfused rounding: dgamma) as (rows, columns)
     vec_rows = workspace["part_vec"] // ((4 if bf else 8) * c)
     segments = [(vec_rows, c)] * 4 + [
         (-(-npix // mt) if bf else vec_rows, 4 * c),
         (workspace["part_dww"] // (K * K * c), K * K * c)] + ([(split, 8 * cp * cp)] if bf else [])
+    if unfused_rounding:
+        segments.append((vec_rows, c))
     sum_ctas = sum(_sum_blocks(rows, cols) for rows, cols in segments)
     if bf:
         nblk = -(-npix // px)
@@ -181,8 +196,10 @@ _WS_DT = ("xn", "dys", "dz2", "gact", "dh1", "dd")  # workspaces in the activati
 
 
 # the kernel's f32 vector sums, each its own tensor (a custom op's outputs
-# may not share storage): (name, length in C)
+# may not share storage): (name, length in C); dgamma's in the
+# unfused-rounding mode
 _VEC = (("sdys", 1), ("dlnb", 1), ("dlns", 1), ("dbdw", 1), ("db1", 4))
+_DG = "dg"
 
 
 def allocate(plan: BwdPlan, c: int, dt: torch.dtype, device) -> Dict[str, torch.Tensor]:
@@ -190,8 +207,9 @@ def allocate(plan: BwdPlan, c: int, dt: torch.dtype, device) -> Dict[str, torch.
     ``plan.workspace`` (flat views of one allocation per dtype, each
     starting on a 256-byte boundary, as the kernels' 16-byte loads and TMA
     need), and the f32 sums: sum dy*s, dlnb, dlns, db_dw (C each), db1
-    (4C), dww (C, 1, 7, 7), m (cp, 4cp) and dw1 (4cp, cp). m and dw1 are
-    the two halves of one buffer, so that one fixed-order sum writes both."""
+    (4C), dww (C, 1, 7, 7), m (cp, 4cp) and dw1 (4cp, cp); the
+    unfused-rounding mode's dgamma (C). m and dw1 are the two halves of one
+    buffer, so that one fixed-order sum writes both."""
     cp = plan.cp
     bufs = {}
     for kind, names in ((dt, _WS_DT), (torch.float32, [k for k in plan.workspace
@@ -203,6 +221,8 @@ def allocate(plan: BwdPlan, c: int, dt: torch.dtype, device) -> Dict[str, torch.
             bufs[k] = flat[start:start + plan.workspace[k]]
     for k, n in _VEC:
         bufs[k] = torch.empty(n * c, device=device)
+    if plan.workspace.get("part_dg"):
+        bufs[_DG] = torch.empty(c, device=device)
     mm = torch.empty(2, 4 * cp * cp, device=device)
     bufs.update(dww=torch.empty(c, 1, K, K, device=device), m=mm[0].view(cp, 4 * cp),
                 dw1=mm[1].view(4 * cp, cp))
@@ -213,13 +233,18 @@ Grads = Dict[str, torch.Tensor]
 
 def _grads(dww: torch.Tensor, sdys: torch.Tensor, dlnb: torch.Tensor, dlns: torch.Tensor,
            dbdw: torch.Tensor, db1: torch.Tensor, m: torch.Tensor, dw1: torch.Tensor,
-           w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor, dt: torch.dtype) -> Grads:
+           w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor, dt: torch.dtype,
+           dgamma: Optional[torch.Tensor] = None) -> Grads:
     """The gradients in the port's parameter layouts from the kernel's
     sums: dww (C, 1, 7, 7), sum dy*s, dlnb, dlns, db_dw (C), db1 (4C), m =
     (dy*s)^T . gact (C, 4C), dw1 = dh1^T . xn (4C, C). dW2, db2 and dgamma
     come from m as in the JAX package (outside its kernel); dgamma takes
-    W2 rounded to the activation dtype, as the kernel saw it."""
+    W2 rounded to the activation dtype, as the kernel saw it. The
+    unfused-rounding mode hands in gamma as the block took it (bf16) and
+    its own ``dgamma``, sum dy*s * z."""
     g = gamma.float()
+    if dgamma is None:
+        dgamma = (m * w2.to(dt)).sum(dim=1) + b2.float() * sdys
     return {
         "dwconv.weight": dww,
         "dwconv.bias": dbdw,
@@ -229,7 +254,7 @@ def _grads(dww: torch.Tensor, sdys: torch.Tensor, dlnb: torch.Tensor, dlns: torc
         "pwconv1.bias": db1,
         "pwconv2.weight": m * g[:, None],
         "pwconv2.bias": g * sdys,
-        "gamma": (m * w2.to(dt)).sum(dim=1) + b2.float() * sdys,
+        "gamma": dgamma,
     }
 
 
@@ -238,6 +263,7 @@ def fused_block_bwd_reference(
     dw_w: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     gamma: torch.Tensor, s: torch.Tensor, eps: float = 1e-6,
+    unfused_rounding: bool = False,
 ) -> Tuple[torch.Tensor, Grads]:
     """Plain PyTorch version of the kernel. ``dt`` is x's dtype; dt(.)
     rounds to it; every sum is f32. Per pixel, over the real C channels:
@@ -261,9 +287,23 @@ def fused_block_bwd_reference(
 
     x, d, dy: (B, H, W, C); dw_w (C, 1, 7, 7); w1 (4C, C); w2 (C, 4C);
     s (B,). Returns (dx in dt, gradients in f32 keyed by parameter name).
+
+    ``unfused_rounding`` (bf16): the backward of the unfused block's
+    function, ``convnext_block`` with drop path, as the forward's
+    unfused-rounding save mode computed it; d is then (2, B, H, W, C), the
+    forward's d and z = dt(gact . dt(W2)^T + b2). The taps, gamma and s
+    enter as dt(.) of theirs, as the forward took them (the dx stencil's
+    taps, dz2, dW2, db2, dy*s). Steps 1, 3 to 6 as above; in 2, h1 =
+    dt(xn . dt(W1)^T + b1), gact = dt(gelu_tanh(h1)) (``F.gelu``), and
+    gelu'(h1) at that h1; in 7, dgamma = sum dy*s * z over the pixels, z
+    as rounded (dW2 and db2 as above, with dt(gamma)).
     """
     dt = x.dtype
     b, h, w, c = x.shape
+    z = None
+    if unfused_rounding:
+        d, z = d[0], d[1].float()
+        dw_w, gamma, s = (t.to(dt) for t in (dw_w, gamma, s))
     with fp32_precision("highest"):
         df = d.float()
         mean = df.sum(-1, keepdim=True) * (1.0 / c)
@@ -273,8 +313,12 @@ def fused_block_bwd_reference(
         xn = (xhat * ln_w.float() + ln_b.float()).to(dt).float()
         w1t, w2t = w1.to(dt).float(), w2.to(dt).float()
         h1 = F.linear(xn, w1t, b1.float())
+        if unfused_rounding:
+            h1 = h1.to(dt).float()
+            gact = F.gelu(h1, approximate="tanh").to(dt).float()
         th = torch.tanh(_C0 * (h1 + _C1 * h1 * h1 * h1))
-        gact = (0.5 * h1 * (1.0 + th)).to(dt).float()
+        if not unfused_rounding:
+            gact = (0.5 * h1 * (1.0 + th)).to(dt).float()
         dys32 = dy.float() * s.float().reshape(-1, 1, 1, 1)
         dys = dys32.to(dt).float()
         m = dys.reshape(-1, c).t() @ gact.reshape(-1, 4 * c)
@@ -298,8 +342,9 @@ def fused_block_bwd_reference(
         flipped = dw_w.float().flip(-1, -2)
         dgrad = F.conv2d(dd.permute(0, 3, 1, 2), flipped, padding=K // 2, groups=c)
         dx = (dy.float() + dgrad.permute(0, 2, 3, 1)).to(dt)
+        dgamma = (dys32 * z).sum(pix) if unfused_rounding else None
     dww = dww.t().reshape(c, 1, K, K).contiguous()
-    return dx, _grads(dww, *vec, m, dw1, w2, b2, gamma, dt)
+    return dx, _grads(dww, *vec, m, dw1, w2, b2, gamma, dt, dgamma)
 
 
 def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
@@ -308,7 +353,8 @@ def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     fn = lib.fused_block_backward
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
         lib.fused_block_bwd_plan_smem.argtypes = [ctypes.c_int] * 4
         lib.fused_block_bwd_plan_smem.restype = ctypes.c_longlong
@@ -326,22 +372,31 @@ def fused_block_bwd(
     dw_w: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     gamma: torch.Tensor, s: torch.Tensor, eps: float = 1e-6,
+    unfused_rounding: bool = False,
 ) -> Tuple[torch.Tensor, Grads]:
     """dx and the block's weight gradients (see the module docstring),
-    through the custom op ``fused_block_bwd``. CUDA tensors launch the
-    kernel (``fused_block_bwd.launches`` counts each call, which makes
-    ``CUDA_LAUNCHES`` launches); CPU tensors run the plain version."""
+    through the custom op ``fused_block_bwd``; ``unfused_rounding`` (bf16):
+    the backward of the forward's unfused-rounding save mode, whose (2, B,
+    H, W, C) save is ``d``. CUDA tensors launch the kernel
+    (``fused_block_bwd.launches`` counts each call, which makes
+    ``CUDA_LAUNCHES`` launches, and ``.unfused_rounding_launches`` those in
+    that mode); CPU tensors run the plain version."""
     if gamma is None or s is None:
         raise ValueError("fused_block_bwd needs gamma (layer scale) and s")
     _check(x, dw_w, None, ln_w, ln_b, w1, b1, w2, b2, gamma, s)
-    for name, t in (("d", d), ("dy", dy)):
-        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device \
+    if unfused_rounding and x.dtype != torch.bfloat16:
+        raise TypeError(f"fused_block_bwd: the unfused-rounding mode takes bfloat16 "
+                        f"activations, got {x.dtype}")
+    d_shape = (2, *x.shape) if unfused_rounding else x.shape
+    for name, t, shape in (("d", d, d_shape), ("dy", dy, x.shape)):
+        if t.shape != shape or t.dtype != x.dtype or t.device != x.device \
                 or not t.is_contiguous():
             raise ValueError(f"fused_block_bwd: {name} must be a contiguous {x.dtype} tensor "
-                             f"of x's shape {tuple(x.shape)} on {x.device}")
+                             f"of shape {tuple(shape)} on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block_bwd runs on cuda or cpu tensors, got {x.device}")
-    dx, *grads = _bwd_op(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, float(eps))
+    flag = (True,) if unfused_rounding else ()  # as in fused_block: only when set
+    dx, *grads = _bwd_op(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, float(eps), *flag)
     return dx, dict(zip(GRAD_KEYS, grads))
 
 
@@ -350,27 +405,29 @@ def fused_block_bwd(
 GRAD_KEYS = ("dwconv.weight", "dwconv.bias", "norm.weight", "norm.bias", "pwconv1.weight",
              "pwconv1.bias", "pwconv2.weight", "pwconv2.bias", "gamma")
 _SCHEMA = ("(Tensor x, Tensor d, Tensor dy, Tensor dw_w, Tensor ln_w, Tensor ln_b, Tensor w1, "
-           "Tensor b1, Tensor w2, Tensor b2, Tensor gamma, Tensor s, float eps) -> ("
+           "Tensor b1, Tensor w2, Tensor b2, Tensor gamma, Tensor s, float eps, "
+           "bool unfused_rounding=False) -> ("
            + ", ".join(["Tensor"] * (1 + len(GRAD_KEYS))) + ")")
 
 
 @torch.library.custom_op(f"{OPS}::fused_block_bwd", mutates_args=(), device_types="cpu",
                          schema=_SCHEMA)
-def _bwd_op(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
-    dx, g = fused_block_bwd_reference(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps)
+def _bwd_op(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps, unfused_rounding=False):
+    dx, g = fused_block_bwd_reference(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
+                                      unfused_rounding)
     return (dx, *(g[k] for k in GRAD_KEYS))
 
 
 @_bwd_op.register_kernel("cuda")
-def _bwd_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
+def _bwd_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps, unfused_rounding=False):
     b, h, w, c = x.shape
     dx, g = _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
-                           launch_plan(c, x.dtype, b, h, w))
+                           launch_plan(c, x.dtype, b, h, w, unfused_rounding))
     return (dx, *(g[k] for k in GRAD_KEYS))
 
 
 @_bwd_op.register_fake
-def _bwd_fake(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
+def _bwd_fake(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps, unfused_rounding=False):
     c = x.shape[-1]
     f32 = dict(dtype=torch.float32, device=x.device)
     shapes = ((c, 1, K, K), (c,), (c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,), (c,))
@@ -380,14 +437,20 @@ def _bwd_fake(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps):
 def _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
                    plan: BwdPlan, defines: Tuple[str, ...] = ()) -> Tuple[torch.Tensor, Grads]:
     """One call of the kernel under ``plan`` (checked arguments, CUDA x),
-    from the library built with ``defines``."""
+    from the library built with ``defines``, in the unfused-rounding mode
+    where the plan was made for it."""
+    unfused = "part_dg" in plan.workspace
     lib = _lib(defines)
     b, h, w, c = x.shape
     dt = x.dtype
 
+    def taps(t):  # the unfused block's depthwise taps, gamma and s enter in bf16
+        return _f32(t.detach().to(dt) if unfused else t)
+
     with span("fused_block_bwd.prep"):
         w1c, w2c = tile_weights(w1, w2, dt, plan.cp)
-        ins = (_f32(dw_w), _f32(ln_w), _f32(ln_b), w1c, _f32(b1), w2c, _f32(gamma), _f32(s))
+        g = taps(gamma)
+        ins = (taps(dw_w), _f32(ln_w), _f32(ln_b), w1c, _f32(b1), w2c, g, taps(s))
         dx = torch.empty_like(x)
         buf = allocate(plan, c, dt, x.device)
     outs = (*(k for k, _ in _VEC), "dww", "m", "xn", "dys", "dz2", "gact", "dh1", "dd", "dxn",
@@ -399,13 +462,17 @@ def _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
             x.data_ptr(), d.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in ins),
             dx.data_ptr(), *(buf[k].data_ptr() if buf[k].numel() else None for k in outs),
             b, h, w, c, float(eps), _DTYPE_CODE[dt], stream, plan.mt, plan.cp, plan.px,
-            plan.split, plan.split_px, plan.ksplit, st.th, st.tw)
+            plan.split, plan.split_px, plan.ksplit, st.th, st.tw,
+            *((buf[_DG].data_ptr(), buf["part_dg"].data_ptr()) if unfused else (None, None)),
+            int(unfused))
     if err != 0:
         raise RuntimeError(f"fused_block_bwd kernel launch failed: cudaError {err}")
     fused_block_bwd.launches += 1
+    fused_block_bwd.unfused_rounding_launches += int(unfused)
     m, dw1 = buf["m"][:c, :4 * c], buf["dw1"][:4 * c, :c]
     return dx, _grads(buf["dww"], *(buf[k] for k, _ in _VEC), m, dw1, w2c[:c, :4 * c], b2,
-                      gamma, dt)
+                      g, dt, buf.get(_DG))
 
 
-fused_block_bwd.launches = 0
+fused_block_bwd.launches = 0  # every call (CUDA_LAUNCHES launches each)
+fused_block_bwd.unfused_rounding_launches = 0  # the calls in the unfused-rounding mode

@@ -104,21 +104,26 @@ def convnext_block(
     eps: float = 1e-6,
     approximate: str = "tanh",
     drop_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    saves: bool = False,
+):
     """One ConvNeXt block (reference convnext.py:58-87) op by op, weights in
     the reference layouts: the JAX package's ``_block_apply``. In bf16 it
     rounds where those ops round: the depthwise sum, then with its bias;
     the LN output; the first product plus its bias, then the GELU; the
-    second product plus its bias, then times bf16 gamma; the residual sum.
-    ``approximate``: "tanh" or "none" (erf) GELU; ``drop_scale`` (B,) the
-    block's drop-path draw. ``models/convnext.py::_block_apply`` and the
-    CPU leg of K1's unfused-rounding mode both run this function."""
+    second product plus its bias, then times bf16 gamma; the product with
+    the bf16 drop-path scale; the residual sum. ``approximate``: "tanh" or
+    "none" (erf) GELU; ``drop_scale`` (B,) the block's drop-path draw.
+    ``models/convnext.py::_block_apply`` and the CPU legs of K1's
+    unfused-rounding modes run this function. With ``saves`` it returns
+    (y, d, z): d, the depthwise output with its bias (what the LN reads),
+    and z, the second product with its bias (what gamma multiplies), the
+    two tensors the fused backward's unfused-rounding mode reads."""
     shortcut = x
-    x = conv2d(x, dw_w, dw_b, padding=(3, 3), groups=x.shape[-1])
-    x = layer_norm(x, ln_w, ln_b, eps)
+    d = conv2d(x, dw_w, dw_b, padding=(3, 3), groups=x.shape[-1])
+    x = layer_norm(d, ln_w, ln_b, eps)
     x = linear(x, w1, b1)
     x = F.gelu(x, approximate=approximate)
-    x = linear(x, w2, b2)
-    if gamma is not None:
-        x = x * gamma.to(x.dtype)
-    return shortcut + drop_path(x, drop_scale)
+    z = linear(x, w2, b2)
+    x = z * gamma.to(z.dtype) if gamma is not None else z
+    y = shortcut + drop_path(x, drop_scale)
+    return (y, d, z) if saves else y

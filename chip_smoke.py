@@ -47,8 +47,9 @@ the run (non-zero exit) on any error or mismatch:
     compute, mixup 1.0, SpecAugment, AdamW with OneCycle), TRAIN_STEPS
     Trainer.step calls on 32 fixture-derived clips (mixup pairs them into
     B=16). Each step must launch K1 in save mode and K2 exactly once per
-    stage-3/4 block, with a finite loss, and never the unfused-rounding
-    mode, and every optimizer update must go through the AdamW kernel;
+    block, at stages 1-2 (6 of the 18) in their unfused-rounding modes and
+    never K1's serving one, with a finite loss, and every optimizer update
+    must go through the AdamW kernel;
     the trained model's f32 eval forward launches K1 12 times in
     serving mode; one step's gradients with the
     fused blocks against the unfused ones (drop path off), bf16 and f32;
@@ -94,13 +95,13 @@ the run (non-zero exit) on any error or mismatch:
     evaluation and a checkpoint every 3 steps. 6 steps straight, then 3
     steps and a fresh run resuming at step 3 for 3 more: the sampler
     states bit-equal, the parameters within RESUME_PARAM_LIMIT, each step
-    launching K1 in save mode and K2 12 times;
+    launching K1 in save mode and K2 18 times;
 10. data parallelism on the one card: (a) cli/train.py::train under a
     torchrun environment of one process (NCCL, the all-reduces of a group
     of one), 3 steps within RESUME_PARAM_LIMIT of phase 9's first 3; (b)
     two processes on card 0 with the gloo backend, one Trainer step each
     of 32 clips against one process's step (f32 unfused, bf16 fused; the
-    bounds in DP_CASES' comment), 12 K1-save and 12 K2 calls a rank a
+    bounds in DP_CASES' comment), 18 K1-save and 18 K2 calls a rank a
     step; (c) the Evaluator over two replicas on the one card against one
     replica (SHARDED_EVAL_TOL); (d) cli/serve.py --mesh with the phase-4
     model and phase 8's requests, every answer within SERVICE_TOL, K1 18
@@ -171,7 +172,7 @@ the run (non-zero exit) on any error or mismatch:
     fused bf16 recipe (tanh GELU, fused_train_blocks, drop path 0.1,
     frontend "high", SpecAugment, mixup 1.0, AdamW, OneCycle at 1.5e-3),
     LEARN_STEPS Trainer.step calls of 32 of the 64 ten-second tone clips
-    (16 classes), each step launching K1's save mode and K2 12 times; its
+    (16 classes), each step launching K1's save mode and K2 18 times; its
     gates: the loss ratio under LEARN_LOSS_RATIO and train mAP over the 16
     columns above LEARN_MAP through the bf16 serving forward (18 K1
     launches a forward), every optimizer update through the AdamW kernel;
@@ -333,6 +334,11 @@ K1_UNFUSED_TIMED_ONLY = ("eval256 stage 1", "eval256 stage 2")
 K1_MAIN_PATH = {"tiny stage 1": 3, "tiny stage 2": 3, "tiny stage 3": 9, "tiny stage 4": 3}
 K1_UNFUSED_PATH = ("tiny stage 1", "tiny stage 2")
 K1_STAGES_34 = {k: n for k, n in K1_MAIN_PATH.items() if k not in K1_UNFUSED_PATH}
+# K1 save-mode and K2 calls a step of the fused bf16 training recipe: every
+# block, those of stages 1-2 (K1_TRAIN_UNFUSED of them) in the kernels'
+# unfused-rounding modes
+K1_TRAIN_STEP = sum(K1_MAIN_PATH.values())
+K1_TRAIN_UNFUSED = sum(K1_MAIN_PATH[k] for k in K1_UNFUSED_PATH)
 # every K1 shape the serving paths (phases 4 and 7) launch
 K1_SERVING_CASES = set(K1_MAIN_PATH) | {f"{p} stage {s}" for p in ("eval", "long", "clip")
                                        for s in (3, 4)} | {"fbank stage 3"}
@@ -346,6 +352,19 @@ K1_SAVE_CASES = [case for case in K1_CASES if case[0] in K1_STAGES_34] + [
     ("rank stage 3", DP_RANK_BATCH, 63, 14, 384, True),
     ("rank stage 4", DP_RANK_BATCH, 31, 7, 768, True),
 ]
+# The bf16 training step's stages 1-2, K1's save mode and K2 in their
+# unfused-rounding modes: phase 5's shapes, the benchmark's tiny-train-b64
+# batch (timed in phase 6, TRAIN_UNFUSED_PATH blocks a step each), one clip
+# at stage 2 (two hidden ranges and K1's sum kernel), a ragged shape.
+TRAIN_UNFUSED_CASES = [
+    ("tiny stage 1", BATCH, 252, 56, 96),
+    ("tiny stage 2", BATCH, 126, 28, 192),
+    ("b64 stage 1", 64, 252, 56, 96),
+    ("b64 stage 2", 64, 126, 28, 192),
+    ("clip stage 2", 1, 126, 28, 192),
+    ("odd stage 1", 3, 13, 11, 96),
+]
+TRAIN_UNFUSED_PATH = {"b64 stage 1": 3, "b64 stage 2": 3}
 K2_CASES = [
     ("tiny stage 3", BATCH, 63, 14, 384),
     ("tiny stage 4", BATCH, 31, 7, 768),
@@ -462,9 +481,11 @@ def kernel_name(demangled: str) -> str:
 
 
 # K2's bf16 launches (ops/fused_block_bwd.py's plan) as kernel_name gives
-# them: the same instantiations at every width
-K2_MAIN_PATH = ("prep_kernel", "chain_h_kernel", "gemm_kernel<0>", "ln_bwd_kernel",
+# them: the same instantiations at every width; in the unfused-rounding mode
+# (the training step's stages 1-2) its own prep and chain
+K2_MAIN_PATH = ("prep_kernel<0>", "chain_h_kernel<0>", "gemm_kernel<0>", "ln_bwd_kernel",
                 "gemm_kernel<1>", "dw_bwd_kernel<__nv_bfloat16>", "sum_parts_kernel")
+K2_UNFUSED = ("prep_kernel<1>", "chain_h_kernel<1>")
 
 
 def k1_kernel_names(plan, save: bool, unfused: bool = False):
@@ -484,14 +505,14 @@ def main_path_cases():
 def main_path_kernels():
     """Names (as kernel_name gives them) of the bf16 instantiations the two
     paths launch at the main-path widths (B = 16; C = 96 and 192 in the
-    unfused-rounding mode, 384 and 768 in serving and save mode)."""
+    unfused-rounding modes, 384 and 768 in serving and save mode)."""
     from audioset_convnext_inf_torch.ops import fused_block as FB
 
-    names = set(K2_MAIN_PATH)
+    names = set(K2_MAIN_PATH) | set(K2_UNFUSED)
     for name, b, h, w, c, _ in main_path_cases():
         p = FB.launch_plan(c, torch.bfloat16, b * h * w)
         if name in K1_UNFUSED_PATH:
-            names |= set(k1_kernel_names(p, False, True))
+            names |= {n for save in (False, True) for n in k1_kernel_names(p, save, True)}
         else:
             names |= {n for save in (False, True) for n in k1_kernel_names(p, save)}
     return names
@@ -526,18 +547,16 @@ def log_main_path_plans():
 
     for name, b, h, w, c, _ in main_path_cases():
         p = FB.launch_plan(c, torch.bfloat16, b * h * w)
-        if name in K1_UNFUSED_PATH:  # no training there: K1 alone
-            log(f"  plan {name} (C={c}, {b * h * w} pixels): K1 (unfused rounding) "
-                f"{k1_plan_text(p)}")
-        else:
-            q = FBB.launch_plan(c, torch.bfloat16, b, h, w)
-            st = q.stencil
-            log(f"  plan {name} (C={c}, {b * h * w} pixels): K1 {k1_plan_text(p)}; K2 chain "
-                f"{q.mt} px x 128 hidden units/block, {q.chain_ctas} blocks, {q.chain_smem} B; "
-                f"dxn {q.ksplit} reduction range(s), {q.dxn_ctas} blocks; weight-gradient "
-                f"products {q.split} pixel ranges, {q.wgrad_ctas} blocks, {q.wgrad_smem} B; "
-                f"stencil {st.th}x{st.tw} px x 64 channels, {q.stencil_ctas} blocks, {st.smem} B; "
-                f"launches {', '.join(f'{k} x{n}' for k, n in q.launches)}")
+        unf = name in K1_UNFUSED_PATH
+        q = FBB.launch_plan(c, torch.bfloat16, b, h, w, unf)
+        st = q.stencil
+        log(f"  plan {name} (C={c}, {b * h * w} pixels): K1"
+            f"{' (unfused rounding)' if unf else ''} {k1_plan_text(p)}; K2 chain "
+            f"{q.mt} px x 128 hidden units/block, {q.chain_ctas} blocks, {q.chain_smem} B; "
+            f"dxn {q.ksplit} reduction range(s), {q.dxn_ctas} blocks; weight-gradient "
+            f"products {q.split} pixel ranges, {q.wgrad_ctas} blocks, {q.wgrad_smem} B; "
+            f"stencil {st.th}x{st.tw} px x 64 channels, {q.stencil_ctas} blocks, {st.smem} B; "
+            f"launches {', '.join(f'{k} x{n}' for k, n in q.launches)}")
 
 
 def build_kernels(names):
@@ -762,6 +781,85 @@ def check_k1_save(device):
                 raise AssertionError(f"fused_block save mode is not deterministic: {name} {dtype}")
             results.append({"case": name, "dtype": str(dtype), "max_abs_err": max(errs.values())})
     return results
+
+
+def train_unfused_inputs(b, h, w, c, device, seed):
+    """bf16 x, the block's weights, a drop-path draw s and dy (as K2's
+    cases take them) for the unfused-rounding training modes."""
+    x, args = k1_inputs(b, h, w, c, True, torch.bfloat16, device, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    dy = torch.randn(b, h, w, c, generator=g).to(device=device, dtype=torch.bfloat16)
+    return x, args, drop_scales(b, device, seed), dy
+
+
+def _gap(label, got, ref, tol):
+    """Max abs gap of got to ref and its share of ref's scale; raises past
+    ``tol`` of scale or on a non-finite value."""
+    scale = max(1.0, ref.float().abs().max().item())
+    err = (got.float() - ref.float()).abs().max().item()
+    if not (bool(torch.isfinite(got.float()).all()) and err <= tol * scale):
+        raise AssertionError(f"{label}: err {err:.3e}, scale {scale:.3e}")
+    return err, err / scale
+
+
+def check_train_unfused(device):
+    """K1's save mode and K2 in their unfused-rounding modes at
+    TRAIN_UNFUSED_CASES against their plain versions on the card: y, d and
+    z against convnext_block with the drop-path draw (the unfused block's
+    ops on the card), K2's dx and nine gradients against
+    fused_block_bwd_reference(..., unfused_rounding=True), each within
+    KERNEL_TOL of its scale; y with s of ones bit-equal to K1's serving
+    unfused-rounding mode; two calls of each bit-equal. Returns (K1 rows,
+    K2 rows) of the worst gaps."""
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
+    from audioset_convnext_inf_torch.ops.fused_block_bwd import (
+        fused_block_bwd, fused_block_bwd_reference)
+    from audioset_convnext_inf_torch.ops.nhwc import convnext_block
+
+    dt, tol = torch.bfloat16, KERNEL_TOL[torch.bfloat16]
+    k1_rows, k2_rows = [], []
+    for name, b, h, w, c in TRAIN_UNFUSED_CASES:
+        x, args, s, dy = train_unfused_inputs(b, h, w, c, device, SEED)
+        y, dz = fused_block(x, *args, 1e-6, s=s, save_dwconv=True, unfused_rounding=True)
+        y2, dz2 = fused_block(x, *args, 1e-6, s=s, save_dwconv=True, unfused_rounding=True)
+        y1, _ = fused_block(x, *args, 1e-6, s=torch.ones(b, device=device), save_dwconv=True,
+                            unfused_rounding=True)
+        serving = fused_block(x, *args, 1e-6, unfused_rounding=True)
+        torch.cuda.synchronize()
+        y_ref, d_ref, z_ref = convnext_block(x, *args, 1e-6, "tanh", s, saves=True)
+        label = f"K1 save, unfused rounding, {name}"
+        k1 = {key: _gap(f"{label} ({key})", got, ref, tol)
+              for key, got, ref in (("y", y, y_ref), ("d", dz[0], d_ref), ("z", dz[1], z_ref))}
+        same = torch.equal(y, y2) and torch.equal(dz, dz2)
+        ones = torch.equal(y1, serving)
+        log(f"  {label:42s} B={b} H={h} W={w} C={c}: max_abs_err "
+            + ", ".join(f"{k} {e:.3e}" for k, (e, _) in k1.items())
+            + f" (tol {tol} of scale); s of ones bit-equal to serving: {ones}; two runs "
+            f"bit-equal: {same}")
+        if not (same and ones):
+            raise AssertionError(f"{label}: deterministic {same}, s of ones as serving {ones}")
+        k1_rows.append({"case": name, "dtype": str(dt),
+                        "max_abs_err": max(e for e, _ in k1.values())})
+        wts = (args[0], *args[2:])
+        dx, g = fused_block_bwd(x, dz, dy, *wts, s, 1e-6, True)
+        dx2, g2 = fused_block_bwd(x, dz, dy, *wts, s, 1e-6, True)
+        torch.cuda.synchronize()
+        dx_ref, g_ref = fused_block_bwd_reference(x, dz, dy, *wts, s, 1e-6, True)
+        label = f"K2, unfused rounding, {name}"
+        k2 = {key: _gap(f"{label} ({key})", got, ref, tol)
+              for key, got, ref in [("dx", dx, dx_ref)] + [(k, g[k], g_ref[k]) for k in g_ref]}
+        worst = max(k2, key=lambda k: k2[k][1])
+        same = torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
+        log(f"  {label:42s} B={b} H={h} W={w} C={c}: max_abs_err "
+            f"{max(e for e, _ in k2.values()):.3e}, worst of scale {k2[worst][1]:.3e} ({worst}; "
+            f"tol {tol}), two runs bit-equal: {same}")
+        if not same:
+            raise AssertionError(f"{label} is not deterministic")
+        k2_rows.append({"case": name, "dtype": str(dt),
+                        "max_abs_err": max(e for e, _ in k2.values())})
+        del dz, dz2, g, g2, g_ref
+        torch.cuda.empty_cache()
+    return k1_rows, k2_rows
 
 
 def k2_inputs(b, h, w, c, dtype, device, seed):
@@ -1005,6 +1103,71 @@ def time_k2(device):
             log(f"  K2 {name}: the profile shows the plan's {len(want)} launches "
                 f"({', '.join(dict.fromkeys(want))}) and no dw_wgrad_kernel / dw_dgrad_kernel")
     return per_shape
+
+
+def time_train_unfused(device):
+    """K1's save mode and K2 in their unfused-rounding modes at
+    TRAIN_UNFUSED_PATH's shapes, each beside its plain version, and the
+    unfused bf16 block they replace in training there: its forward with the
+    drop-path draw and the graph autograd records, and autograd's backward
+    of it (as time_unfused). Returns ({shape: K1 row}, {shape: K2 row},
+    {shape: forward ms}, {shape: backward ms})."""
+    from audioset_convnext_inf_torch.models.convnext import _block_apply
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
+    from audioset_convnext_inf_torch.ops.fused_block_bwd import (
+        CUDA_LAUNCHES, fused_block_bwd, fused_block_bwd_reference, launch_plan)
+    from audioset_convnext_inf_torch.ops.nhwc import convnext_block
+
+    dt = torch.bfloat16
+    k1, k2, fwd, bwd = {}, {}, {}, {}
+    for name, b, h, w, c in TRAIN_UNFUSED_CASES:
+        if name not in TRAIN_UNFUSED_PATH:
+            continue
+        x, args, s, dy = train_unfused_inputs(b, h, w, c, device, SEED)
+        counts = {(f, k): getattr(f, k) for f in (fused_block, fused_block_bwd) for k in vars(f)
+                  if k.endswith("launches")}
+        k1[name] = time_kernel(
+            f"K1 save, unfused rounding, {name} bf16 B={b} H={h} W={w} C={c}",
+            lambda: fused_block(x, *args, 1e-6, s=s, save_dwconv=True, unfused_rounding=True),
+            lambda: convnext_block(x, *args, 1e-6, "tanh", s, saves=True),
+            fused_block, *k1_save_work(b, h, w, c, dt), dt)
+        _, dz = fused_block(x, *args, 1e-6, s=s, save_dwconv=True, unfused_rounding=True)
+        wts = (args[0], *args[2:])
+        k2[name] = time_kernel(
+            f"K2, unfused rounding, {name} bf16 B={b} H={h} W={w} C={c} ({CUDA_LAUNCHES} CUDA "
+            f"launches per call)",
+            lambda: fused_block_bwd(x, dz, dy, *wts, s, 1e-6, True),
+            lambda: fused_block_bwd_reference(x, dz, dy, *wts, s, 1e-6, True),
+            fused_block_bwd, *k2_work(b, h, w, c, dt), dt)
+        seen = []  # where one K2 call's time goes, launch by launch
+        busy = profile_launches(lambda: fused_block_bwd(x, dz, dy, *wts, s, 1e-6, True),
+                                f"K2 unfused rounding {name}", top=CUDA_LAUNCHES + 3, names=seen)
+        want = [k for k, _ in launch_plan(c, dt, b, h, w, True).launches]
+        missing = [k for k in want if not any(f"{k}(" in n or f"{k}<" in n for n in seen)]
+        if busy is not None and missing:
+            raise AssertionError(f"K2 unfused rounding {name} profile: missing {missing}")
+        for (f, k), v in counts.items():  # the launches made here are put back off the counts
+            setattr(f, k, v)
+        del dz
+        blk = unfused_block(c, args, device)
+        xg = x.detach().requires_grad_(True)
+        inputs = [xg, *blk.parameters()]
+        fwd[name], spread = median_ms(lambda: _block_apply(xg, blk, "xla_approx", s), iters=20)
+        log(f"  unfused bf16 block {name:13s} B={b} H={h} W={w} C={c}: forward with its "
+            f"autograd graph {fwd[name]:.4f} ms (median of {REPEATS}, {spread[0]:.4f}-"
+            f"{spread[1]:.4f})")
+        y = _block_apply(xg, blk, "xla_approx", s)
+        bwd[name], spread = median_ms(
+            lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True), iters=20)
+        log(f"  autograd backward of the unfused bf16 block {name:13s}: {bwd[name]:.4f} ms "
+            f"(median of {REPEATS}, {spread[0]:.4f}-{spread[1]:.4f})")
+        log(f"  {name}: K1 save {k1[name]['ms']:.4f} + K2 {k2[name]['ms']:.4f} = "
+            f"{k1[name]['ms'] + k2[name]['ms']:.4f} ms vs the unfused block's forward "
+            f"{fwd[name]:.4f} + backward {bwd[name]:.4f} = {fwd[name] + bwd[name]:.4f} ms "
+            f"({(fwd[name] + bwd[name]) / (k1[name]['ms'] + k2[name]['ms']):.2f}x)")
+        del y, xg, inputs
+        torch.cuda.empty_cache()
+    return k1, k2, fwd, bwd
 
 
 def unfused_block(c, args, device):
@@ -1400,44 +1563,54 @@ def _zero_counts():
     from audioset_convnext_inf_torch.ops.fused_block_bwd import fused_block_bwd
 
     fused_block.launches = fused_block.save_launches = fused_block_bwd.launches = 0
+    fused_block.unfused_rounding_launches = fused_block.unfused_rounding_save_launches = 0
+    fused_block_bwd.unfused_rounding_launches = 0
+
+
+def _unfused_counts():
+    """(K1 serving, K1 save, K2) launches in the unfused-rounding modes."""
+    from audioset_convnext_inf_torch.ops.fused_block import fused_block
+    from audioset_convnext_inf_torch.ops.fused_block_bwd import fused_block_bwd
+
+    return (fused_block.unfused_rounding_launches, fused_block.unfused_rounding_save_launches,
+            fused_block_bwd.unfused_rounding_launches)
 
 
 def run_training_path(device):
     """TRAIN_STEPS Trainer.step calls; each must launch K1 (save mode) and K2
-    once per stage-3/4 block. Returns the launches over the run."""
+    once per block, at stages 1-2 in their unfused-rounding modes. Returns
+    the launches over the run."""
     from audioset_convnext_inf_torch.engine.trainer import Trainer
     from audioset_convnext_inf_torch.ops.fused_block import fused_block
 
     model = build_train_model(device)
     trainer = Trainer(model, train_config())
     pcm, target = train_batch(TRAIN_CLIPS, SEED)
-    per_step = sum(K1_STAGES_34.values())
+    per_step, unf_step = K1_TRAIN_STEP, (0, K1_TRAIN_UNFUSED, K1_TRAIN_UNFUSED)
     _zero_counts()
-    fused_block.unfused_rounding_launches = 0
     for i in range(TRAIN_STEPS):
-        before = _counts()
+        before, unf_before = _counts(), _unfused_counts()
         loss = trainer.step(pcm, target)
         torch.cuda.synchronize()
         delta = tuple(a - b for a, b in zip(_counts(), before))
+        unf = tuple(a - b for a, b in zip(_unfused_counts(), unf_before))
         log(f"  train step {i}: loss {loss:.6f}; launches K1 {delta[0]} (save mode {delta[1]}), "
-            f"K2 {delta[2]} (expect {per_step} each)")
+            f"K2 {delta[2]} (expect {per_step} each); in the unfused-rounding modes (K1 "
+            f"serving, K1 save, K2) {unf} (expect {unf_step})")
         if not math.isfinite(loss):
             raise AssertionError(f"training step {i}: loss is not finite")
-        if delta != (per_step, per_step, per_step):
-            raise AssertionError(f"training step {i} launched {delta}, expected {per_step} each")
+        if delta != (per_step, per_step, per_step) or unf != unf_step:
+            raise AssertionError(f"training step {i} launched {delta}, expected {per_step} each; "
+                                 f"unfused-rounding modes {unf}, expected {unf_step}")
     launches = _counts()
     check_fused_updates(trainer.optimizer, TRAIN_STEPS, "training path")
-    unfused = fused_block.unfused_rounding_launches
-    log(f"  {TRAIN_STEPS} training steps: K1 launches in the unfused-rounding mode {unfused} "
-        f"(expect 0: training keeps the unfused blocks at stages 1-2)")
-    if unfused:
-        raise AssertionError(f"training launched K1's unfused-rounding mode {unfused} times")
     _zero_counts()
     out = model.forward(pcm[:BATCH])
     torch.cuda.synchronize()
+    per_f32 = sum(K1_STAGES_34.values())
     log(f"  trained model, eval forward B={BATCH} (f32): launches (K1, K1 save, K2) {_counts()} "
-        f"(expect ({per_step}, 0, 0))")
-    if _counts() != (per_step, 0, 0) or fused_block.unfused_rounding_launches:
+        f"(expect ({per_f32}, 0, 0))")
+    if _counts() != (per_f32, 0, 0) or fused_block.unfused_rounding_launches:
         raise AssertionError(f"eval forward after training launched {_counts()}")
     if not bool(torch.isfinite(out["clipwise_output"]).all()):
         raise AssertionError("eval forward after training is not finite")
@@ -1832,7 +2005,7 @@ def memory_index(target):
 class CliRunner:
     """Runs of cli/train.py::train over the in-memory training and
     evaluation sets, in the fused bf16 recipe; each step's loss and launch
-    deltas are recorded and checked (K1 save and K2 12 times a
+    deltas are recorded and checked (K1 save and K2 18 times a
     step, and K1 12 times per evaluation batch before a step that evaluates)."""
 
     def __init__(self):
@@ -1841,7 +2014,8 @@ class CliRunner:
         self.epcm, self.etarget = epcm[:TRAIN_CLI_EVAL], etarget[:TRAIN_CLI_EVAL]
         self.data = MemoryDataset(pcm, self.target)
         self.edata = MemoryDataset(self.epcm, self.etarget)
-        self.per = sum(K1_STAGES_34.values())  # training steps and f32 evaluations
+        self.per = K1_TRAIN_STEP  # training steps
+        self.eval_per = sum(K1_STAGES_34.values())  # f32 evaluation batches
         self.eval_batches = -(-TRAIN_CLI_EVAL // 32)
 
     @staticmethod
@@ -1887,7 +2061,7 @@ class CliRunner:
             log(f"    step {it}: loss {loss:.6f}, launches (K1, K1 save, K2) {d}"
                 + (" (evaluation before it)" if evals else ""))
             per = self.per
-            want = (per + (per * self.eval_batches if evals else 0), per, per)
+            want = (per + (self.eval_per * self.eval_batches if evals else 0), per, per)
             if d != want or not math.isfinite(loss):
                 raise AssertionError(f"step {it}: launches {d}, expected {want}; loss {loss}")
         return steps, _counts()
@@ -2118,7 +2292,6 @@ def run_dp_pair(device):
     for r in range(DP_WORLD):
         with open(out / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
-    per = sum(K1_STAGES_34.values())
     launches = [0, 0]
     buffers = ("bn0.running_mean", "bn0.running_var")
     for label, bf16, fused, dp, precision in DP_CASES:
@@ -2162,6 +2335,7 @@ def run_dp_pair(device):
             for i, st in enumerate(x[label]["steps"]):
                 log(f"    rank {r} step {i}: loss {st['loss']:.6f}, launches (K1, K1 save, K2) "
                     f"{st['launches']}")
+                per = K1_TRAIN_STEP if bf16 else sum(K1_STAGES_34.values())
                 want = (per, per, per) if fused else (0, 0, 0)
                 if st["launches"] != want or not math.isfinite(st["loss"]):
                     raise AssertionError(f"{label} rank {r} step {i}: launches {st['launches']}, "
@@ -3411,7 +3585,7 @@ def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
     """(a) or (b): convnext_tiny at full width from the port's own init
     (layer scale 1e-6), the fused bf16 recipe with fused_train_blocks
     ``fused``, LEARN_STEPS Trainer.step calls. Each step must launch K1's
-    save mode and K2 12 times on the fused route and neither on the other."""
+    save mode and K2 18 times on the fused route and neither on the other."""
     from audioset_convnext_inf_torch.config import FrontendConfig
     from audioset_convnext_inf_torch.engine.trainer import TrainConfig, Trainer
     from audioset_convnext_inf_torch.models import convnext_tiny
@@ -3422,18 +3596,21 @@ def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
         raise AssertionError(f"convnext_tiny has {model.count_parameters()} parameters")
     trainer = Trainer(model, TrainConfig(max_lr=1.5e-3, total_steps=LEARN_STEPS, mixup_alpha=1.0,
                                          weight_decay=0.01, seed=7, bf16_compute=True))
-    per_step = sum(K1_STAGES_34.values()) if fused else 0
+    per_step = K1_TRAIN_STEP if fused else 0
+    unf_step = K1_TRAIN_UNFUSED if fused else 0
     order = np.random.RandomState(42)
     losses = []
     _zero_counts()
     for step in range(LEARN_STEPS):
         idx = order.permutation(len(clips))[:LEARN_BATCH]
-        before = _counts()
+        before, unf_before = _counts(), _unfused_counts()
         losses.append(trainer.step_async(clips[idx], targets[idx]))
         delta = tuple(a - b for a, b in zip(_counts(), before))
-        if delta != (per_step, per_step, per_step):
+        unf = tuple(a - b for a, b in zip(_unfused_counts(), unf_before))
+        if delta != (per_step, per_step, per_step) or unf != (0, *(2 * (unf_step,))):
             raise AssertionError(f"learning step {step} launched (K1, K1 save, K2) {delta}, "
-                                 f"expected {per_step} each")
+                                 f"expected {per_step} each; in the unfused-rounding modes "
+                                 f"{unf}, expected (0, {unf_step}, {unf_step})")
     launches = _counts()
     check_fused_updates(trainer.optimizer, LEARN_STEPS, label)
     losses = torch.stack(losses).float().cpu().numpy()
@@ -3609,7 +3786,8 @@ def _entry(name, source, replaces, launches, results, per_shape, mode, per_call,
     the unfused bf16 block's time over the same launches (K1: its forward;
     K2: autograd's backward of it; several PyTorch calls, no library_ms);
     max_abs_err over the bf16 checks at ``err_cases`` (default: the shapes
-    of ``per_call``)."""
+    of ``per_call``); ``bound_by`` is that of the shape with the largest
+    share of the bound."""
     totals = {key: sum(per_call[s] * per_shape[s][key] for s in per_call)
               for key in ("ms", "plain_ms", "bound_ms")}
     unfused_ms = sum(per_call[s] * unfused[s] for s in per_call) if unfused else None
@@ -3622,7 +3800,8 @@ def _entry(name, source, replaces, launches, results, per_shape, mode, per_call,
             "source": f"audioset_convnext_inf_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": totals["ms"],
             "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
-            "bound_by": per_shape["tiny stage 3"]["bound_by"], "library_ms": None,
+            "bound_by": per_shape[max(per_call, key=lambda k: per_call[k] *
+                                      per_shape[k]["bound_ms"])]["bound_by"], "library_ms": None,
             "unfused_ms": unfused_ms, "cases": len(results), "ok": True}
 
 
@@ -3679,6 +3858,7 @@ def run_phases() -> int:
     k1_results = check_k1(device) + check_k1_unfused(device)
     k1s_results = check_k1_save(device)
     k2_results = check_k2(device)
+    k1u_results, k2u_results = check_train_unfused(device)
     check_adamw(device)
 
     phase("[4/15] serving path: convnext_tiny, B=16 x 10-s clips")
@@ -3698,6 +3878,7 @@ def run_phases() -> int:
     unfused, unfused_bwd = time_unfused(device)
     products = time_products(device)
     compare_yardsticks(per_shape, save_shape, k2_shape, unfused, unfused_bwd, products)
+    save_unf, k2_unf, train_fwd, train_bwd = time_train_unfused(device)
     time_adamw(device)
 
     phase("[7/15] inference surfaces: convnext_tiny bf16 serving (the phase-4 model)")
@@ -3777,6 +3958,18 @@ def run_phases() -> int:
                + learn_bwd,
                k2_results, k2_shape, "training backward (phases 5, 9, 10(a-b), 15(a))",
                K1_STAGES_34, unfused_bwd),
+        _entry("fused_block_save", "fused_block.cu",
+               "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True), at "
+               "_block_apply's rounding points",
+               K1_TRAIN_UNFUSED * (TRAIN_STEPS + LEARN_STEPS), k1u_results, save_unf,
+               "training forward, unfused rounding, stages 1-2 (the phases of the save mode; "
+               "launches: phases 5, 15(a))", TRAIN_UNFUSED_PATH, train_fwd),
+        _entry("fused_block_bwd", "fused_block_bwd.cu",
+               "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66, at _block_apply's "
+               "rounding points",
+               K1_TRAIN_UNFUSED * (TRAIN_STEPS + LEARN_STEPS), k2u_results, k2_unf,
+               "training backward, unfused rounding, stages 1-2 (the phases of K2; launches: "
+               "phases 5, 15(a))", TRAIN_UNFUSED_PATH, train_bwd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

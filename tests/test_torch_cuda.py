@@ -206,6 +206,101 @@ def test_fused_block_bwd_matches_plain_version_and_is_deterministic(dtype, shape
         assert torch.equal(g[k], g2[k]), k
 
 
+TRAIN_UNFUSED_SHAPES = [
+    (4, 252, 56, 96),   # stage 1 of a 10-s clip (convnext_tiny)
+    (4, 126, 28, 192),  # stage 2
+    (3, 13, 11, 96),    # ragged: H, W and the last tile; three hidden ranges
+    (1, 126, 28, 192),  # B = 1: two hidden ranges and K1's sum kernel
+    (2, 37, 45, 128),   # convnext_base's stage 1 (NB = 1, no padded channel)
+    (2, 19, 23, 256),   # its stage 2 (NB = 2)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TRAIN_UNFUSED_SHAPES)
+def test_unfused_rounding_training_modes_match_their_plain_versions(shape):
+    """K1's save mode and K2 in their unfused-rounding modes (the bf16
+    training step's stages 1-2) on the card: y, d and z against
+    ``convnext_block`` with a drop-path draw (zeros among it) on the card,
+    K2's dx and nine gradients against its twin
+    (``fused_block_bwd_reference(..., unfused_rounding=True)``), each
+    within the kernel tolerance; y with s of ones bit-equal to the serving
+    unfused-rounding mode; two K2 calls bit-equal; each call counted on its
+    mode's counter."""
+    _need_card()
+    from audioset_convnext_inf_torch.ops.nhwc import convnext_block
+
+    x, args, _ = _unfused_case(shape, 9)
+    rng = np.random.RandomState(10)
+    b = shape[0]
+    s = torch.from_numpy(((rng.rand(b) > 0.3) / 0.9).astype(np.float32)).cuda()
+    s[0] = 0.0
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda().to(torch.bfloat16)
+    k1_counts = lambda: (FB.fused_block.launches, FB.fused_block.save_launches,  # noqa: E731
+                         FB.fused_block.unfused_rounding_launches,
+                         FB.fused_block.unfused_rounding_save_launches)
+    before = k1_counts()
+    y, dz = FB.fused_block(x, *args, 1e-6, s=s, save_dwconv=True, unfused_rounding=True)
+    y1, _ = FB.fused_block(x, *args, 1e-6, s=torch.ones(b, device="cuda"), save_dwconv=True,
+                           unfused_rounding=True)
+    serving = FB.fused_block(x, *args, 1e-6, unfused_rounding=True)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(k1_counts(), before)) == (3, 2, 1, 2)
+    assert dz.shape == (2, *shape) and torch.equal(y1, serving)
+    y_ref, d_ref, z_ref = convnext_block(x, *args, 1e-6, "tanh", s, saves=True)
+    for got, ref in ((y, y_ref), (dz[0], d_ref), (dz[1], z_ref)):
+        assert got.dtype == torch.bfloat16
+        assert (got.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+    w = (args[0], *args[2:])
+    before = (FBB.fused_block_bwd.launches, FBB.fused_block_bwd.unfused_rounding_launches)
+    dx, g = FBB.fused_block_bwd(x, dz, dy, *w, s, 1e-6, True)
+    dx2, g2 = FBB.fused_block_bwd(x, dz, dy, *w, s, 1e-6, True)
+    torch.cuda.synchronize()
+    assert (FBB.fused_block_bwd.launches, FBB.fused_block_bwd.unfused_rounding_launches) == (
+        before[0] + 2, before[1] + 2)
+    dx_ref, g_ref = FBB.fused_block_bwd_reference(x, dz, dy, *w, s, 1e-6, True)
+    assert dx.dtype == torch.bfloat16 and torch.equal(dx, dx2)
+    assert (dx.float() - dx_ref.float()).abs().max().item() <= _tol(torch.bfloat16, dx_ref)
+    for k in g_ref:
+        assert (g[k] - g_ref[k]).abs().max().item() <= _tol(torch.bfloat16, g_ref[k]), k
+        assert torch.equal(g[k], g2[k]), k
+
+
+@pytest.mark.cuda
+def test_a_traced_bf16_training_step_runs_stages_1_2_in_the_unfused_rounding_modes():
+    """One profiled training step of convnext_tiny in the fused bf16 recipe
+    (1-s clips): K1's save mode and K2 once a block, 18 each, of them 6
+    each in the unfused-rounding modes (stages 1-2), and K1's serving
+    unfused-rounding mode never; one prep span a launch of either."""
+    _need_card()
+    from torch.autograd import DeviceType
+
+    from audioset_convnext_inf_torch.engine.trainer import TrainConfig, Trainer
+    from audioset_convnext_inf_torch.models import convnext_tiny
+
+    model = convnext_tiny(drop_path_rate=0.1, block_impl="xla_approx", fused_train_blocks=True,
+                          seed=0)
+    trainer = Trainer(model, TrainConfig(bf16_compute=True, mixup_alpha=1.0))
+    rng = np.random.RandomState(4)
+    pcm = (rng.randn(8, 32000) * 3000).astype(np.int16)
+    target = (rng.rand(8, 527) < 0.05).astype(np.float32)
+    trainer.step(pcm, target)  # builds and warms up
+    torch.cuda.synchronize()
+    counters = ((FB.fused_block, "save_launches"), (FB.fused_block, "unfused_rounding_launches"),
+                (FB.fused_block, "unfused_rounding_save_launches"), (FBB.fused_block_bwd, "launches"),
+                (FBB.fused_block_bwd, "unfused_rounding_launches"))
+    for f, k in counters:
+        setattr(f, k, 0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        loss = trainer.step(pcm, target)
+        torch.cuda.synchronize()
+    assert np.isfinite(loss)
+    assert tuple(getattr(f, k) for f, k in counters) == (18, 0, 6, 18, 6)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    assert names.count("fused_block.prep") == names.count("fused_block_bwd.prep") == 18
+
+
 WIDTHS = (1, 100, 160, 192, 256, 320, 384, 512, 640, 768, 1024)
 
 

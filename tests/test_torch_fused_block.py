@@ -12,6 +12,7 @@ held here bit for bit to ``models/convnext.py::_block_apply``.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -213,14 +214,87 @@ def test_unfused_rounding_mode_passes_opcheck(rng, layout):
 
 
 def test_unfused_rounding_mode_is_bf16_serving_only(rng):
+    """The unfused-rounding mode takes bf16 alone; any layout of x in
+    serving, but its save mode (the bf16 training step's) takes x
+    contiguous, as K2 reads it, and C up to UNFUSED_SAVE_MAX_C."""
     args = _torch_args(_params(rng, 16))
     x = torch.zeros(1, 4, 4, 16)
     with pytest.raises(TypeError, match="bfloat16"):
         FB.fused_block(x, *args, unfused_rounding=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FB.fused_block(x, *args, s=torch.ones(1), save_dwconv=True, unfused_rounding=True)
     xb = x.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="serving mode"):
-        FB.fused_block(xb, *args, s=torch.ones(1), unfused_rounding=True)
-    with pytest.raises(ValueError, match="serving mode"):
-        FB.fused_block(xb, *args, save_dwconv=True, unfused_rounding=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        FB.fused_block(xb.permute(0, 2, 1, 3), *args, s=torch.ones(1), unfused_rounding=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        FB.fused_block(xb.permute(0, 2, 1, 3), *args, save_dwconv=True, unfused_rounding=True)
     with pytest.raises(ValueError, match="contiguous"):  # K1's own mode keeps its contract
         FB.fused_block(xb.permute(0, 2, 1, 3), *args)
+    c = FB.UNFUSED_SAVE_MAX_C + 1
+    assert FB.unfused_save_fits(FB.UNFUSED_SAVE_MAX_C) and not FB.unfused_save_fits(c)
+    wide = _torch_args(_params(rng, c))
+    with pytest.raises(ValueError, match=f"C <= {FB.UNFUSED_SAVE_MAX_C}"):
+        FB.fused_block(torch.zeros(1, 2, 2, c, dtype=torch.bfloat16), *wide, save_dwconv=True,
+                       unfused_rounding=True)
+
+
+def _drop_scale(kind, b):
+    """A block's drop-path draw: None, ones, or keep / keep_prob with a
+    dropped sample (1 / 0.9 is not a bf16 value: the block takes it in bf16)."""
+    if kind == "none":
+        return None
+    s = torch.ones(b)
+    if kind == "draw":
+        s = torch.tensor([0.0] + [1 / 0.9] * (b - 1))
+    return s
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("scale", ["ones", "draw", "none"])
+@pytest.mark.parametrize("shape", [(2, 13, 11, 96), (3, 7, 9, 192)],
+                         ids=["stage1-width", "stage2-width"])
+def test_unfused_rounding_save_mode_is_the_unfused_block_bit_for_bit(rng, shape, scale, layout):
+    """K1's save mode in the unfused-rounding mode on the CPU, on x made
+    contiguous as the training route hands it over: y is ``convnext_block``
+    with the drop-path draw on x as the model holds it (either layout), bit
+    for bit, and the save is d as the LN reads it (the depthwise sum
+    rounded, then with its bias, rounded again) stacked with z (the second
+    product plus its bias, rounded: what gamma multiplies)."""
+    from audioset_convnext_inf_torch.ops.nhwc import conv2d, convnext_block
+
+    c = shape[-1]
+    args = _torch_args(_params(rng, c))
+    x = _bf16_input(rng, shape, layout)
+    s = _drop_scale(scale, shape[0])
+    before = (FB.fused_block.launches, FB.fused_block.save_launches,
+              FB.fused_block.unfused_rounding_save_launches)
+    y, dz = FB.fused_block(x.contiguous(), *args, 1e-6, s=s, save_dwconv=True,
+                           unfused_rounding=True)
+    want, d, z = convnext_block(x, *args, 1e-6, "tanh", s, saves=True)
+    assert y.dtype == dz.dtype == torch.bfloat16 and y.is_contiguous() and dz.is_contiguous()
+    assert torch.equal(y, want) and dz.shape == (2, *shape)
+    assert torch.equal(dz[0], d) and torch.equal(dz[1], z)
+    dwc = F.conv2d(x.permute(0, 3, 1, 2), args[0].to(torch.bfloat16), None, padding=3, groups=c)
+    assert torch.equal(dz[0], (dwc.permute(0, 2, 3, 1) + args[1]).to(torch.bfloat16))
+    assert torch.equal(d, conv2d(x, args[0], args[1], padding=(3, 3), groups=c))
+    if s is None:  # no draw: the scale of ones
+        y1 = FB.fused_block(x.contiguous(), *args, 1e-6, s=torch.ones(shape[0]),
+                            unfused_rounding=True)
+        assert torch.equal(y1, y)
+    assert (FB.fused_block.launches, FB.fused_block.save_launches,
+            FB.fused_block.unfused_rounding_save_launches) == before
+
+
+def test_unfused_rounding_save_mode_passes_opcheck(rng):
+    """The save op's trailing flag: schema, fake implementation (the
+    (2, B, H, W, C) save) and tracing pass ``opcheck``; unset, the op is
+    K1's own save mode."""
+    args = _torch_args(_params(rng, 32))
+    x = _bf16_input(rng, (2, 5, 6, 32), "nhwc")
+    s = torch.tensor([0.0, 1 / 0.9])
+    torch.library.opcheck(FB._save_op, (x, *args, 1e-6, s, True))
+    torch.library.opcheck(FB._save_op, (x, *args, 1e-6, s))
+    assert "bool unfused_rounding=False" in str(FB._save_op._opoverload._schema)
+    own = FB._save_op(x, *args, 1e-6, s)
+    assert all(torch.equal(a, b) for a, b in zip(own, FB.fused_block_reference(
+        x, *args, 1e-6, s, True)))

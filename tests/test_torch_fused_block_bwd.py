@@ -26,6 +26,7 @@ from audioset_convnext_inf_tpu.ops.pallas_fused_block_bwd import fused_block_bwd
 from audioset_convnext_inf_torch.ops import fused_block as FB
 from audioset_convnext_inf_torch.ops import fused_block_bwd as FBB
 from audioset_convnext_inf_torch.ops.fused_block_train import FusedBlockTrain
+from audioset_convnext_inf_torch.ops.nhwc import convnext_block
 
 K = 7
 EPS = 1e-6
@@ -259,3 +260,97 @@ def test_bwd_cpu_wrapper_is_the_plain_version_and_checks_its_arguments(rng):
     meta = [t.to("meta") for t in (x, d, dy, *args, s)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         FBB.fused_block_bwd(*meta)
+
+
+def _unfused_case(rng, shape):
+    """bf16 x and dy, the block's weights (port layouts) and a drop-path
+    draw with a dropped sample (1 / 0.9 is not a bf16 value)."""
+    b, c = shape[0], shape[-1]
+    args = _torch_args(_params(rng, c))
+    x = _t(rng.randn(*shape) * 0.5).float().to(torch.bfloat16)
+    dy = _t(rng.randn(*shape)).float().to(torch.bfloat16)
+    s = torch.tensor([0.0] + [1 / 0.9] * (b - 1))
+    return x, dy, args, s
+
+
+def _autograd_of_unfused_block(x, dy, args, s, dtype):
+    """dx and the nine gradients (f32) of ``convnext_block`` with drop path,
+    tanh GELU, its activations in ``dtype``."""
+    xs = x.detach().to(dtype).requires_grad_()
+    ps = [a.detach().clone().requires_grad_() for a in args]
+    convnext_block(xs, *ps, EPS, "tanh", s).backward(dy.to(dtype))
+    return [xs.grad.float()] + [p.grad.float() for p in ps]
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 7, 96), (3, 6, 5, 192)],
+                         ids=["stage1-width", "stage2-width"])
+def test_unfused_rounding_bwd_is_autograd_of_the_unfused_block(rng, shape):
+    """The unfused-rounding mode's twin against autograd of the unfused
+    block (``convnext_block``, bf16) on the same x, dy and draw: dx and
+    each of the nine gradients within 2^-5 of scale (autograd rounds every
+    op's gradient to bf16, the twin only dys, dz2, dh1, dd and dx: measured
+    under 2^-7). Over the ten, its mean relative gap to autograd of the
+    f32 block on the same inputs is no larger than bf16 autograd's: the
+    rounding points of the configuration's precision and no more.
+    FusedBlockTrain in that mode gives convnext_block's y and the twin's
+    gradients, through both custom ops."""
+    x, dy, args, s = _unfused_case(rng, shape)
+    _, dz = FB.fused_block(x, *args, EPS, s=s, save_dwconv=True, unfused_rounding=True)
+    dx, g = FBB.fused_block_bwd(x, dz, dy, *_bwd_args(args), s, EPS, True)
+    twin = [dx.float()] + [g[k] for k in NAMES]
+    bf16 = _autograd_of_unfused_block(x, dy, args, s, torch.bfloat16)
+    f32 = _autograd_of_unfused_block(x, dy, args, s, torch.float32)
+    for name, a, r in zip(("x",) + NAMES, twin, bf16):
+        assert a.shape == r.shape, name
+        _assert_close(a, r, 2.0 ** -5, name)
+
+    def rel(a, r):
+        return float((a - r).norm() / r.norm())
+
+    gaps = [rel(a, r) for a, r in zip(twin, f32)]
+    autograd_gaps = [rel(a, r) for a, r in zip(bf16, f32)]
+    assert np.mean(gaps) <= np.mean(autograd_gaps), (gaps, autograd_gaps)
+    xs = x.detach().requires_grad_()
+    ps = [a.detach().clone().requires_grad_() for a in args]
+    y = FusedBlockTrain.apply(xs, *ps, s, EPS, True)
+    y.backward(dy)
+    assert torch.equal(y, convnext_block(x, *args, EPS, "tanh", s))
+    assert torch.equal(xs.grad, dx)
+    for name, p in zip(NAMES, ps):
+        assert p.grad.dtype == torch.float32 and torch.equal(p.grad, g[name]), name
+
+
+def test_unfused_rounding_bwd_differs_from_the_own_rounding_where_it_should(rng):
+    """The mode's twin takes gamma, s and the taps in bf16 and dgamma from
+    the saved z: on the same x, d and dy its dgamma is sum dy*s * z, and it
+    differs from the fused-rounding backward's."""
+    x, dy, args, s = _unfused_case(rng, (2, 5, 4, 96))
+    _, dz = FB.fused_block(x, *args, EPS, s=s, save_dwconv=True, unfused_rounding=True)
+    _, g = FBB.fused_block_bwd_reference(x, dz, dy, *_bwd_args(args), s, EPS, True)
+    sb = s.to(torch.bfloat16).float().reshape(-1, 1, 1, 1)
+    want = (dy.float() * sb * dz[1].float()).sum((0, 1, 2))
+    torch.testing.assert_close(g["gamma"], want, rtol=1e-5, atol=1e-5)
+    _, own = FBB.fused_block_bwd_reference(x, dz[0].contiguous(), dy, *_bwd_args(args), s, EPS)
+    assert not torch.equal(own["gamma"], g["gamma"])
+
+
+def test_unfused_rounding_bwd_passes_opcheck_and_checks_its_arguments(rng):
+    """The backward op's trailing flag: schema, fake implementation and
+    tracing pass ``opcheck``; the mode takes bf16 and the (2, B, H, W, C)
+    save."""
+    x, dy, args, s = _unfused_case(rng, (2, 5, 6, 32))
+    _, dz = FB.fused_block(x, *args, EPS, s=s, save_dwconv=True, unfused_rounding=True)
+    wts = _bwd_args(args)
+    torch.library.opcheck(FBB._bwd_op, (x, dz, dy, *wts, s, EPS, True))
+    assert "bool unfused_rounding=False" in str(FBB._bwd_op._opoverload._schema)
+    before = (FBB.fused_block_bwd.launches, FBB.fused_block_bwd.unfused_rounding_launches)
+    dx, g = FBB.fused_block_bwd(x, dz, dy, *wts, s, EPS, True)
+    dx_ref, g_ref = FBB.fused_block_bwd_reference(x, dz, dy, *wts, s, EPS, True)
+    assert torch.equal(dx, dx_ref) and all(torch.equal(g[k], g_ref[k]) for k in NAMES)
+    assert (FBB.fused_block_bwd.launches, FBB.fused_block_bwd.unfused_rounding_launches) == before
+    with pytest.raises(ValueError, match="d must be"):
+        FBB.fused_block_bwd(x, dz[0].contiguous(), dy, *wts, s, EPS, True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FBB.fused_block_bwd(x.float(), dz.float(), dy.float(), *wts, s, EPS, True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FBB.launch_plan(32, torch.float32, 2, 5, 6, unfused_rounding=True)

@@ -312,6 +312,36 @@ def test_stage_1_2_plans_run_only_the_channels_there_are(c, shape):
     assert sum(_k1_ranges(p), []) == list(range(p.chunks))
 
 
+@pytest.mark.parametrize("c,shape", [(96, (64, 252, 56)), (192, (64, 126, 28)),
+                                     (128, (64, 252, 56)), (256, (64, 126, 28))])
+def test_unfused_rounding_training_plans_at_stages_1_2(c, shape):
+    """The bf16 training step's stages 1-2 at a batch of 64 (convnext_tiny's
+    C = 96 and 192, padded to CP = 128 and 256; convnext_base's 128 and
+    256 at its own): K1's save mode takes the plan of its serving mode (NB
+    = 1 and 2, the widths its unfused-rounding save mode is built for, no
+    hidden split: the tiles fill the card 20 times over), and K2's unfused-rounding mode
+    the plan of its own rounding, the same seven launches, with one more
+    workspace (dgamma's block sums, C a prep block) and one more segment of
+    the sums' launch. Every launch fills the card's 132 SMs twice over."""
+    b, h, w = shape
+    npix = b * h * w
+    p = FB.launch_plan(c, torch.bfloat16, npix)
+    assert FB.unfused_save_fits(c) and p.cp == FB.padded_c(c) == 128 * p.out_blocks
+    assert p.out_blocks in (1, 2) and p.hidden_split == 1 and p.tiles >= 20 * FB.SMS
+    own = FBB.launch_plan(c, torch.bfloat16, b, h, w)
+    q = FBB.launch_plan(c, torch.bfloat16, b, h, w, unfused_rounding=True)
+    assert q.cp == p.cp and q.launches[:-1] == own.launches[:-1]
+    assert [n for n, _ in q.launches] == [n for n, _ in own.launches]
+    extra = -(-npix // q.px)
+    assert q.workspace == dict(own.workspace, part_dg=extra * c)
+    g = max(x for x in (1, 2, 4, 8, 16, 32) if x <= extra)
+    assert q.launches[-1][1] == own.launches[-1][1] + -(-c // (256 // g))
+    assert min(n for _, n in q.launches) >= 2 * FBB.SMS
+    bufs = FBB.allocate(q, c, torch.bfloat16, "meta")
+    assert bufs["part_dg"].numel() == extra * c and bufs["dg"].shape == (c,)
+    assert "dg" not in FBB.allocate(own, c, torch.bfloat16, "meta")
+
+
 # K1's hidden ranges by pixel count at the main path's widths: (first pixel
 # count, ranges). Results compare bit for bit only at equal pixel counts
 # (the Evaluator, the service and the bundles do): B=16 and more take one

@@ -249,6 +249,63 @@ def test_training_and_f32_never_run_k1_unfused_rounding(carried, sample_wav_path
     assert out["clipwise_output"].shape == (2, 527) and calls == []
 
 
+def _record_training_ops(monkeypatch):
+    """(op, input shape, unfused_rounding) of every call of K1's save op and
+    K2's op."""
+    from audioset_convnext_inf_torch.ops import fused_block_bwd as FBB
+
+    calls = []
+
+    def recording(name, op, n):
+        def call(x, *a):
+            calls.append((name, tuple(x.shape), len(a) == n and bool(a[-1])))
+            return op(x, *a)
+        return call
+
+    monkeypatch.setattr(FB, "_save_op", recording("save", FB._save_op, 12))
+    monkeypatch.setattr(FBB, "_bwd_op", recording("bwd", FBB._bwd_op, 13))
+    return calls
+
+
+@pytest.mark.parametrize("case", ["bf16", "f32", "remat", "unfused", "eval"])
+def test_bf16_fused_training_runs_stages_1_2_in_the_unfused_rounding_modes(
+        carried, sample_wav_path, rng, monkeypatch, case):
+    """The route observes the model's mode, the config's gate and the
+    activations' dtype: a bf16 fused training forward and backward calls
+    K1's save op and K2's op once a block, at stages 1-2 in their
+    unfused-rounding modes and at stages 3-4 in their own; f32 fused
+    training calls them at stages 3-4 only, remat_blocks,
+    fused_train_blocks=False and eval never. The serving op is never
+    called in training."""
+    _, params = carried
+    kw = {"remat": dict(remat_blocks=True), "unfused": dict(fused_train_blocks=False)}.get(
+        case, {})
+    cfg = ConvNeXtConfig(**{**SMALL, "drop_path_rate": 0.2}, block_impl="xla_approx",
+                         **{"fused_train_blocks": True, **kw})
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    pm = _port_model(params, cfg, compute_dtype=dtype, auto_fast_serving=False)
+    wav = torch.from_numpy(_waveforms(sample_wav_path, rng, 4))
+    calls = _record_training_ops(monkeypatch)
+    serving = _record_k1_serving(monkeypatch)
+    if case == "eval":
+        MC.forward(pm, wav, cfg, pm.frontend, dtype)
+        assert calls == [] and [u for _, u in serving] == [True, True, False, False, False]
+        return
+    pm.train()
+    out = MC.forward_train(pm, wav, cfg, pm.frontend, torch.Generator().manual_seed(3),
+                           compute_dtype=dtype)
+    out["clipwise_logits"].float().sum().backward()
+    assert serving == []
+    stages34 = [((4, 6, 14, 128), False), ((4, 6, 14, 128), False), ((4, 3, 7, 256), False)]
+    want = {"bf16": [((4, 27, 56, 32), True), ((4, 13, 28, 64), True)] + stages34,
+            "f32": stages34}.get(case, [])
+    assert [(s, u) for op, s, u in calls if op == "save"] == want
+    # the backward runs the blocks in reverse
+    assert [(s, u) for op, s, u in calls if op == "bwd"] == want[::-1]
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in pm.parameters() if p.requires_grad)
+
+
 def test_bf16_auto_switch_warns_like_jax(carried):
     jcfg, params = carried
     cfg = ConvNeXtConfig(**SMALL)
