@@ -31,8 +31,8 @@ backward's unfused-rounding mode; x then comes contiguous, and C is at most
 ``UNFUSED_SAVE_MAX_C`` (the kernel is built for one and two 128-channel
 output blocks).
 
-The kernel is two ``torch.library`` custom ops, ``fused_block`` (serving,
-either rounding) and ``fused_block_save`` (training), in the namespace
+The kernel is two ``torch.library`` custom ops, ``fused_block`` (serving)
+and ``fused_block_save`` (training), each in either rounding, in the namespace
 ``OPS``, each with a shape ("fake") implementation, so that
 ``torch.export`` and ``torch.compile`` see one node per block. On a CUDA
 tensor an op launches ``csrc/fused_block.cu`` (built at first use by
