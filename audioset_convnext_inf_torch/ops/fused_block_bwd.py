@@ -422,7 +422,8 @@ def _bwd_op(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps, unfused_r
 def _bwd_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps, unfused_rounding=False):
     b, h, w, c = x.shape
     dx, g = _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
-                           launch_plan(c, x.dtype, b, h, w, unfused_rounding))
+                           launch_plan(c, x.dtype, b, h, w, unfused_rounding),
+                           unfused=unfused_rounding)
     return (dx, *(g[k] for k in GRAD_KEYS))
 
 
@@ -435,11 +436,14 @@ def _bwd_fake(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps, unfused
 
 
 def _backward_cuda(x, d, dy, dw_w, ln_w, ln_b, w1, b1, w2, b2, gamma, s, eps,
-                   plan: BwdPlan, defines: Tuple[str, ...] = ()) -> Tuple[torch.Tensor, Grads]:
+                   plan: BwdPlan, defines: Tuple[str, ...] = (),
+                   unfused: bool = False) -> Tuple[torch.Tensor, Grads]:
     """One call of the kernel under ``plan`` (checked arguments, CUDA x),
-    from the library built with ``defines``, in the unfused-rounding mode
-    where the plan was made for it."""
-    unfused = "part_dg" in plan.workspace
+    from the library built with ``defines``; ``unfused``: the backward of
+    the unfused block's rounding points (bf16), under a plan made for it."""
+    if unfused != ("part_dg" in plan.workspace):
+        raise ValueError(f"fused_block_bwd: a plan made with unfused_rounding="
+                         f"{not unfused} for a call with unfused_rounding={unfused}")
     lib = _lib(defines)
     b, h, w, c = x.shape
     dt = x.dtype

@@ -1579,7 +1579,7 @@ def _unfused_counts():
 def run_training_path(device):
     """TRAIN_STEPS Trainer.step calls; each must launch K1 (save mode) and K2
     once per block, at stages 1-2 in their unfused-rounding modes. Returns
-    the launches over the run."""
+    the launches over the run and those in the unfused-rounding modes."""
     from audioset_convnext_inf_torch.engine.trainer import Trainer
     from audioset_convnext_inf_torch.ops.fused_block import fused_block
 
@@ -1602,7 +1602,7 @@ def run_training_path(device):
         if delta != (per_step, per_step, per_step) or unf != unf_step:
             raise AssertionError(f"training step {i} launched {delta}, expected {per_step} each; "
                                  f"unfused-rounding modes {unf}, expected {unf_step}")
-    launches = _counts()
+    launches, unfused = _counts(), _unfused_counts()
     check_fused_updates(trainer.optimizer, TRAIN_STEPS, "training path")
     _zero_counts()
     out = model.forward(pcm[:BATCH])
@@ -1614,7 +1614,7 @@ def run_training_path(device):
         raise AssertionError(f"eval forward after training launched {_counts()}")
     if not bool(torch.isfinite(out["clipwise_output"]).all()):
         raise AssertionError("eval forward after training is not finite")
-    return launches
+    return launches, unfused
 
 
 def _grad_err(got, ref):
@@ -2005,8 +2005,9 @@ def memory_index(target):
 class CliRunner:
     """Runs of cli/train.py::train over the in-memory training and
     evaluation sets, in the fused bf16 recipe; each step's loss and launch
-    deltas are recorded and checked (K1 save and K2 18 times a
-    step, and K1 12 times per evaluation batch before a step that evaluates)."""
+    deltas are recorded and checked (K1 save and K2 18 times a step, 6 of
+    them in the unfused-rounding modes, and K1 12 times per evaluation batch
+    before a step that evaluates)."""
 
     def __init__(self):
         pcm, self.target = train_batch(TRAIN_CLI_CLIPS, SEED + 31)
@@ -2015,6 +2016,7 @@ class CliRunner:
         self.data = MemoryDataset(pcm, self.target)
         self.edata = MemoryDataset(self.epcm, self.etarget)
         self.per = K1_TRAIN_STEP  # training steps
+        self.unf_per = (0, K1_TRAIN_UNFUSED, K1_TRAIN_UNFUSED)  # (K1, K1 save, K2) unfused
         self.eval_per = sum(K1_STAGES_34.values())  # f32 evaluation batches
         self.eval_batches = -(-TRAIN_CLI_EVAL // 32)
 
@@ -2029,7 +2031,9 @@ class CliRunner:
 
     def run(self, ws, early_stop, resume=0, on_step_extra=None):
         """One CLI run: per step its loss and launch deltas;
-        ``on_step_extra(iteration)`` runs inside each step's callback."""
+        ``on_step_extra(iteration)`` runs inside each step's callback.
+        Returns the steps, the run's launches and those in the
+        unfused-rounding modes."""
         from audioset_convnext_inf_torch.cli import train as train_cli
 
         root = logging.getLogger()
@@ -2039,12 +2043,12 @@ class CliRunner:
         def on_step(it, loss):  # after the step's loss reached the host
             if on_step_extra is not None:
                 on_step_extra(it)
-            counts = _counts()
+            counts = _counts() + _unfused_counts()
             steps.append((it, loss, tuple(a - b for a, b in zip(counts, last))))
             last[:] = counts
 
         _zero_counts()
-        last = list(_counts())
+        last = list(_counts() + _unfused_counts())
         args = train_cli.parse_args(self.flags(ws, early_stop, resume))
         try:
             train_cli.train(args, memory_index(self.target), {"test": memory_index(self.etarget)},
@@ -2058,13 +2062,14 @@ class CliRunner:
         torch.cuda.synchronize()
         for it, loss, d in steps:
             evals = it > 0 and it % 3 == 0  # the evaluation before this step
-            log(f"    step {it}: loss {loss:.6f}, launches (K1, K1 save, K2) {d}"
-                + (" (evaluation before it)" if evals else ""))
+            log(f"    step {it}: loss {loss:.6f}, launches (K1, K1 save, K2) {d[:3]}, in the "
+                f"unfused-rounding modes {d[3:]}" + (" (evaluation before it)" if evals else ""))
             per = self.per
             want = (per + (self.eval_per * self.eval_batches if evals else 0), per, per)
-            if d != want or not math.isfinite(loss):
-                raise AssertionError(f"step {it}: launches {d}, expected {want}; loss {loss}")
-        return steps, _counts()
+            if d != want + self.unf_per or not math.isfinite(loss):
+                raise AssertionError(f"step {it}: launches {d}, expected {want + self.unf_per}; "
+                                     f"loss {loss}")
+        return steps, _counts(), _unfused_counts()
 
 
 def _ckpt_params(ws, it):
@@ -2084,16 +2089,17 @@ def _param_diffs(pa, pc):
 
 
 def run_train_cli(runner):
-    """Phase 9. Returns (K1 serving, K1 save, K2) launches of the three runs
-    and the parameters of the 3-step run's checkpoint."""
+    """Phase 9. Returns (K1 serving, K1 save, K2) launches of the three runs,
+    the same in the unfused-rounding modes, and the parameters of the
+    3-step run's checkpoint."""
     from audioset_convnext_inf_torch.engine.trainer import TrainConfig, onecycle_lr
 
     straight, resumed = WORK / "train_straight", WORK / "train_resumed"
-    steps_a, counts_a = runner.run(straight, 6)
+    steps_a, counts_a, unf_a = runner.run(straight, 6)
     log(f"  straight run, 6 steps (2 evaluations of {TRAIN_CLI_EVAL} clips, 2 checkpoints)")
-    _, counts_b = runner.run(resumed, 3)
+    _, counts_b, unf_b = runner.run(resumed, 3)
     _, three = _ckpt_params(resumed, 3)
-    steps_c, counts_c = runner.run(resumed, 6, resume=3)
+    steps_c, counts_c, unf_c = runner.run(resumed, 6, resume=3)
     a, pa = _ckpt_params(straight, 6)
     c, pc = _ckpt_params(resumed, 6)
     sa, sc = (_leaves(x["sampler_state"]) for x in (a, c))
@@ -2113,7 +2119,8 @@ def run_train_cli(runner):
     if [s["iteration"] for s in stats["test"]] != [3] or not all(map(math.isfinite, maps)):
         raise AssertionError(f"statistics {stats}")
     counts = [sum(x) for x in zip(counts_a, counts_b, counts_c)]
-    return (counts[0] - counts[1], counts[1], counts[2]), three
+    unfused = tuple(sum(x) for x in zip(unf_a, unf_b, unf_c))
+    return (counts[0] - counts[1], counts[1], counts[2]), unfused, three
 
 
 # ---------------------------------------------------------------------------
@@ -2188,7 +2195,8 @@ def run_nccl_world_1(runner, three):
     """Phase 10(a): cli/train.py::train under a torchrun environment of one
     process (RANK=0, WORLD_SIZE=1): the NCCL group, the all-reduces of a
     group of one, 3 steps; the parameters within RESUME_PARAM_LIMIT of
-    phase 9's first 3 steps. Returns the (K1, K1 save, K2) launches."""
+    phase 9's first 3 steps. Returns the (K1, K1 save, K2) launches and
+    the same in the unfused-rounding modes."""
     from audioset_convnext_inf_torch.engine.trainer import TrainConfig, onecycle_lr
 
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
@@ -2203,7 +2211,7 @@ def run_nccl_world_1(runner, three):
 
     os.environ.update(env)
     try:
-        _, counts = runner.run(WORK / "train_nccl", 3, on_step_extra=probe)
+        _, counts, unfused = runner.run(WORK / "train_nccl", 3, on_step_extra=probe)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2220,7 +2228,7 @@ def run_nccl_world_1(runner, three):
         raise AssertionError(f"the CLI ran in {groups}, expected an NCCL group of one")
     if not pdiff <= limit:
         raise AssertionError("NCCL world-1 training is not phase 9's training")
-    return counts
+    return counts, unfused
 
 
 def dp_worker(rank, world, rendezvous, out, device):
@@ -2243,7 +2251,7 @@ def dp_worker(rank, world, rendezvous, out, device):
         for _ in range(2):
             _zero_counts()
             loss = trainer.step(pcm, target)
-            steps.append({"loss": loss, "launches": _counts()})
+            steps.append({"loss": loss, "launches": _counts(), "unfused": _unfused_counts()})
             if state is None:
                 state = {k: v.detach().float().cpu().numpy()
                          for k, v in trainer.model.state_dict().items()}
@@ -2259,7 +2267,8 @@ def dp_worker(rank, world, rendezvous, out, device):
 
 def run_dp_pair(device):
     """Phase 10(b): the gloo pair against one process's step. Returns the
-    (K1 save, K2) launches of both ranks' steps."""
+    (K1 save, K2) launches of both ranks' steps, then the same in the
+    unfused-rounding modes."""
     import torch.multiprocessing as mp
 
     from audioset_convnext_inf_torch.engine.trainer import Trainer, TrainConfig, onecycle_lr
@@ -2292,7 +2301,7 @@ def run_dp_pair(device):
     for r in range(DP_WORLD):
         with open(out / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
-    launches = [0, 0]
+    launches = [0, 0, 0, 0]
     buffers = ("bn0.running_mean", "bn0.running_var")
     for label, bf16, fused, dp, precision in DP_CASES:
         (ref_loss, ref, ref_grads), again, f32 = refs[label]
@@ -2334,14 +2343,20 @@ def run_dp_pair(device):
         for r, x in enumerate(ranks):
             for i, st in enumerate(x[label]["steps"]):
                 log(f"    rank {r} step {i}: loss {st['loss']:.6f}, launches (K1, K1 save, K2) "
-                    f"{st['launches']}")
+                    f"{st['launches']}, in the unfused-rounding modes {st['unfused']}")
                 per = K1_TRAIN_STEP if bf16 else sum(K1_STAGES_34.values())
                 want = (per, per, per) if fused else (0, 0, 0)
-                if st["launches"] != want or not math.isfinite(st["loss"]):
+                unf = K1_TRAIN_UNFUSED if bf16 and fused else 0
+                if st["launches"] != want or st["unfused"] != (0, unf, unf) \
+                        or not math.isfinite(st["loss"]):
                     raise AssertionError(f"{label} rank {r} step {i}: launches {st['launches']}, "
-                                         f"expected {want}; loss {st['loss']}")
+                                         f"expected {want}; in the unfused-rounding modes "
+                                         f"{st['unfused']}, expected (0, {unf}, {unf}); loss "
+                                         f"{st['loss']}")
                 launches[0] += st["launches"][1]
                 launches[1] += st["launches"][2]
+                launches[2] += st["unfused"][1]
+                launches[3] += st["unfused"][2]
         if not (same and lerr <= DP_LOSS_RTOL[bf16] and pdiff <= plimit
                 and sdiff <= DP_STAT_RTOL[bf16]
                 and gworst <= (1.0 if bf16 else DP_GRAD_RTOL)):
@@ -3577,6 +3592,7 @@ class LearnRun(NamedTuple):
 
     losses: np.ndarray
     launches: tuple  # (K1, K1 save, K2) over the run
+    unfused: tuple  # the same in the unfused-rounding modes
     state: dict  # the trained weights
     cfg: object
 
@@ -3611,14 +3627,14 @@ def learn_run(device, fused: bool, clips, targets, label: str) -> LearnRun:
             raise AssertionError(f"learning step {step} launched (K1, K1 save, K2) {delta}, "
                                  f"expected {per_step} each; in the unfused-rounding modes "
                                  f"{unf}, expected (0, {unf_step}, {unf_step})")
-    launches = _counts()
+    launches, unfused = _counts(), _unfused_counts()
     check_fused_updates(trainer.optimizer, LEARN_STEPS, label)
     losses = torch.stack(losses).float().cpu().numpy()
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite loss at steps {np.where(~np.isfinite(losses))[0][:10]}")
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     _zero_counts()
-    return LearnRun(losses, launches, state, model.cfg)
+    return LearnRun(losses, launches, unfused, state, model.cfg)
 
 
 def learn_gates(label, device, run: LearnRun, clips, targets):
@@ -3739,8 +3755,9 @@ def check_transfer_learns(device):
 
 
 def run_learning_phase(device):
-    """Phase 15. Returns the fused run's K1 save-mode and K2 launches and
-    the K1 serving launches of the evaluations."""
+    """Phase 15. Returns the fused run's K1 save-mode and K2 launches, the
+    same in the unfused-rounding modes, and the K1 serving launches of the
+    evaluations."""
     WORK.mkdir(parents=True, exist_ok=True)
     clips, targets = tone_clips(4, 0)
     labels = {True: "(a) fused", False: "(b) unfused"}
@@ -3761,14 +3778,14 @@ def run_learning_phase(device):
     from audioset_convnext_inf_torch.checkpoint.io import save_safetensors
 
     save_safetensors(runs[True].state, str(path))
-    launches = runs[True].launches
+    launches, unfused = runs[True].launches, runs[True].unfused
     del runs
     torch.cuda.empty_cache()
     serving += check_serving_parity(device, path)
     torch.cuda.empty_cache()
     check_transfer_learns(device)
     shutil.rmtree(WORK)
-    return launches[1], launches[2], serving
+    return launches[1:], unfused[1:], serving
 
 
 def _leaves(tree):
@@ -3867,7 +3884,7 @@ def run_phases() -> int:
 
     phase(f"[5/15] training path: convnext_tiny, {TRAIN_CLIPS} x 10-s clips per step, "
         f"{TRAIN_STEPS} steps")
-    train_launches = run_training_path(device)
+    train_launches, train_unf = run_training_path(device)
     check_fused_vs_unfused(device)
 
     phase(f"[6/15] kernel table: each kernel alone on {card}")
@@ -3899,12 +3916,12 @@ def run_phases() -> int:
 
     phase("[9/15] training CLI loop: convnext_tiny, fused bf16 recipe, in-memory data")
     runner = CliRunner()
-    cli_launches, three = run_train_cli(runner)
+    cli_launches, cli_unf, three = run_train_cli(runner)
 
     phase("[10/15] data parallelism on the one card")
     torch.cuda.empty_cache()
     log("  (a) cli/train.py under torchrun's environment, world size 1, NCCL")
-    nccl_launches = run_nccl_world_1(runner, three)
+    nccl_launches, nccl_unf = run_nccl_world_1(runner, three)
     del three
     log(f"  (b) {DP_WORLD} processes, backend gloo, one Trainer step of {TRAIN_CLIPS} clips")
     torch.cuda.empty_cache()
@@ -3934,8 +3951,18 @@ def run_phases() -> int:
 
     phase(f"[15/15] learning certificates: convnext_tiny fused and unfused bf16 recipe, "
           f"{LEARN_STEPS} steps; serving parity with the trained weights; Cnn14 transfer")
-    learn_save, learn_bwd, learn_serving = run_learning_phase(device)
+    learn_launches, learn_unf, learn_serving = run_learning_phase(device)
     phase("done")
+
+    # K1 save-mode and K2 launches of the training phases (5, 9, 10(a-b),
+    # 15(a)): all of them, and those at stages 1-2 in the unfused-rounding
+    # modes; each kernel-table row counts its own mode's
+    n_save, n_bwd = (train_launches[i] + cli_launches[i] + nccl_launches[i]
+                     + pair_launches[i - 1] + learn_launches[i - 1] for i in (1, 2))
+    n_save_unf, n_bwd_unf = (train_unf[i] + cli_unf[i] + nccl_unf[i] + pair_launches[i + 1]
+                             + learn_unf[i - 1] for i in (1, 2))
+    log(f"  training phases: K1 save {n_save} launches ({n_save_unf} in the unfused-rounding "
+        f"mode), K2 {n_bwd} ({n_bwd_unf})")
 
     kernels = [
         _entry("fused_block", "fused_block.cu", "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53",
@@ -3948,28 +3975,26 @@ def run_phases() -> int:
                K1_MAIN_PATH, unfused, err_cases=K1_SERVING_CASES),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True)",
-               train_launches[1] + cli_launches[1] + nccl_launches[1] + pair_launches[0]
-               + learn_save,
-               k1s_results, save_shape, "training forward (save mode; phases 5, 9, 10(a-b), 15(a))",
+               n_save - n_save_unf, k1s_results, save_shape,
+               "training forward, stages 3-4 (save mode; phases 5, 9, 10(a-b), 15(a))",
                K1_STAGES_34, unfused),
         _entry("fused_block_bwd", "fused_block_bwd.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66",
-               train_launches[2] + cli_launches[2] + nccl_launches[2] + pair_launches[1]
-               + learn_bwd,
-               k2_results, k2_shape, "training backward (phases 5, 9, 10(a-b), 15(a))",
+               n_bwd - n_bwd_unf, k2_results, k2_shape,
+               "training backward, stages 3-4 (phases 5, 9, 10(a-b), 15(a))",
                K1_STAGES_34, unfused_bwd),
         _entry("fused_block_save", "fused_block.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block.py:53 (save_d=True), at "
                "_block_apply's rounding points",
-               K1_TRAIN_UNFUSED * (TRAIN_STEPS + LEARN_STEPS), k1u_results, save_unf,
-               "training forward, unfused rounding, stages 1-2 (the phases of the save mode; "
-               "launches: phases 5, 15(a))", TRAIN_UNFUSED_PATH, train_fwd),
+               n_save_unf, k1u_results, save_unf,
+               "training forward, unfused rounding, stages 1-2 (save mode; phases 5, 9, "
+               "10(a-b), 15(a))", TRAIN_UNFUSED_PATH, train_fwd),
         _entry("fused_block_bwd", "fused_block_bwd.cu",
                "audioset_convnext_inf_tpu/ops/pallas_fused_block_bwd.py:66, at _block_apply's "
                "rounding points",
-               K1_TRAIN_UNFUSED * (TRAIN_STEPS + LEARN_STEPS), k2u_results, k2_unf,
-               "training backward, unfused rounding, stages 1-2 (the phases of K2; launches: "
-               "phases 5, 15(a))", TRAIN_UNFUSED_PATH, train_bwd),
+               n_bwd_unf, k2u_results, k2_unf,
+               "training backward, unfused rounding, stages 1-2 (phases 5, 9, 10(a-b), "
+               "15(a))", TRAIN_UNFUSED_PATH, train_bwd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

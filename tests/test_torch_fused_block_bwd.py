@@ -6,7 +6,9 @@ held against ``jax.vjp`` of the JAX package's XLA block (``_block_apply``
 with the tanh GELU and drop path), whose gradients are the ground truth of
 the fused backward; in bf16, one case each is held against the JAX
 package's Pallas kernels in interpret mode (as its own tests run them), at
-the smallest shape they take, which holds the rounding points. The CUDA
+the smallest shape they take, which holds the rounding points; the
+unfused-rounding mode, which rounds where the XLA block rounds in bf16, is
+held against ``jax.vjp`` of that block in bf16. The CUDA
 kernels are compared with the plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -320,6 +322,66 @@ def test_unfused_rounding_bwd_is_autograd_of_the_unfused_block(rng, shape):
         assert p.grad.dtype == torch.float32 and torch.equal(p.grad, g[name]), name
 
 
+def _jax_block_and_vjp(x, dy, p, key, drop, dtype):
+    """y and (dx and the nine gradients, port layouts) of ``jax.vjp`` of
+    the JAX package's XLA block (tanh GELU, drop path under ``key``), its
+    activations in ``dtype``, all as f32 arrays."""
+    def f(x, p, dy):
+        y, vjp = jax.vjp(lambda x, p: _block_apply(x, p, EPS, drop, key, "xla_approx"), x, p)
+        return y, vjp(dy)
+
+    xj, dyj = (jnp.asarray(a.float().numpy()).astype(dtype) for a in (x, dy))
+    y, (dx, g) = jax.jit(f)(xj, p, dyj)
+    g = _jax_grads_as_port(g)
+    as32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))  # noqa: E731
+    return as32(y), [as32(dx)] + [as32(g[k]) for k in NAMES]
+
+
+@pytest.mark.parametrize("shape,seed", [((4, 9, 7, 96), 9), ((3, 6, 5, 192), 6)],
+                         ids=["stage1-width", "stage2-width"])
+def test_unfused_rounding_block_is_jax_vjp_of_the_bf16_block(rng, shape, seed):
+    """FusedBlockTrain in the unfused-rounding mode (the save op's forward,
+    the backward op's twin) against ``jax.vjp`` of the JAX package's XLA
+    block in bf16, on the same x, dy and drop-path draw (a dropped sample
+    and kept ones). The two round at the same points but one: ATen's tanh
+    GELU rounds once, the JAX package's rounds each step of its bf16
+    expression, and 40% of the hidden units differ by an ulp. So y within
+    2^-6 of scale (K1's bf16 bound; measured under 1.0e-2), a dropped sample's y
+    its x bit for bit, and dx and each of the nine gradients within 2^-5 of
+    scale (as against the port's own bf16 autograd; measured under 2^-6 but
+    dgamma at the stage-1 width, 2.7e-2: the JAX block's own bf16 error,
+    2.9e-2 from the f32 block against the port's 6.5e-3). Against the f32
+    block's jax.vjp on the same inputs, y and the ten gradients on the mean
+    are no farther than the JAX package's own bf16 block."""
+    key, drop, s = _drop_path_case(shape[0], seed=seed)
+    p = _params(rng, shape[-1])
+    args = _torch_args(p)
+    x = _t(rng.randn(*shape) * 0.5).float().to(torch.bfloat16)
+    dy = _t(rng.randn(*shape)).float().to(torch.bfloat16)
+    xs = x.detach().requires_grad_()
+    ps = [a.detach().clone().requires_grad_() for a in args]
+    y = FusedBlockTrain.apply(xs, *ps, s, EPS, True)
+    y.backward(dy)
+    port = [xs.grad.float().numpy()] + [q.grad.numpy() for q in ps]
+    y_bf16, bf16 = _jax_block_and_vjp(x, dy, p, key, drop, jnp.bfloat16)
+    y_f32, f32 = _jax_block_and_vjp(x, dy, p, key, drop, jnp.float32)
+    y = y.detach().float().numpy()
+    _assert_close(y, y_bf16, 2.0 ** -6, "y")
+    dropped = s.numpy() == 0
+    assert dropped.any() and np.array_equal(y[dropped], x.float().numpy()[dropped])
+    for name, a, r in zip(("x",) + NAMES, port, bf16):
+        assert a.shape == r.shape, name
+        _assert_close(a, r, 2.0 ** -5, name)
+
+    def rel(a, r):
+        return float(np.linalg.norm(a - r) / np.linalg.norm(r))
+
+    assert rel(y, y_f32) <= rel(y_bf16, y_f32)
+    gaps = [rel(a, r) for a, r in zip(port, f32)]
+    jax_gaps = [rel(a, r) for a, r in zip(bf16, f32)]
+    assert np.mean(gaps) <= np.mean(jax_gaps), (gaps, jax_gaps)
+
+
 def test_unfused_rounding_bwd_differs_from_the_own_rounding_where_it_should(rng):
     """The mode's twin takes gamma, s and the taps in bf16 and dgamma from
     the saved z: on the same x, d and dy its dgamma is sum dy*s * z, and it
@@ -354,3 +416,8 @@ def test_unfused_rounding_bwd_passes_opcheck_and_checks_its_arguments(rng):
         FBB.fused_block_bwd(x.float(), dz.float(), dy.float(), *wts, s, EPS, True)
     with pytest.raises(TypeError, match="bfloat16"):
         FBB.launch_plan(32, torch.float32, 2, 5, 6, unfused_rounding=True)
+    # the kernel's mode is the call's, and its plan must have been made for it
+    for made_for in (False, True):
+        plan = FBB.launch_plan(32, torch.bfloat16, 2, 5, 6, unfused_rounding=made_for)
+        with pytest.raises(ValueError, match="plan made with"):
+            FBB._backward_cuda(x, dz, dy, *wts, s, EPS, plan, unfused=not made_for)
